@@ -85,6 +85,11 @@ def pytest_configure(config):
         " randomized sweep is additionally marked slow (CHAOS_SMOKE=1"
         " shrinks it to the fast deterministic mode).",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the pilosa_tpu_torch kernels have no "
+        "interpret mode); skipped where torch.cuda.is_available() is false",
+    )
 
 
 class FakeClock:
