@@ -10,28 +10,36 @@ Phases, each of which fails the run if it fails:
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — nvcc builds K1 and K2 from pilosa_tpu_torch/csrc.
 3. kernels — each kernel against its plain PyTorch twin on the same CUDA
-             tensors, exact equality: K1 at small shapes (2 leaves, 3
-             leaves with Difference, a deep k-ary nest, ragged S), at
-             engine.count's Q=1 over S=256, W=32768 (2 leaves and the
-             nest) and at the serving shape (U=128, S=256, W=32768, L=2,
-             Q=256); K2 at R=128 and R=1, S=256, with and without a mask.
-             Times (CUDA events), bytes moved, and bounds (K1's counts the
+             tensors, exact equality. K1: both variants (staged and
+             streaming) and k1_plan's choice, at small shapes (2 leaves,
+             3 leaves with Difference, a deep k-ary nest, ragged S, a
+             ragged tail, Q=5000), on trees past the old tape limits
+             (a 300-leaf Union, a chain 40 deep, a Difference with
+             50 tails, a 40-row tree), at engine.count's Q=1 over S=256,
+             W=32768 (2 leaves, the nest, a 40-row Union) and at the
+             serving shape (U=128, S=256, W=32768, L=2, Q=256). K2 at
+             R=128 and R=1, S=256, with and without a mask. Kernel times
+             from torch.profiler's device time (CUDA events where it
+             shows none): K1 staged and streaming at the serving shape,
+             streaming at Q=1. Bytes moved, and bounds (K1's counts the
              distinct slots a batch names, each read once).
 4. main    — the bench_big serving shape through the port's entry
              points: index "big", field "f", 256 shards x 128 rows of
              random ~50%-density planes made from --seed and injected as
              dense containers (4 GiB on the host). (a) Executor.execute
              Count(Intersect) for several pairs plus a Union/Difference/
-             Xor nest, (b) engine.count_batch over 256 distinct pairs, then
-             timed batches, (c) TopN(f, n=10) and TopN(f, Row(f=a), n=10),
-             (d) a Set on one shard and a recount (the stale stack is
-             re-gathered). Every answer is checked against numpy on the
-             fragments' host planes (TopN against a numpy replay of the
-             two-phase ranking).
+             Xor nest and a 40-row Union, (b) engine.count_batch over 256
+             distinct pairs, then timed batches, (c) TopN(f, n=10) and
+             TopN(f, Row(f=a), n=10), (d) a Set on one shard and a
+             recount (the stale stack is re-gathered). Every answer is
+             checked against numpy on the fragments' host planes (TopN
+             against a numpy replay of the two-phase ranking).
 5. kernel line — launch counters set to 0 just before each path of
              phase 4 and read just after it: K1 above 0 in (a), (b) and
-             (d), K2 above 0 in the filtered TopN, the plain twins at 0
-             in every path; the line carries their sums.
+             (d) — its streaming variant only in the single Counts of
+             (a), its staged variant in the batches of (b) — K2 above 0
+             in the filtered TopN, the plain twins at 0 in every path;
+             the line carries their sums.
 
 It prints the nvidia-smi line and a {"kernels": [...]} JSON line before
 the last line, and as its last line {"ok": true, "device": {...}}. With
@@ -65,8 +73,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(torch, fn, reps: int, warm: int = 1) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
+def cuda_time_ms(torch, fn, reps: int, warm: int = 1, inner: int = 1) -> float:
+    """Median milliseconds per call of fn() on the current stream (CUDA
+    events around `inner` back-to-back calls)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -75,10 +84,11 @@ def cuda_time_ms(torch, fn, reps: int, warm: int = 1) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -98,6 +108,68 @@ def nvidia_smi() -> str:
 # ------------------------------------------------------------ phase 3
 
 
+def device_ms(torch, fn, kernel: str, reps: int = 10):
+    """Mean device time (ms) per launch of the CUDA kernels whose name
+    contains `kernel`, from torch.profiler over `reps` calls of fn(); None
+    when the profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = count = 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total_us += getattr(ev, "device_time_total", None) or ev.cuda_time_total
+            count += ev.count
+    return total_us / count / 1e3 if count else None
+
+
+def kernel_ms(torch, fn, kernel: str, reps: int = 10):
+    """(ms, method): the profiler's device time of the kernel, or, where
+    the profiler shows none, CUDA events around bursts of 5 calls."""
+    ms = device_ms(torch, fn, kernel, reps)
+    if ms is not None:
+        return ms, "profiler"
+    return cuda_time_ms(torch, fn, reps, inner=5), "events"
+
+
+def leaf(i):
+    return ("leaf", i)
+
+
+def chain(depth: int):
+    """Every set-op kind, nested `depth` deep, one new leaf per level."""
+    node = leaf(0)
+    kinds = ("Intersect", "Union", "Xor", "Difference")
+    for i in range(1, depth + 1):
+        kind = kinds[i % 4]
+        if kind == "Difference":
+            node = (("Difference", node, (leaf(i),)) if i % 8 else
+                    ("Difference", leaf(i), (node,)))
+        else:
+            node = (kind, (leaf(i), node) if i % 3 else (node, leaf(i)))
+    return node
+
+
+# Trees past the old tape limits (more than 64 tape ops, 8 deep, or 32
+# distinct rows): (IR, leaf positions).
+BIG_TREES = {
+    "300-leaf Union": (("Union", tuple(leaf(i) for i in range(300))), 300),
+    "chain 40 deep": (chain(40), 41),
+    "Difference with 50 tails": (
+        ("Difference", leaf(0), tuple(
+            leaf(i) if i % 5 else ("Intersect", (leaf(i), leaf(i - 1)))
+            for i in range(1, 51))), 51),
+    "40-row Xor of Intersects and Unions": (
+        ("Xor", tuple((("Intersect" if g % 2 else "Union"),
+                       tuple(leaf(5 * g + k) for k in range(5))) for g in range(8))), 40),
+}
+
+
 def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
                   dev="cuda"):
     """Each kernel against its twin on the card; returns per-kernel rows.
@@ -114,38 +186,63 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
         return torch.randint(-(1 << 31), (1 << 31) - 1, shape, dtype=torch.int32,
                              device=dev, generator=g)
 
+    def k1_hold(name, stacked, idxs, tape, want=None):
+        """Both variants (the staged one where its ring holds the slots)
+        and k1_plan's choice against the twin, exactly. Returns the
+        variants that ran and k1_plan's."""
+        if want is None:
+            want = kernels.gather_expr_count_plain(stacked, idxs, tape)
+        distinct = max(len(r) for r in kernels.k1_tiles(idxs.numpy())[0])
+        ran = [v for v in kernels.K1_VARIANTS
+               if v == "streaming" or kernels.k1_ring_stages(distinct) >= 2]
+        before = dict(kernels.LAUNCHES)
+        for variant in ran + [None]:
+            got = kernels.gather_expr_count(stacked, idxs, tape, variant=variant)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            maxerr["gather_expr_count"] = max(maxerr["gather_expr_count"], err)
+            if err:
+                raise AssertionError(f"K1 {name} ({variant or 'k1_plan'}): kernel != twin "
+                                     f"(max err {err})")
+        chosen = kernels.k1_plan(distinct, idxs.shape[1])[0]
+        for v in kernels.K1_VARIANTS:
+            n = kernels.LAUNCHES[f"gather_expr_count_{v}"] - before[f"gather_expr_count_{v}"]
+            assert n == (v in ran) + (v == chosen), (name, v, n)
+        return ran, chosen
+
     def k1_case(name, u, s, w, ir, q, distinct=False):
         stacked = rand_planes((u, s, w))
         tape = P(ir)
-        n_leaves = max(c >> 8 for c in tape if c & 0xFF == 0) + 1
+        n_leaves = max(c >> 8 for c in tape if c & 0xFF == 0 or c & kernels.OP_ACC) + 1
         if distinct:  # one query over slots 0..L-1, as engine.count gives it
             idxs = torch.arange(n_leaves, dtype=torch.int32).reshape(n_leaves, 1)
         else:
             idxs = torch.from_numpy(
                 rng.integers(0, u, size=(n_leaves, q)).astype(np.int32))
-        got = kernels.gather_expr_count(stacked, idxs, tape)
-        want = kernels.gather_expr_count_plain(stacked, idxs, tape)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        maxerr["gather_expr_count"] = max(maxerr["gather_expr_count"], err)
-        if err:
-            raise AssertionError(f"K1 {name}: kernel != twin (max err {err})")
-        log(f"K1 {name}: U={u} S={s} W={w} L={n_leaves} Q={q} tape={len(tape)} ops: exact")
+        ran, chosen = k1_hold(name, stacked, idxs, tape)
+        log(f"K1 {name}: U={u} S={s} W={w} L={n_leaves} Q={q} tape={len(tape)} ops "
+            f"depth {kernels.tape_depth(tape)}: exact ({', '.join(ran)}; k1_plan {chosen})")
 
-    leaf = lambda i: ("leaf", i)  # noqa: E731
-    k1_case("2 leaves", 8, 4, 256, ("Intersect", (leaf(0), leaf(1))), 16)
-    k1_case("3 leaves Difference", 8, 4, 512,
-            ("Difference", leaf(0), (leaf(1), leaf(2))), 16)
     nest = ("Xor", (("Intersect", (("Union", (leaf(0), leaf(1))), leaf(2),
                                    ("Difference", leaf(3), (leaf(4), leaf(5))))),
                     ("Union", (leaf(6), ("Intersect", (leaf(7), leaf(8))))),
                     leaf(9)))
+    k1_case("2 leaves", 8, 4, 256, ("Intersect", (leaf(0), leaf(1))), 16)
+    k1_case("3 leaves Difference", 8, 4, 512,
+            ("Difference", leaf(0), (leaf(1), leaf(2))), 16)
     k1_case("deep k-ary nest", 16, 3, 1024, nest, 12)
     k1_case("ragged S", 6, 5, 32768, ("Union", (leaf(0), leaf(1), leaf(2))), 7)
+    k1_case("ragged tail", 7, 3, 1028, ("Difference", leaf(0), (leaf(1), leaf(2))), 9)
+    k1_case("Q=5000", 64, 2, 1024, ("Intersect", (leaf(0), ("Union", (leaf(1), leaf(2))))),
+            5000)
+    for name, (ir, _) in BIG_TREES.items():
+        k1_case(name, 48, 3, 512, ir, 4)
     # engine.count's shapes on the main path: Q=1 over the full S, W.
     k1_case("single Count, 2 leaves", 2, s, WORDS_PER_ROW,
             ("Intersect", (leaf(0), leaf(1))), 1, distinct=True)
     k1_case("single Count, nest", 10, s, WORDS_PER_ROW, nest, 1, distinct=True)
+    k1_case("single Count, 40-row Union", 40, s, WORDS_PER_ROW,
+            ("Union", tuple(leaf(i) for i in range(40))), 1, distinct=True)
 
     # Serving shape (bench_big): U=128, S=256, W=32768, L=2, Q=256.
     w = WORDS_PER_ROW
@@ -153,23 +250,38 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
     pairs = distinct_pairs(rng, u, q)
     idxs = torch.from_numpy(np.ascontiguousarray(pairs.T.astype(np.int32)))
     tape = P(("Intersect", (leaf(0), leaf(1))))
-    got = kernels.gather_expr_count(stacked, idxs, tape)
     want = kernels.gather_expr_count_plain(stacked, idxs, tape)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    maxerr["gather_expr_count"] = max(maxerr["gather_expr_count"], err)
-    if err:
-        raise AssertionError(f"K1 serving shape: kernel != twin (max err {err})")
-    k1_ms = cuda_time_ms(torch, lambda: kernels.gather_expr_count(stacked, idxs, tape), 10)
+    ran, chosen = k1_hold("serving shape", stacked, idxs, tape, want)
+    assert chosen == "staged" and "staged" in ran, (ran, chosen)
+    k1_unique = int(torch.unique(idxs).numel())
+    k1_stages = kernels.k1_ring_stages(k1_unique)
+    timed = {}
+    for variant in kernels.K1_VARIANTS:
+        timed[variant] = kernel_ms(
+            torch, lambda v=variant: kernels.gather_expr_count(stacked, idxs, tape, variant=v),
+            f"k1_{variant}_kernel")
+    k1_ms, k1_method = timed["staged"]
+    # Also by CUDA events around one call, median of 10 (the wrapper's
+    # host work before the launch included), the way earlier commits'
+    # chip_smoke.py timed K1, for comparison with their runs.
+    k1_events_ms = cuda_time_ms(torch, lambda: kernels.gather_expr_count(stacked, idxs, tape), 10)
     k1_plain_ms = cuda_time_ms(
         torch, lambda: kernels.gather_expr_count_plain(stacked, idxs, tape), 1, warm=0)
     # The least the function must move: each DISTINCT slot the batch names
     # read once, the slot ids read once, the (Q,) int64 sums written once.
-    k1_unique = int(torch.unique(idxs).numel())
     k1_bytes = k1_unique * s * w * 4 + idxs.numel() * 4 + q * 8
     k1_ops = q * s * w * 3  # AND, popc, add per word
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    k1_streamed = q * 2 * s * w * 4  # what this kernel's grid order reads
+    k1_operand_bytes = q * 2 * s * w * 4  # every query's two planes
+
+    # engine.count's single Count (Q=1, 2 leaves) on the streaming variant.
+    one = torch.tensor([[int(pairs[0, 0])], [int(pairs[0, 1])]], dtype=torch.int32)
+    ran1, chosen1 = k1_hold("single Count at the serving planes", stacked, one, tape)
+    assert chosen1 == "streaming", chosen1
+    k1q1_ms, k1q1_method = kernel_ms(
+        torch, lambda: kernels.gather_expr_count(stacked, one, tape), "k1_streaming_kernel", 50)
+    k1q1_bytes = 2 * s * w * 4 + 2 * 4 + 8
+    k1q1_bound, k1q1_by = bound(k1q1_bytes, s * w * 3)
 
     # Copy bandwidth of the same byte count, same script (the bound a
     # plain device copy reaches on this card).
@@ -179,13 +291,18 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
     copy_ms = cuda_time_ms(torch, lambda: dst.copy_(src), 10)
     copy_bw = 2 * n_copy * 4 / (copy_ms * 1e-3)
     del src, dst
-    log(f"K1 serving shape U={u} S={s} W={w} L=2 Q={q}: exact; kernel {k1_ms:.4f} ms, "
-        f"twin {k1_plain_ms:.2f} ms; {k1_unique} distinct slots, {k1_bytes / 1e9:.3f} GB "
-        f"needed -> {k1_bytes / (k1_ms * 1e-3) / 1e9:.1f} GB/s; bound {k1_bound:.4f} ms "
-        f"at the 3.35 TB/s data sheet, {k1_bytes / copy_bw * 1e3:.4f} ms at the "
-        f"measured copy rate {copy_bw / 1e9:.1f} GB/s; the kernel streams "
-        f"{k1_streamed / 1e9:.3f} GB ({k1_streamed / (k1_ms * 1e-3) / 1e9:.1f} GB/s "
-        f"from L2/HBM)")
+    log(f"K1 serving shape U={u} S={s} W={w} L=2 Q={q}: exact ({', '.join(ran)}; k1_plan "
+        f"{chosen}, {k1_stages} ring stages); {k1_unique} distinct slots, "
+        f"{k1_bytes / 1e9:.3f} GB needed, bound {k1_bound:.4f} ms at the 3.35 TB/s data "
+        f"sheet, {k1_bytes / copy_bw * 1e3:.4f} ms at the measured copy rate "
+        f"{copy_bw / 1e9:.1f} GB/s; twin {k1_plain_ms:.2f} ms; k1_plan's choice "
+        f"{k1_events_ms:.4f} ms per call by CUDA events around one call")
+    for variant, (ms, method) in timed.items():
+        log(f"K1 {variant} at the serving shape: {ms:.4f} ms ({method}), "
+            f"{k1_bound / ms:.3f} of the bound, {k1_bytes / (ms * 1e-3) / 1e9:.1f} GB/s of "
+            f"distinct slots, {k1_operand_bytes / (ms * 1e-3) / 1e9:.1f} GB/s of operands")
+    log(f"K1 streaming at Q=1 (engine.count, 2 leaves, S={s} W={w}): {k1q1_ms:.4f} ms "
+        f"({k1q1_method}); bound {k1q1_bound:.4f} ms ({k1q1_bytes / 1e6:.1f} MB)")
 
     # K2 over the whole candidate stack (R=128, S=256 by default), with and
     # without a mask, and at the main path's TopN chunk (R=64 at 256
@@ -204,15 +321,16 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
         maxerr["masked_plane_counts"] = max(maxerr["masked_plane_counts"], err)
         if err:
             raise AssertionError(f"K2 {label}: kernel != twin (max err {err})")
-        ms = cuda_time_ms(torch, lambda: kernels.masked_plane_counts(rows, m), 10)
+        ms, method = kernel_ms(torch, lambda: kernels.masked_plane_counts(rows, m),
+                               "masked_plane_counts_kernel")
         plain_ms = cuda_time_ms(
             torch, lambda: kernels.masked_plane_counts_plain(rows, m), 1, warm=0)
         nbytes = (u * s * w + (s * w if m is not None else 0)) * 4 + u * s * 4
         ops = u * s * w * (3 if m is not None else 2)
         b_ms, b_by = bound(nbytes, ops)
-        k2[label] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=b_ms,
+        k2[label] = dict(ms=ms, method=method, plain_ms=plain_ms, bytes=nbytes, bound_ms=b_ms,
                          bound_by=b_by, bound_copy_ms=nbytes / copy_bw * 1e3)
-        log(f"K2 {label} R={u} S={s} W={w}: exact; kernel {ms:.4f} ms, twin "
+        log(f"K2 {label} R={u} S={s} W={w}: exact; kernel {ms:.4f} ms ({method}), twin "
             f"{plain_ms:.2f} ms, {nbytes / 1e9:.3f} GB -> {nbytes / (ms * 1e-3) / 1e9:.1f} "
             f"GB/s; bound {b_ms:.4f} ms (data sheet), {nbytes / copy_bw * 1e3:.4f} ms "
             f"(measured copy)")
@@ -233,10 +351,13 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
     del stacked, rows, mask
     torch.cuda.empty_cache()
     report["kernel_phase"] = {
-        "k1_serving": dict(ms=k1_ms, plain_ms=k1_plain_ms, bytes=k1_bytes,
-                           distinct_slots=k1_unique, streamed_bytes=k1_streamed,
-                           bound_ms=k1_bound, bound_by=k1_by,
-                           bound_copy_ms=k1_bytes / copy_bw * 1e3),
+        "k1_serving": dict(ms=k1_ms, method=k1_method, plain_ms=k1_plain_ms,
+                           bytes=k1_bytes, distinct_slots=k1_unique, ring_stages=k1_stages,
+                           operand_bytes=k1_operand_bytes, bound_ms=k1_bound,
+                           bound_by=k1_by, bound_copy_ms=k1_bytes / copy_bw * 1e3,
+                           streaming_ms=timed["streaming"][0], events_ms=k1_events_ms),
+        "k1_single": dict(ms=k1q1_ms, method=k1q1_method, bytes=k1q1_bytes,
+                          bound_ms=k1q1_bound, bound_by=k1q1_by),
         "k2": k2, "copy_gbs": copy_bw / 1e9, "max_abs_err": maxerr,
     }
     return {
@@ -373,7 +494,7 @@ def main_path(torch, pt, kernels, args, rng, report):
         kernels.reset_counters()
         return name
 
-    def end(name, *need):
+    def end(name, *need, none=()):
         torch.cuda.synchronize()
         got = {"launches": dict(kernels.LAUNCHES), "plain_calls": dict(kernels.PLAIN_CALLS)}
         phases[name] = got
@@ -381,6 +502,8 @@ def main_path(torch, pt, kernels, args, rng, report):
         assert not any(got["plain_calls"].values()), (name, got)
         for k in need:
             assert got["launches"][k] > 0, (name, k, got)
+        for k in none:
+            assert got["launches"][k] == 0, (name, k, got)
 
     # ---- (a) Count through Executor.execute
     ph = start("a_execute_count")
@@ -400,10 +523,20 @@ def main_path(torch, pt, kernels, args, rng, report):
     want = np_count(u & ~((H[4] ^ H[5]) | (H[6] & H[7])))
     del u
     assert got == want, (got, want)
-    log(f"main (a): Executor Count(Intersect) x{len(pairs_a)} and the "
-        f"Union/Difference/Xor nest equal numpy (first, cold: "
+    # 40 distinct rows in one tree: past the old 32-row tape limit.
+    got = ex.execute("big", "Count(Union(" + ", ".join(
+        f"Row(f={r})" for r in range(40)) + "))")[0]
+    u = H[0].copy()
+    for r in range(1, 40):
+        u |= H[r]
+    want = np_count(u)
+    del u
+    assert got == want, (got, want)
+    log(f"main (a): Executor Count(Intersect) x{len(pairs_a)}, the "
+        f"Union/Difference/Xor nest and a 40-row Union equal numpy (first, cold: "
         f"{out['count_cold_s']:.2f} s)")
-    end(ph, "gather_expr_count")
+    end(ph, "gather_expr_count", "gather_expr_count_streaming",
+        none=("gather_expr_count_staged",))
 
     # ---- (b) count_batch over 256 distinct pairs
     ph = start("b_count_batch")
@@ -449,7 +582,7 @@ def main_path(torch, pt, kernels, args, rng, report):
         f"share ~{out['batch_idle_share_est']:.3f} (1 - K1 time / batch wall time); "
         f"host stages of one batch: " + ", ".join(
             f"{k} {v:.3f}" for k, v in stages.items()))
-    end(ph, "gather_expr_count")
+    end(ph, "gather_expr_count", "gather_expr_count_staged")
 
     # ---- (a) timed: single Counts on resident leaves (the batch above
     # gathered the leaf planes of nearly every row)
@@ -465,7 +598,8 @@ def main_path(torch, pt, kernels, args, rng, report):
     out["count_ms"] = dt / len(qs) * 1e3
     log(f"main (a) timed: {len(qs)} Executor Counts, {out['count_ms']:.3f} ms each, "
         f"{out['count_qps']:.1f} queries/s")
-    end(ph, "gather_expr_count")
+    end(ph, "gather_expr_count", "gather_expr_count_streaming",
+        none=("gather_expr_count_staged",))
 
     # ---- (c) TopN without a filter (rank caches only), then with one
     cache = np.stack([np.bitwise_count(H[r]).sum(axis=1, dtype=np.int64)
@@ -515,7 +649,7 @@ def main_path(torch, pt, kernels, args, rng, report):
         want_pair(int(p[0]), int(p[1])) if a in (int(p[0]), int(p[1])) else w
         for p, w in zip(pairs[1:], wants[1:])]
     assert eng.snapshot()["stack_misses"] >= misses + 2, "stale stack not re-gathered"
-    end(ph, "gather_expr_count")
+    end(ph, "gather_expr_count", "gather_expr_count_streaming", "gather_expr_count_staged")
     log("main (d): Set then recount: Count and count_batch see the write "
         "(stale stacks re-gathered)")
     launches = {k: sum(p["launches"][k] for p in phases.values())

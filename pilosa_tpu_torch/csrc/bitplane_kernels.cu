@@ -21,23 +21,61 @@
 // gather.
 //
 // Bound: bytes, a few integer ops per byte. The function must read each
-// DISTINCT slot the batch names once: U'*S*W*4 bytes (U' unique idxs).
-// This kernel streams Q*L*S*W*4 bytes from L2/HBM instead: its grid puts
-// chunks in x, so all chunks of one query run before the next query's and
-// queries that share a leaf rarely meet its chunk in L2. A grid order
-// that lets them share it is the next speed-up (ROADMAP).
-// Design: grid (plane chunk, query). A block reads its query's L slot ids
-// once into shared memory; each thread streams 16-byte (uint4) loads so
-// neighbouring threads read neighbouring addresses, evaluates the postfix
-// op tape per 32-bit lane in registers, and counts with __popc. The
-// expression is a tape because CUDA cannot take the TPU kernel's traced
-// closure; the tape is a by-value kernel parameter (constant bank,
-// broadcast to all threads, uniform branch). Its evaluation stack is a
-// shift register of MAX_STACK uint4 values with compile-time indices, so
-// it stays in registers. Blocks run unordered on 132 SMs, so the TPU
-// kernel's sequential W loop with a VMEM accumulator becomes a warp
-// shuffle + shared-memory block reduction and ONE 64-bit atomicAdd per
-// block into out[q] (sums are int64; the caller zero-fills out).
+// DISTINCT slot the batch names once: U'*S*W*4 bytes (U' unique idxs),
+// while evaluating every query's expression (Q*L*S*W*4 bytes of operands).
+//
+// The expression is a postfix op tape (ops/kernels.py documents the
+// codes) because CUDA cannot take the TPU kernel's traced closure. It
+// travels to the device with the slot ids in one buffer and is read with
+// uniform __ldg loads (every lane of a warp reads the same code: one
+// broadcast from L1). The evaluation keeps the top of the stack in
+// registers; fused ops (top = top OP plane[slot]) cover a left-folded
+// k-ary node, so only a nested subtree pushes. Pushed values go to a
+// small per-thread array in local memory (MAX_STACK deep; the tape
+// compiler bounds the depth by floor(log2 leaves) + 1), touched only by
+// trees that nest (384 B a thread in the streaming variant, 1.5 KB in the
+// staged one, which keeps ST_QB queries' stacks).
+//
+// Two variants; ops/kernels.py k1_plan picks one from (distinct slots, Q).
+//
+// (a) k1_staged_kernel, batches (Q > 1) whose distinct slots fit the ring.
+//     Persistent blocks (as many as fit on the 132 SMs) walk the S*W axis
+//     in chunks of RING_CHUNK uint4 (512 B) per slot. For each chunk the
+//     block copies that chunk of every distinct slot of its query tile
+//     into a ring of NS stages in shared memory, NS-1 chunks ahead of the
+//     compute, so each distinct slot is read from HBM once per tile. The
+//     copies are cp.async 16-byte copies issued by all threads (each warp
+//     copies one slot's 512 contiguous bytes per step). Not TMA: the
+//     slots are scattered rows of the stack, so a tensor map's box would
+//     need one row per slot and a bulk copy per slot, the ragged tail
+//     would need its own byte count on the mbarrier, and the per-thread
+//     16-byte form handles the tail by skipping copies past the plane's
+//     end; at ~8 copies per thread per chunk its issue cost is small next
+//     to the evaluation. Consumers: warp w evaluates queries
+//     q = w, w + WARPS, ... of the tile, lane = uint4 within the chunk,
+//     reading the ring (32 lanes x 16 B contiguous: no bank conflicts).
+//     All queries share one tape, so a warp runs it for ST_QB = 4 queries
+//     at once: each code is decoded once and its 4 ring loads are
+//     independent. One query at a time left each warp waiting on a chain
+//     of dependent loads (tape code, ring position, ring). tools/
+//     k1_qb_sweep.py times ST_QB = 1, 2, 4, 8 (PERF.md has the numbers); 8
+//     is barely faster than 4 and needs ~120 registers and a 3 KB local
+//     stack per thread.
+//     Per-query counts stay in registers across all chunks; at the end
+//     each block does one warp reduction and one 64-bit atomicAdd per
+//     query. Queries come in tiles of Q_TILE; each tile stages only its
+//     own distinct slots (grid y = tile).
+// (b) k1_streaming_kernel, Q = 1 (engine.count) and batches whose slots
+//     do not fit the ring. A block evaluates one (query, plane chunk)
+//     item: each thread streams 16-byte (uint4) loads of the query's
+//     leaf planes, neighbouring threads on neighbouring addresses,
+//     evaluates the tape per uint4, counts with __popc, then a warp
+//     shuffle + shared-memory block sum and ONE 64-bit atomicAdd per
+//     block into out[q]. Items are numbered query-fastest, so the blocks
+//     in flight at once cover one chunk for many queries and queries
+//     that share a leaf meet its chunk in L2.
+//
+// Counts are int64 (the caller zero-fills out).
 //
 // ---------------------------------------------------------------------
 // K2  masked_plane_counts
@@ -57,26 +95,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_TAPE 64
-#define MAX_STACK 8
-#define MAX_LEAVES 32
-
+// Must match ops/kernels.py.
+#define MAX_STACK 24
 #define OP_PUSH 0
 #define OP_AND 1
 #define OP_OR 2
 #define OP_XOR 3
 #define OP_ANDNOT 4
+#define OP_NOTAND 5
+#define OP_ACC 8
+#define RING_CHUNK 32
+#define Q_TILE 256
 
 #define THREADS 256
 #define WARPS (THREADS / 32)
 #define K1_ITERS 8
 #define K2_ITERS 4
 #define K2_ROW_GROUP 32
-
-struct Tape {
-  int n;
-  int ops[MAX_TAPE];  // op | (slot << 8)
-};
+#define ST_THREADS 512
+#define ST_WARPS (ST_THREADS / 32)
+#define ST_QPW (Q_TILE / ST_WARPS)  // queries per warp in a tile
+#ifndef ST_QB
+#define ST_QB 4  // queries evaluated together by one tape pass
+#endif
 
 __device__ __forceinline__ uint4 apply_op(int op, uint4 a, uint4 b) {
   uint4 r;
@@ -86,8 +127,10 @@ __device__ __forceinline__ uint4 apply_op(int op, uint4 a, uint4 b) {
     r.x = a.x | b.x; r.y = a.y | b.y; r.z = a.z | b.z; r.w = a.w | b.w;
   } else if (op == OP_XOR) {
     r.x = a.x ^ b.x; r.y = a.y ^ b.y; r.z = a.z ^ b.z; r.w = a.w ^ b.w;
-  } else {  // OP_ANDNOT
+  } else if (op == OP_ANDNOT) {
     r.x = a.x & ~b.x; r.y = a.y & ~b.y; r.z = a.z & ~b.z; r.w = a.w & ~b.w;
+  } else {  // OP_NOTAND
+    r.x = ~a.x & b.x; r.y = ~a.y & b.y; r.z = ~a.z & b.z; r.w = ~a.w & b.w;
   }
   return r;
 }
@@ -102,49 +145,181 @@ __device__ __forceinline__ unsigned int warp_sum(unsigned int v) {
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-gather_expr_count_kernel(const uint4* __restrict__ stacked, long long plane_vec,
-                         const int* __restrict__ idxs, int q_total, int n_leaves,
-                         Tape tape, unsigned long long* __restrict__ out) {
-  __shared__ const uint4* planes[MAX_LEAVES];
-  __shared__ unsigned int warp_sums[WARPS];
-  const long long chunk0 = (long long)blockIdx.x * (THREADS * K1_ITERS);
+__device__ __forceinline__ unsigned long long warp_sum64(unsigned long long v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Evaluates the tape for QB independent operand sets at once (QB queries
+// of the staged variant, or QB = 1): each code is decoded once and its QB
+// loads are independent, so they overlap. fetch(b, slot) returns set b's
+// uint4 of that leaf position. stk is the caller's (local-memory) stack
+// below the top; the tape is validated on the host (depth <= MAX_STACK).
+template <int QB, class Fetch>
+__device__ __forceinline__ void eval_tape(const int* __restrict__ tape, int n, Fetch fetch,
+                                          uint4 (*stk)[QB], uint4 (&top)[QB]) {
+  {
+    const int slot = __ldg(tape) >> 8;  // a valid tape starts with a PUSH
+#pragma unroll
+    for (int b = 0; b < QB; ++b) top[b] = fetch(b, slot);
+  }
+  int sp = 0;
+  for (int t = 1; t < n; ++t) {
+    const int code = __ldg(tape + t);
+    const int op = code & 0xff;
+    if (op == OP_PUSH) {
+#pragma unroll
+      for (int b = 0; b < QB; ++b) {
+        stk[sp][b] = top[b];
+        top[b] = fetch(b, code >> 8);
+      }
+      ++sp;
+    } else if (op & OP_ACC) {
+#pragma unroll
+      for (int b = 0; b < QB; ++b) top[b] = apply_op(op & ~OP_ACC, top[b], fetch(b, code >> 8));
+    } else {
+      --sp;
+#pragma unroll
+      for (int b = 0; b < QB; ++b) top[b] = apply_op(op, stk[sp][b], top[b]);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// tiles: (n_tiles, 2) = (offset into urows, distinct slots nu) per tile of
+// Q_TILE queries; urows: the tiles' distinct stack rows; qpos: (Q, L) ring
+// position of each query's leaf positions; dynamic shared memory: NS
+// stages of (nu_max, RING_CHUNK) uint4.
+template <int NS>
+__global__ void __launch_bounds__(ST_THREADS)
+k1_staged_kernel(const uint4* __restrict__ stacked, long long plane_vec,
+                 const int* __restrict__ tape, int tape_len, int n_leaves,
+                 const int* __restrict__ tiles, const int* __restrict__ urows,
+                 const int* __restrict__ qpos, int q_total,
+                 unsigned long long* __restrict__ out) {
+  extern __shared__ uint4 ring[];
+  const int tile = blockIdx.y;
+  const int q0 = tile * Q_TILE;
+  const int qn = min(Q_TILE, q_total - q0);
+  const int* rows = urows + tiles[2 * tile];
+  const int nu = tiles[2 * tile + 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const long long n_chunks = (plane_vec + RING_CHUNK - 1) / RING_CHUNK;
+  const long long my_n =
+      blockIdx.x < n_chunks ? (n_chunks - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  uint4 stk[MAX_STACK][ST_QB];
+  unsigned int cnt[ST_QPW];
+#pragma unroll
+  for (int j = 0; j < ST_QPW; ++j) cnt[j] = 0;
 
-  for (int q = blockIdx.y; q < q_total; q += gridDim.y) {
-    if (threadIdx.x < n_leaves) {
-      planes[threadIdx.x] =
-          stacked + (long long)idxs[(long long)threadIdx.x * q_total + q] * plane_vec;
+  // Copy chunk k of this block into stage k % NS: nu * RING_CHUNK uint4,
+  // one warp per slot row of 512 contiguous bytes, the tail skipped.
+  auto stage = [&](long long k) {
+    const long long c0 = (blockIdx.x + k * gridDim.x) * RING_CHUNK;
+    uint4* dst = ring + (k % NS) * nu * RING_CHUNK;
+    for (int e = threadIdx.x; e < nu * RING_CHUNK; e += ST_THREADS) {
+      const long long gi = c0 + (e & (RING_CHUNK - 1));
+      if (gi < plane_vec) {
+        cp_async16(dst + e, stacked + (long long)__ldg(rows + e / RING_CHUNK) * plane_vec + gi);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) {
+    if (k < my_n) stage(k);
+    cp_async_commit();
+  }
+  for (long long k = 0; k < my_n; ++k) {
+    // Stage (k + NS - 1) % NS was last read in iteration k - 1, which
+    // ended with a barrier.
+    if (k + NS - 1 < my_n) stage(k + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // this thread's copies of chunk k landed
+    __syncthreads();          // and every other thread's
+    const uint4* chunk = ring + (k % NS) * nu * RING_CHUNK + lane;
+    const bool valid = (blockIdx.x + k * gridDim.x) * RING_CHUNK + lane < plane_vec;
+    // Warp w owns queries w + j * ST_WARPS of the tile, ST_QB at a time.
+#pragma unroll
+    for (int j0 = 0; j0 < ST_QPW; j0 += ST_QB) {
+      if (warp + j0 * ST_WARPS < qn) {
+        const int* pos[ST_QB];
+#pragma unroll
+        for (int b = 0; b < ST_QB; ++b) {
+          // A query past the tile's end reads query 0's slots; its count
+          // is dropped below.
+          const int qi = warp + (j0 + b) * ST_WARPS;
+          pos[b] = qpos + (long long)(q0 + (qi < qn ? qi : 0)) * n_leaves;
+        }
+        uint4 top[ST_QB];
+        eval_tape<ST_QB>(
+            tape, tape_len,
+            [&](int b, int slot) { return chunk[__ldg(pos[b] + slot) * RING_CHUNK]; }, stk,
+            top);
+        if (valid) {
+#pragma unroll
+          for (int b = 0; b < ST_QB; ++b) cnt[j0 + b] += popc4(top[b]);
+        }
+      }
     }
     __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < ST_QPW; ++j) {
+    const int qi = warp + j * ST_WARPS;
+    if (qi < qn) {
+      const unsigned long long total = warp_sum64(cnt[j]);
+      if (lane == 0 && total) atomicAdd(out + q0 + qi, total);
+    }
+  }
+}
 
+// idxs: (L, Q) slot ids; items are (query, chunk) pairs numbered
+// query-fastest.
+__global__ void __launch_bounds__(THREADS)
+k1_streaming_kernel(const uint4* __restrict__ stacked, long long plane_vec,
+                    const int* __restrict__ tape, int tape_len,
+                    const int* __restrict__ idxs, int q_total, long long n_items,
+                    unsigned long long* __restrict__ out) {
+  __shared__ unsigned int warp_sums[WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint4 stk[MAX_STACK][1];
+
+  for (long long b = blockIdx.x; b < n_items; b += gridDim.x) {
+    const int q = (int)(b % q_total);
+    const long long chunk0 = (b / q_total) * (THREADS * K1_ITERS);
     unsigned int cnt = 0;
 #pragma unroll
     for (int it = 0; it < K1_ITERS; ++it) {
       const long long i = chunk0 + (long long)it * THREADS + threadIdx.x;
       if (i < plane_vec) {
-        uint4 st[MAX_STACK];
-#pragma unroll
-        for (int k = 0; k < MAX_STACK; ++k) st[k] = make_uint4(0u, 0u, 0u, 0u);
-        for (int t = 0; t < tape.n; ++t) {
-          const int code = tape.ops[t];
-          const int op = code & 0xff;
-          if (op == OP_PUSH) {
-            const uint4 v = __ldg(planes[code >> 8] + i);
-#pragma unroll
-            for (int k = MAX_STACK - 1; k > 0; --k) st[k] = st[k - 1];
-            st[0] = v;
-          } else {
-            st[0] = apply_op(op, st[1], st[0]);
-#pragma unroll
-            for (int k = 1; k < MAX_STACK - 1; ++k) st[k] = st[k + 1];
-          }
-        }
-        cnt += popc4(st[0]);
+        uint4 v[1];
+        eval_tape<1>(
+            tape, tape_len,
+            [&](int, int slot) {
+              return __ldg(stacked + (long long)__ldg(idxs + (long long)slot * q_total + q) *
+                                         plane_vec + i);
+            },
+            stk, v);
+        cnt += popc4(v[0]);
       }
     }
-
     cnt = warp_sum(cnt);
     if (lane == 0) warp_sums[warp] = cnt;
     __syncthreads();
@@ -154,7 +329,7 @@ gather_expr_count_kernel(const uint4* __restrict__ stacked, long long plane_vec,
       for (int w = 0; w < WARPS; ++w) total += warp_sums[w];
       if (total) atomicAdd(out + q, total);
     }
-    __syncthreads();  // planes[] and warp_sums[] are rewritten for the next q
+    __syncthreads();  // warp_sums[] is rewritten by the next item
   }
 }
 
@@ -210,31 +385,81 @@ masked_plane_counts_kernel(const uint4* __restrict__ stack, const uint4* __restr
   }
 }
 
-extern "C" {
-
-// out: (q,) int64, zero-filled by the caller. tape_ops: host array of
-// tape_len codes (op | slot << 8), copied into the by-value kernel
-// parameter. Returns a cudaError_t (0 = launched).
-int pt_gather_expr_count(const void* stacked, long long plane_words, const void* idxs,
-                         int q, int n_leaves, const int* tape_ops, int tape_len,
-                         void* out, void* stream) {
-  if (q <= 0 || plane_words <= 0) return (int)cudaSuccess;
-  if (tape_len <= 0 || tape_len > MAX_TAPE || n_leaves <= 0 || n_leaves > MAX_LEAVES ||
-      plane_words % 4 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Tape tape;
-  tape.n = tape_len;
-  for (int t = 0; t < MAX_TAPE; ++t) tape.ops[t] = t < tape_len ? tape_ops[t] : 0;
-  const long long plane_vec = plane_words / 4;
-  const long long per_block = (long long)THREADS * K1_ITERS;
-  const long long chunks = (plane_vec + per_block - 1) / per_block;
-  if (chunks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned int)chunks, (unsigned int)(q < 65535 ? q : 65535));
-  gather_expr_count_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint4*)stacked, plane_vec, (const int*)idxs, q, n_leaves, tape,
+template <int NS>
+static int launch_staged(const void* stacked, long long plane_vec, const void* tape,
+                         int tape_len, int n_leaves, const void* tiles, int n_tiles,
+                         const void* urows, const void* qpos, int q, int nu_max, void* out,
+                         cudaStream_t stream) {
+  const size_t smem = (size_t)NS * nu_max * RING_CHUNK * sizeof(uint4);
+  auto kern = k1_staged_kernel<NS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, ST_THREADS, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // Persistent: as many blocks as fit at once, shared among the tiles.
+  const long long n_chunks = (plane_vec + RING_CHUNK - 1) / RING_CHUNK;
+  long long bx = ((long long)sms * per_sm + n_tiles - 1) / n_tiles;
+  if (bx > n_chunks) bx = n_chunks;
+  if (bx < 1) bx = 1;
+  kern<<<dim3((unsigned int)bx, (unsigned int)n_tiles), ST_THREADS, smem, stream>>>(
+      (const uint4*)stacked, plane_vec, (const int*)tape, tape_len, n_leaves,
+      (const int*)tiles, (const int*)urows, (const int*)qpos, q,
       (unsigned long long*)out);
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// K1, streaming variant. tape: tape_len codes; idxs: (L, q) slot ids;
+// both in one device buffer built by ops/kernels.py. out: (q,) int64,
+// zero-filled by the caller. Returns a cudaError_t (0 = launched).
+int pt_k1_streaming(const void* stacked, long long plane_words, const void* tape,
+                    int tape_len, const void* idxs, int q, void* out, void* stream) {
+  if (q <= 0 || plane_words <= 0) return (int)cudaSuccess;
+  if (tape_len <= 0 || plane_words % 4 != 0) return (int)cudaErrorInvalidValue;
+  const long long plane_vec = plane_words / 4;
+  const long long per_block = (long long)THREADS * K1_ITERS;
+  const long long n_items = (plane_vec + per_block - 1) / per_block * q;
+  const long long grid = n_items < (1LL << 30) ? n_items : (1LL << 30);
+  k1_streaming_kernel<<<(unsigned int)grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint4*)stacked, plane_vec, (const int*)tape, tape_len, (const int*)idxs, q,
+      n_items, (unsigned long long*)out);
+  return (int)cudaGetLastError();
+}
+
+// K1, staged variant. tiles: (n_tiles, 2) int32 (offset into urows,
+// distinct slots); urows: the tiles' distinct stack rows; qpos: (q, L)
+// ring positions; n_stages: ring stages (2..4) of nu_max slots each.
+int pt_k1_staged(const void* stacked, long long plane_words, const void* tape, int tape_len,
+                 int n_leaves, const void* tiles, int n_tiles, const void* urows,
+                 const void* qpos, int q, int nu_max, int n_stages, void* out, void* stream) {
+  if (q <= 0 || plane_words <= 0) return (int)cudaSuccess;
+  if (tape_len <= 0 || plane_words % 4 != 0 || nu_max <= 0 || n_tiles <= 0 ||
+      n_tiles > 65535 || (long long)n_tiles * Q_TILE < q) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long plane_vec = plane_words / 4;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n_stages) {
+    case 2:
+      return launch_staged<2>(stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles,
+                              urows, qpos, q, nu_max, out, st);
+    case 3:
+      return launch_staged<3>(stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles,
+                              urows, qpos, q, nu_max, out, st);
+    case 4:
+      return launch_staged<4>(stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles,
+                              urows, qpos, q, nu_max, out, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // stack: (n_rows, n_shards, w) words; mask: (n_shards, w) words or null;

@@ -20,10 +20,20 @@ raises; it takes the plain twin only for CPU tensors. The twins count
 their own calls in ``PLAIN_CALLS``, so a run can show which one served.
 
 The expression reaches K1 as a postfix op tape: a sequence of int32 codes
-``op | slot << 8`` with ops PUSH (slot), AND, OR, XOR, ANDNOT — the binary
-op pops the right operand, then the left, and pushes ``left OP right``
-(ANDNOT: ``left & ~right``). parallel/engine.py ``lower_tape`` compiles
-the canonical set-op IR into it.
+``op | slot << 8``. PUSH (slot) pushes leaf plane `slot`. A binary op
+(AND, OR, XOR, ANDNOT, NOTAND) pops the right operand, then the left, and
+pushes ``left OP right`` (ANDNOT: ``left & ~right``; NOTAND:
+``~left & right``). A fused op ``OP_ACC | op`` with a slot applies
+``top = top OP plane[slot]`` without touching the stack, so a left-folded
+k-ary node over leaves needs no stack at all. parallel/engine.py
+``lower_tape`` compiles the canonical set-op IR into it.
+
+K1 has two variants, chosen by ``k1_plan`` from the batch's distinct
+slots and Q alone: "staged" (Q > 1, and the distinct slots fit a ring of
+at least two stages in shared memory) reads each distinct slot from HBM
+once per batch; "streaming" (Q = 1, or too many distinct slots) reads
+each query's planes, queries fastest in the grid so queries that share a
+chunk meet it in L2.
 """
 
 from __future__ import annotations
@@ -34,20 +44,36 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .bitplane import popcount_words
 
-OP_PUSH, OP_AND, OP_OR, OP_XOR, OP_ANDNOT = 0, 1, 2, 3, 4
+OP_PUSH, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_NOTAND = 0, 1, 2, 3, 4, 5
+OP_ACC = 8  # OP_ACC | op: top = top OP plane[slot]
 
-# Limits of K1's by-value tape (must match csrc/bitplane_kernels.cu).
-MAX_TAPE = 64
-MAX_STACK = 8
-MAX_LEAVES = 32
+# K1's limits (must match csrc/bitplane_kernels.cu). The evaluation stack
+# holds MAX_STACK planes; lower_tape's child order keeps a tree of n
+# leaves within floor(log2 n) + 1, so any tree of fewer than 2^24 leaves
+# fits. Slots are the 23 bits above the op byte.
+MAX_STACK = 24
+MAX_SLOTS = 1 << 23
 
-LAUNCHES: Dict[str, int] = {"gather_expr_count": 0, "masked_plane_counts": 0}
+# The staged variant's ring (must match csrc/bitplane_kernels.cu): each
+# stage holds RING_CHUNK uint4 (512 bytes) of every distinct slot of a
+# tile of Q_TILE queries, and the ring takes at most RING_BYTES, the
+# shared memory one block may use on an H100 (227 KB).
+RING_CHUNK = 32
+RING_SLOT_BYTES = RING_CHUNK * 16
+RING_BYTES = 232448
+RING_MAX_STAGES = 4
+Q_TILE = 256
+
+K1_VARIANTS = ("staged", "streaming")
+LAUNCHES: Dict[str, int] = {"gather_expr_count": 0, "gather_expr_count_staged": 0,
+                            "gather_expr_count_streaming": 0, "masked_plane_counts": 0}
 PLAIN_CALLS: Dict[str, int] = {"gather_expr_count": 0, "masked_plane_counts": 0}
 
 
@@ -113,9 +139,11 @@ def load():
         build()
         lib = ctypes.CDLL(LIBRARY)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pt_gather_expr_count.argtypes = [
-            vp, i64, vp, i32, i32, ctypes.POINTER(ctypes.c_int), i32, vp, vp]
-        lib.pt_gather_expr_count.restype = i32
+        lib.pt_k1_streaming.argtypes = [vp, i64, vp, i32, vp, i32, vp, vp]
+        lib.pt_k1_streaming.restype = i32
+        lib.pt_k1_staged.argtypes = [
+            vp, i64, vp, i32, i32, vp, i32, vp, vp, i32, i32, i32, vp, vp]
+        lib.pt_k1_staged.restype = i32
         lib.pt_masked_plane_counts.argtypes = [vp, vp, i32, i32, i64, vp, vp]
         lib.pt_masked_plane_counts.restype = i32
         _lib = lib
@@ -136,11 +164,18 @@ def _stream(t: torch.Tensor) -> int:
 
 def tape_depth(tape: Sequence[int]) -> int:
     """Largest evaluation-stack depth the tape reaches; raises on a tape
-    that underflows or does not leave exactly one value."""
+    that underflows, names an unknown op, or does not leave exactly one
+    value."""
     depth = peak = 0
     for code in tape:
-        if code & 0xFF == OP_PUSH:
+        op = code & 0xFF
+        if op == OP_PUSH:
             depth += 1
+        elif not OP_AND <= op & ~OP_ACC <= OP_NOTAND:
+            raise ValueError(f"unknown tape op {op}")
+        elif op & OP_ACC:
+            if depth < 1:
+                raise ValueError(f"op tape underflows: {list(tape)}")
         else:
             depth -= 1
             if depth < 1:
@@ -151,6 +186,20 @@ def tape_depth(tape: Sequence[int]) -> int:
     return peak
 
 
+def _apply(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if op == OP_AND:
+        return torch.bitwise_and(a, b)
+    if op == OP_OR:
+        return torch.bitwise_or(a, b)
+    if op == OP_XOR:
+        return torch.bitwise_xor(a, b)
+    if op == OP_ANDNOT:
+        return torch.bitwise_and(a, torch.bitwise_not(b))
+    if op == OP_NOTAND:
+        return torch.bitwise_and(torch.bitwise_not(a), b)
+    raise ValueError(f"unknown tape op {op}")
+
+
 def _eval_tape(tape: Sequence[int], leaf):
     """Plain tape evaluation; `leaf(slot)` returns that slot's plane."""
     stack = []
@@ -158,23 +207,37 @@ def _eval_tape(tape: Sequence[int], leaf):
         op = code & 0xFF
         if op == OP_PUSH:
             stack.append(leaf(code >> 8))
-            continue
-        b = stack.pop()
-        a = stack.pop()
-        if op == OP_AND:
-            stack.append(torch.bitwise_and(a, b))
-        elif op == OP_OR:
-            stack.append(torch.bitwise_or(a, b))
-        elif op == OP_XOR:
-            stack.append(torch.bitwise_xor(a, b))
-        elif op == OP_ANDNOT:
-            stack.append(torch.bitwise_and(a, torch.bitwise_not(b)))
+        elif op & OP_ACC:
+            stack[-1] = _apply(op & ~OP_ACC, stack[-1], leaf(code >> 8))
         else:
-            raise ValueError(f"unknown tape op {op}")
+            b = stack.pop()
+            stack[-1] = _apply(op, stack[-1], b)
     return stack[0]
 
 
 # -------------------------------------------------------------------- K1
+
+
+def k1_ring_stages(distinct: int) -> int:
+    """Stages of the staged variant's ring that `distinct` slots fill
+    (at most RING_MAX_STAGES); below 2 the ring cannot overlap a copy
+    with the compute, and the staged variant is not taken."""
+    if distinct < 1:
+        return 0
+    return min(RING_MAX_STAGES, RING_BYTES // (distinct * RING_SLOT_BYTES))
+
+
+def k1_plan(distinct: int, q: int) -> Tuple[str, int]:
+    """(variant, ring stages) for a batch of `q` queries whose largest
+    Q_TILE-query tile names `distinct` distinct slots. A single query
+    streams: each of its planes is read once either way. A batch whose
+    slots fit a ring of two or more stages is staged, reading each
+    distinct slot once; a larger one streams. Plane width does not enter:
+    the ring's chunk per slot is fixed."""
+    stages = k1_ring_stages(distinct)
+    if q > 1 and stages >= 2:
+        return "staged", stages
+    return "streaming", 0
 
 
 def _check_k1(stacked, idxs, tape) -> None:
@@ -189,15 +252,15 @@ def _check_k1(stacked, idxs, tape) -> None:
     if idxs.numel() and not (0 <= int(idxs.min()) and int(idxs.max()) < stacked.shape[0]):
         raise ValueError(f"idxs must lie in [0, {stacked.shape[0]})")
     n_leaves = idxs.shape[0]
-    if not 1 <= n_leaves <= MAX_LEAVES:
-        raise ValueError(f"{n_leaves} leaves; the kernel takes 1..{MAX_LEAVES}")
-    if not 1 <= len(tape) <= MAX_TAPE:
-        raise ValueError(f"tape of {len(tape)} ops; the kernel takes 1..{MAX_TAPE}")
+    if not 1 <= n_leaves <= MAX_SLOTS:
+        raise ValueError(f"{n_leaves} leaves; the kernel takes 1..{MAX_SLOTS}")
+    if not tape:
+        raise ValueError("empty op tape")
     if tape_depth(tape) > MAX_STACK:
         raise ValueError(f"tape needs a stack deeper than {MAX_STACK}")
     for code in tape:
-        if code & 0xFF == OP_PUSH and not 0 <= code >> 8 < n_leaves:
-            raise ValueError(f"tape pushes slot {code >> 8} of {n_leaves}")
+        if (code & 0xFF == OP_PUSH or code & OP_ACC) and not 0 <= code >> 8 < n_leaves:
+            raise ValueError(f"tape names slot {code >> 8} of {n_leaves}")
 
 
 def gather_expr_count_plain(stacked: torch.Tensor, idxs: torch.Tensor,
@@ -212,31 +275,86 @@ def gather_expr_count_plain(stacked: torch.Tensor, idxs: torch.Tensor,
     return out
 
 
+def k1_tiles(idx_np: np.ndarray) -> Tuple[List[np.ndarray], np.ndarray]:
+    """The staged variant's remap of an (L, Q) slot array: per tile of
+    Q_TILE queries, its distinct stack rows (ascending), and for every
+    query the ring position of each leaf position, (Q, L) int32."""
+    n_leaves, q = idx_np.shape
+    urows: List[np.ndarray] = []
+    qpos = np.empty((q, n_leaves), dtype=np.int32)
+    for t0 in range(0, q, Q_TILE):
+        part = idx_np[:, t0:t0 + Q_TILE]
+        uniq, inv = np.unique(part, return_inverse=True)
+        urows.append(uniq.astype(np.int32))
+        qpos[t0:t0 + part.shape[1]] = inv.reshape(part.shape).T
+    return urows, qpos
+
+
+def _to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One host-to-device copy that does not wait for the stream: staged
+    through pinned memory from PyTorch's caching host allocator, which
+    keeps the pinned block until the copy has run."""
+    return torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
+
+
 def gather_expr_count(stacked: torch.Tensor, idxs: torch.Tensor,
-                      tape: Sequence[int]) -> torch.Tensor:
+                      tape: Sequence[int],
+                      variant: Optional[str] = None) -> torch.Tensor:
     """K1: (Q,) int64 counts. `stacked` (U, S, W) int32 resident leaf
     stack; `idxs` (L, Q) int32 slot ids on the host (row j = leaf position
-    j of the tape), range-checked here and copied to the stack's device;
-    `tape` the postfix op codes."""
+    j of the tape), range-checked here and copied to the stack's device
+    with the tape in one buffer; `tape` the postfix op codes. `variant`
+    names the kernel variant (k1_plan chooses when it is None); naming
+    "staged" for slots that do not fit its ring raises."""
     tape = [int(c) for c in tape]
     _check_k1(stacked, idxs, tape)
+    if variant is not None and variant not in K1_VARIANTS:
+        raise ValueError(f"unknown K1 variant {variant!r}")
     if not stacked.is_cuda:
         return gather_expr_count_plain(stacked, idxs, tape)
     u, s, w = stacked.shape
     if (s * w) % 4 or stacked.data_ptr() % 16:
         raise ValueError("K1 needs 16-byte aligned planes (S*W % 4 == 0)")
-    q = idxs.shape[1]
+    n_leaves, q = idxs.shape
     out = torch.zeros(q, dtype=torch.int64, device=stacked.device)
     if q == 0 or s * w == 0:
         return out
+    idx_np = np.ascontiguousarray(idxs.numpy())
+    tape_np = np.asarray(tape, dtype=np.int32)
+    if variant != "streaming" and (q > 1 or variant == "staged"):
+        urows, qpos = k1_tiles(idx_np)
+        distinct = max(len(r) for r in urows)
+        if variant is None:
+            variant, stages = k1_plan(distinct, q)
+        else:
+            stages = k1_ring_stages(distinct)
+            if stages < 2:
+                raise ValueError(
+                    f"{distinct} distinct slots do not fit the staged variant's ring "
+                    f"({RING_BYTES // (2 * RING_SLOT_BYTES)} at most)")
+    variant = variant or "streaming"
     lib = load()
-    idx_dev = idxs.contiguous().to(stacked.device)
-    ops = (ctypes.c_int * len(tape))(*tape)
-    err = lib.pt_gather_expr_count(
-        stacked.data_ptr(), s * w, idx_dev.data_ptr(), q, idxs.shape[0], ops,
-        len(tape), out.data_ptr(), _stream(stacked))
-    _check_launch("gather_expr_count", err)
+    dev, stream = stacked.device, _stream(stacked)
+    if variant == "staged":
+        # One buffer: tape | tiles (offset into urows, distinct slots) |
+        # urows | qpos.
+        sizes = [len(r) for r in urows]
+        tiles = np.stack([np.cumsum([0] + sizes[:-1]), sizes], axis=1).astype(np.int32)
+        buf = _to_device(np.concatenate([tape_np, tiles.ravel(), *urows, qpos.ravel()]), dev)
+        tiles_at = buf.data_ptr() + 4 * len(tape)
+        urows_at = tiles_at + 4 * tiles.size
+        qpos_at = urows_at + 4 * sum(sizes)
+        err = lib.pt_k1_staged(
+            stacked.data_ptr(), s * w, buf.data_ptr(), len(tape), n_leaves, tiles_at,
+            len(urows), urows_at, qpos_at, q, max(sizes), stages, out.data_ptr(), stream)
+    else:
+        buf = _to_device(np.concatenate([tape_np, idx_np.ravel()]), dev)
+        err = lib.pt_k1_streaming(
+            stacked.data_ptr(), s * w, buf.data_ptr(), len(tape),
+            buf.data_ptr() + 4 * len(tape), q, out.data_ptr(), stream)
+    _check_launch(f"gather_expr_count ({variant})", err)
     LAUNCHES["gather_expr_count"] += 1
+    LAUNCHES[f"gather_expr_count_{variant}"] += 1
     return out
 
 

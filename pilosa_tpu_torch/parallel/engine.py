@@ -93,48 +93,75 @@ def _lower_ir(ir: tuple) -> Callable:
     raise _not_ported(kind)
 
 
-def lower_tape(ir: tuple) -> Tuple[int, ...]:
-    """Canonical set-op IR -> the postfix op tape K1 executes. A k-ary
-    node becomes its k operands with k-1 binary ops folded left; a
-    Difference becomes the head, the tails ORed together, and one ANDNOT
-    — the same program _lower_ir builds. Raises QueryError when the tree
-    exceeds the kernel's limits (MAX_TAPE ops, MAX_STACK deep); there is
-    no fallback for such trees."""
-    ops: List[int] = []
-
-    def emit(node: tuple) -> None:
-        kind = node[0]
-        if kind == "leaf":
-            ops.append(kernels.OP_PUSH | (node[1] << 8))
-        elif kind in _BINARY:
-            emit(node[1][0])
-            for ch in node[1][1:]:
-                emit(ch)
-                ops.append(_BINARY[kind])
-        elif kind == "Difference":
-            emit(node[1])
-            tails = node[2]
-            if tails:
-                emit(tails[0])
-                for ch in tails[1:]:
-                    emit(ch)
-                    ops.append(kernels.OP_OR)
-                ops.append(kernels.OP_ANDNOT)
+def _fold(first: Tuple[List[int], int],
+          rest: Sequence[Tuple[int, Tuple[List[int], int]]]) -> Tuple[List[int], int]:
+    """Fold operands into the first one's value: a lone leaf becomes one
+    fused ``OP_ACC | op`` code on the top of the stack; a subtree is
+    emitted above it (one level deeper) and combined with the binary op.
+    Returns (codes, stack depth needed)."""
+    ops, need = list(first[0]), first[1]
+    for op, (sub, sub_need) in rest:
+        if len(sub) == 1:
+            ops.append((kernels.OP_ACC | op) | (sub[0] & ~0xFF))
         else:
-            raise _not_ported(kind)
+            ops.extend(sub)
+            ops.append(op)
+            need = max(need, 1 + sub_need)
+    return ops, need
 
-    emit(ir)
-    # MAX_TAPE = 2 * MAX_LEAVES: a tape that fits can never name more
-    # distinct rows than the kernel's slot table holds.
-    if len(ops) > kernels.MAX_TAPE:
+
+def _first_key(sub: Tuple[List[int], int]) -> Tuple[int, bool]:
+    """Sethi-Ullman order of a node's operands: the one that needs the
+    deepest stack goes first, a subtree before a lone leaf at equal depth
+    (a leaf after the first costs no stack, a subtree one level), ties in
+    the canonical order."""
+    return -sub[1], len(sub[0]) == 1
+
+
+def _emit(node: tuple) -> Tuple[List[int], int]:
+    kind = node[0]
+    if kind == "leaf":
+        return [kernels.OP_PUSH | (node[1] << 8)], 1
+    if kind in _BINARY:
+        subs = sorted((_emit(ch) for ch in node[1]), key=_first_key)
+        return _fold(subs[0], [(_BINARY[kind], t) for t in subs[1:]])
+    if kind == "Difference":
+        head = _emit(node[1])
+        tails = [_emit(ch) for ch in node[2]]
+        if not tails:
+            return head
+        # head & ~t1 & ... & ~tn, deepest operand first: tails before the
+        # head are ORed together and the head joins with NOTAND
+        # (~tails & head); tails after it join with ANDNOT.
+        order = sorted([(True, head)] + [(False, t) for t in tails],
+                       key=lambda e: _first_key(e[1]))
+        rest, seen_head = [], order[0][0]
+        for is_head, sub in order[1:]:
+            if is_head:
+                rest.append((kernels.OP_NOTAND, sub))
+                seen_head = True
+            else:
+                rest.append((kernels.OP_ANDNOT if seen_head else kernels.OP_OR, sub))
+        return _fold(order[0][1], rest)
+    raise _not_ported(kind)
+
+
+def lower_tape(ir: tuple) -> Tuple[int, ...]:
+    """Canonical set-op IR -> the postfix op tape K1 executes, computing
+    the same function as _lower_ir (set identities only; counts are
+    exact). A k-ary node folds its operands into an accumulator, leaves
+    through fused ops, deepest subtree first, so a tree of n leaves needs
+    a stack of at most floor(log2 n) + 1. Raises QueryError only past the
+    kernel's limits: 2^23 distinct leaves, or a stack deeper than
+    MAX_STACK (2^24 leaves)."""
+    ops, need = _emit(ir)
+    if need > kernels.MAX_STACK:
         raise QueryError(
-            f"query tree needs {len(ops)} tape ops; the CUDA count kernel "
-            f"takes at most {kernels.MAX_TAPE}")
-    depth = kernels.tape_depth(ops)
-    if depth > kernels.MAX_STACK:
-        raise QueryError(
-            f"query tree nests {depth} deep; the CUDA count kernel's "
+            f"query tree nests {need} deep; the CUDA count kernel's "
             f"evaluation stack holds {kernels.MAX_STACK}")
+    if max(code >> 8 for code in ops) >= kernels.MAX_SLOTS:
+        raise QueryError(
+            f"query tree names more than {kernels.MAX_SLOTS} distinct rows")
     return tuple(ops)
 
 

@@ -21,19 +21,63 @@ from pilosa_tpu_torch.parallel.engine import lower_tape
 pytestmark = pytest.mark.cuda
 
 
-def random_ir(rng, n_leaves: int, depth: int):
-    """A random canonical set-op IR tree over slots < n_leaves."""
+def random_ir(rng, n_leaves: int, depth: int, max_kids: int = 3):
+    """A random canonical set-op IR tree over slots < n_leaves, each node
+    with at most max_kids operands."""
     if depth == 0 or rng.random() < 0.3:
         return ("leaf", int(rng.integers(n_leaves)))
     kind = rng.choice(["Intersect", "Union", "Xor", "Difference"])
     if kind == "Difference":
-        head = random_ir(rng, n_leaves, depth - 1)
-        tails = tuple(random_ir(rng, n_leaves, depth - 1)
-                      for _ in range(int(rng.integers(0, 3))))
+        head = random_ir(rng, n_leaves, depth - 1, max_kids)
+        tails = tuple(random_ir(rng, n_leaves, depth - 1, max_kids)
+                      for _ in range(int(rng.integers(0, max_kids))))
         return ("Difference", head, tails)
-    kids = tuple(random_ir(rng, n_leaves, depth - 1)
-                 for _ in range(int(rng.integers(2, 4))))
+    kids = tuple(random_ir(rng, n_leaves, depth - 1, max_kids)
+                 for _ in range(int(rng.integers(2, max_kids + 1))))
     return (str(kind), kids)
+
+
+def leaf(i):
+    return ("leaf", i)
+
+
+def balanced(lo, hi, kinds=("Intersect", "Union", "Xor")):
+    """A balanced binary tree over leaves lo..hi-1, the worst case for the
+    stack."""
+    if hi - lo == 1:
+        return leaf(lo)
+    mid = (lo + hi) // 2
+    kind = kinds[(hi - lo) % len(kinds)]
+    return (kind, (balanced(lo, mid, kinds), balanced(mid, hi, kinds)))
+
+
+def chain(depth: int):
+    """A chain nested `depth` deep, every kind on the way, each level
+    adding one leaf on one side or the other."""
+    node = leaf(0)
+    kinds = ("Intersect", "Union", "Xor", "Difference")
+    for i in range(1, depth + 1):
+        kind = kinds[i % 4]
+        if kind == "Difference":
+            node = (("Difference", node, (leaf(i),)) if i % 8 else
+                    ("Difference", leaf(i), (node,)))
+        else:
+            node = (kind, (leaf(i), node) if i % 3 else (node, leaf(i)))
+    return node
+
+
+BIG_TREES = {
+    "union_300": (("Union", tuple(leaf(i) for i in range(300))), 300),
+    "chain_40": (chain(40), 41),
+    "difference_50_tails": (
+        ("Difference", leaf(0), tuple(
+            leaf(i) if i % 5 else ("Intersect", (leaf(i), leaf(i - 1)))
+            for i in range(1, 51))), 51),
+    "rows_40": (("Xor", tuple(("Intersect", tuple(leaf(5 * g + k) for k in range(5)))
+                              if g % 2 else ("Union", tuple(leaf(5 * g + k) for k in range(5)))
+                              for g in range(8))), 40),
+    "balanced_64": (balanced(0, 64), 64),
+}
 
 
 def t32(a: np.ndarray) -> torch.Tensor:
@@ -47,20 +91,94 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("ir_seed", [0, 1, 2, 3])
-def test_k1_kernel_matches_twin_on_card(cuda_device, ir_seed):
-    rng = np.random.default_rng(200 + ir_seed)
-    u, s, w, q = 12, 5, 1024, 9
-    ir = random_ir(rng, 4, depth=3)
-    tape = lower_tape(ir)
-    stacked = t32(rng.integers(0, 1 << 32, (u, s, w), dtype=np.uint32)).to(cuda_device)
-    idxs = torch.from_numpy(rng.integers(0, u, (4, q)).astype(np.int32))
-    launched = kernels.LAUNCHES["gather_expr_count"]
-    got = kernels.gather_expr_count(stacked, idxs, tape)
+VARIANTS = ("staged", "streaming")
+
+
+def k1_on_card(stacked, idxs, tape, variant=None):
+    """K1 (one variant, or the one k1_plan picks) against its twin,
+    exactly; returns the variant that launched."""
+    before = dict(kernels.LAUNCHES)
+    got = kernels.gather_expr_count(stacked, idxs, tape, variant=variant)
     want = kernels.gather_expr_count_plain(stacked, idxs, tape)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert kernels.LAUNCHES["gather_expr_count"] == launched + 1
+    assert kernels.LAUNCHES["gather_expr_count"] == before["gather_expr_count"] + 1
+    ran = [v for v in VARIANTS if kernels.LAUNCHES[f"gather_expr_count_{v}"]
+           == before[f"gather_expr_count_{v}"] + 1]
+    assert len(ran) == 1 and (variant is None or ran == [variant])
+    return ran[0]
+
+
+def rand_stack(rng, shape, device):
+    return t32(rng.integers(0, 1 << 32, shape, dtype=np.uint32)).to(device)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("ir_seed", [0, 1, 2, 3])
+def test_k1_kernel_matches_twin_on_card(cuda_device, ir_seed, variant):
+    rng = np.random.default_rng(200 + ir_seed)
+    u, s, w, q = 12, 5, 1024, 9
+    ir = random_ir(rng, 4, depth=3)
+    stacked = rand_stack(rng, (u, s, w), cuda_device)
+    idxs = torch.from_numpy(rng.integers(0, u, (4, q)).astype(np.int32))
+    k1_on_card(stacked, idxs, lower_tape(ir), variant)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("shape", [(6, 5, 36), (9, 7, 1028), (3, 1, 4), (5, 3, 32768)])
+def test_k1_ragged_tails_on_card(cuda_device, variant, shape):
+    """S*W/4 a multiple of neither chunk (32 uint4 staged, 2048 streaming)."""
+    rng = np.random.default_rng(sum(shape))
+    u, s, w = shape
+    stacked = rand_stack(rng, shape, cuda_device)
+    tape = lower_tape(("Difference", ("Union", (leaf(0), leaf(1))), (leaf(2),)))
+    idxs = torch.from_numpy(rng.integers(0, u, (3, 11)).astype(np.int32))
+    k1_on_card(stacked, idxs, tape, variant)
+
+
+@pytest.mark.parametrize("distinct", [227, 228])
+def test_k1_ring_capacity_on_card(cuda_device, distinct):
+    """227 distinct slots fill a two-stage ring exactly and are staged;
+    228 stream, and naming the staged variant for them raises."""
+    rng = np.random.default_rng(distinct)
+    q = 256
+    stacked = rand_stack(rng, (distinct + 3, 2, 256), cuda_device)
+    first = np.resize(np.arange(distinct), q)
+    second = rng.integers(0, distinct, q)
+    idxs = torch.from_numpy(np.stack([first, second]).astype(np.int32))
+    tape = lower_tape(("Xor", (leaf(0), leaf(1))))
+    assert kernels.k1_tiles(idxs.numpy())[0][0].size == distinct
+    want = "staged" if distinct <= 227 else "streaming"
+    assert k1_on_card(stacked, idxs, tape) == want
+    k1_on_card(stacked, idxs, tape, "streaming")
+    if want == "staged":
+        k1_on_card(stacked, idxs, tape, "staged")
+    else:
+        with pytest.raises(ValueError, match="ring"):
+            kernels.gather_expr_count(stacked, idxs, tape, variant="staged")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_k1_many_queries_on_card(cuda_device, variant):
+    """Q = 5000: 20 query tiles in the staged variant."""
+    rng = np.random.default_rng(5000)
+    u, q = 64, 5000
+    stacked = rand_stack(rng, (u, 2, 1024), cuda_device)
+    ir = ("Intersect", (leaf(0), ("Union", (leaf(1), leaf(2)))))
+    idxs = torch.from_numpy(rng.integers(0, u, (3, q)).astype(np.int32))
+    k1_on_card(stacked, idxs, lower_tape(ir), variant)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("name", sorted(BIG_TREES))
+def test_k1_trees_past_the_old_limits_on_card(cuda_device, variant, name):
+    """Trees past the old tape limits (more than 64 ops, 8 deep, 32 rows),
+    Q = 4 over 48 stack rows so the staged ring holds every slot."""
+    ir, n_leaves = BIG_TREES[name]
+    rng = np.random.default_rng(len(name))
+    stacked = rand_stack(rng, (48, 3, 512), cuda_device)
+    idxs = torch.from_numpy(rng.integers(0, 48, (n_leaves, 4)).astype(np.int32))
+    k1_on_card(stacked, idxs, lower_tape(ir), variant)
 
 
 @pytest.mark.parametrize("masked", [False, True])

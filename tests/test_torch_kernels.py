@@ -25,10 +25,10 @@ from pilosa_tpu_torch.errors import QueryError
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.parallel.engine import _lower_ir as torch_lower_ir
 from pilosa_tpu_torch.parallel.engine import lower_tape
-from tests.test_torch_cuda import random_ir
+from tests.test_torch_cuda import BIG_TREES, balanced, leaf, random_ir
 
-PUSH, AND, OR, XOR, ANDNOT = (kernels.OP_PUSH, kernels.OP_AND, kernels.OP_OR,
-                              kernels.OP_XOR, kernels.OP_ANDNOT)
+PUSH, AND, OR, XOR, ANDNOT, NOTAND = (kernels.OP_PUSH, kernels.OP_AND, kernels.OP_OR,
+                                      kernels.OP_XOR, kernels.OP_ANDNOT, kernels.OP_NOTAND)
 
 
 def push(slot: int) -> int:
@@ -105,49 +105,131 @@ def test_k1_twin_wide_shard_axis():
 # ------------------------------------------ lower_tape vs jax _lower_ir
 
 
-@pytest.mark.parametrize("seed", range(12))
-def test_lower_tape_matches_jax_lower_ir(seed):
-    rng = np.random.default_rng(100 + seed)
-    n_leaves, s, w = 6, 2, 128
-    ir = random_ir(rng, n_leaves, depth=3)
+def n_leaf_nodes(ir) -> int:
+    if ir[0] == "leaf":
+        return 1
+    if ir[0] == "Difference":
+        return n_leaf_nodes(ir[1]) + sum(n_leaf_nodes(t) for t in ir[2])
+    return sum(n_leaf_nodes(ch) for ch in ir[1])
+
+
+def assert_tape_counts_like_jax(ir, n_leaves, s=2, w=128, seed=0):
+    """lower_tape's tape through the K1 twin counts what the JAX engine's
+    _lower_ir program counts, the torch bitmap closure equals it bit for
+    bit, and the tape's stack stays within floor(log2 n) + 1."""
+    rng = np.random.default_rng(seed)
     leaves = rng.integers(0, 1 << 32, (n_leaves, s, w), dtype=np.uint32)
     jplane = np.asarray(jax_lower_ir(ir)(tuple(jnp.asarray(x) for x in leaves)))
     want = int(np.bitwise_count(jplane).sum())
     tape = lower_tape(ir)
+    assert kernels.tape_depth(tape) <= n_leaf_nodes(ir).bit_length()
     idxs = torch.arange(n_leaves, dtype=torch.int32).reshape(-1, 1)
     got = kernels.gather_expr_count(t32(leaves), idxs, tape)
     assert int(got[0]) == want
-    # The torch closure the engine uses for bitmaps agrees bit for bit.
     tplane = torch_lower_ir(ir)(tuple(t32(x) for x in leaves))
     np.testing.assert_array_equal(tplane.numpy().view(np.uint32), jplane)
 
 
+@pytest.mark.parametrize("n_leaves,depth,max_kids", [(6, 3, 3), (12, 5, 5), (30, 7, 6)])
+@pytest.mark.parametrize("seed", range(12))
+def test_lower_tape_matches_jax_lower_ir(seed, n_leaves, depth, max_kids):
+    rng = np.random.default_rng(100 + seed)
+    ir = random_ir(rng, n_leaves, depth, max_kids)
+    assert_tape_counts_like_jax(ir, n_leaves, seed=seed)
+
+
 def test_lower_tape_shapes():
-    leaf = lambda i: ("leaf", i)  # noqa: E731
-    assert lower_tape(leaf(3)) == (push(3),)
+    P = lambda s: PUSH | (s << 8)  # noqa: E731
+    ACC = lambda op, s: kernels.OP_ACC | op | (s << 8)  # noqa: E731
+    assert lower_tape(leaf(3)) == (P(3),)
+    # A k-ary node over leaves folds into the top of the stack: no push.
     assert lower_tape(("Intersect", (leaf(0), leaf(1), leaf(2)))) == (
-        push(0), push(1), AND, push(2), AND)
-    # Difference: head, tails ORed together, ONE ANDNOT.
+        P(0), ACC(AND, 1), ACC(AND, 2))
+    # Difference: head, then one fused ANDNOT per tail.
     assert lower_tape(("Difference", leaf(0), (leaf(1), leaf(2), leaf(3)))) == (
-        push(0), push(1), push(2), OR, push(3), OR, ANDNOT)
-    assert lower_tape(("Difference", leaf(0), ())) == (push(0),)
+        P(0), ACC(ANDNOT, 1), ACC(ANDNOT, 2), ACC(ANDNOT, 3))
+    assert lower_tape(("Difference", leaf(0), ())) == (P(0),)
+    # A subtree goes before a lone leaf: the tails' union first, then the
+    # head with NOTAND (~tails & head).
+    assert lower_tape(("Difference", leaf(0), (("Union", (leaf(1), leaf(2))), leaf(3)))) == (
+        P(1), ACC(OR, 2), ACC(NOTAND, 0), ACC(ANDNOT, 3))
+    # The deeper operand first: one push for the second subtree only.
+    two = ("Union", (("Intersect", (leaf(0), leaf(1))), ("Xor", (leaf(2), leaf(3)))))
+    assert lower_tape(two) == (P(0), ACC(AND, 1), P(2), ACC(XOR, 3), OR)
+    assert kernels.tape_depth(lower_tape(two)) == 2
 
 
 def test_lower_tape_limits_raise():
-    leaf = lambda i: ("leaf", i)  # noqa: E731
-    deep = leaf(0)
-    for i in range(1, kernels.MAX_STACK + 1):
-        deep = ("Union", (leaf(i % 4), deep))  # right-nested: depth grows
-    with pytest.raises(QueryError, match="evaluation stack"):
-        lower_tape(deep)
-    wide = ("Union", tuple(leaf(i % 4) for i in range(kernels.MAX_TAPE)))
-    with pytest.raises(QueryError, match="tape ops"):
-        lower_tape(wide)
-    # 32 distinct rows (the kernel's slot table) still fit the tape.
-    assert len(lower_tape(
-        ("Union", tuple(leaf(i) for i in range(kernels.MAX_LEAVES))))) == 63
+    """No tree raises for its size below 2^23 distinct rows; past the
+    kernel's slot field, and for kinds the port has no program for, it
+    does."""
+    with pytest.raises(QueryError, match="distinct rows"):
+        lower_tape(("Union", (leaf(0), leaf(kernels.MAX_SLOTS))))
     with pytest.raises(QueryError, match="not ported"):
         lower_tape(("timerange", (0, 1)))
+    wide = ("Union", tuple(leaf(i) for i in range(1 << 16)))
+    tape = lower_tape(wide)
+    assert len(tape) == 1 << 16 and kernels.tape_depth(tape) == 1
+
+
+@pytest.mark.parametrize("name", sorted(BIG_TREES))
+def test_trees_past_the_old_limits_count_like_jax(name):
+    ir, n_leaves = BIG_TREES[name]
+    assert_tape_counts_like_jax(ir, n_leaves, s=1, seed=len(name))
+
+
+@pytest.mark.parametrize("name", sorted(BIG_TREES))
+def test_trees_past_the_old_limits_match_pallas(name):
+    """The same trees batched (Q=3 queries over a larger stack) through
+    the Pallas kernel in interpret mode and through K1's twin."""
+    ir, n_leaves = BIG_TREES[name]
+    rng = np.random.default_rng(7 + len(name))
+    u, s, w, q = n_leaves + 4, 1, 128, 3
+    stacked = rng.integers(0, 1 << 32, (u, s, w), dtype=np.uint32)
+    idxs = tuple(rng.permutation(u)[:q].astype(np.int32) if j % 2 else
+                 rng.integers(0, u, q).astype(np.int32) for j in range(n_leaves))
+    run_both(stacked, idxs, jax_lower_ir(ir), lower_tape(ir))
+
+
+def test_balanced_tree_depth_is_log2_plus_one():
+    for n in (2, 3, 8, 17, 64, 1000):
+        tape = lower_tape(balanced(0, n))
+        assert kernels.tape_depth(tape) <= n.bit_length()
+    # Fused leaf ops save the bottom level: 2-leaf nodes push nothing.
+    assert kernels.tape_depth(lower_tape(balanced(0, 64))) == 6
+
+
+# ------------------------------------------------- K1 variant selection
+
+
+def test_k1_plan_serving_shape_is_staged():
+    # U=128, S=256, W=32768, L=2, Q=256: 126 distinct slots, 3 stages.
+    assert kernels.k1_plan(126, 256) == ("staged", 3)
+
+
+def test_k1_plan_single_query_streams():
+    assert kernels.k1_plan(2, 1) == ("streaming", 0)
+    assert kernels.k1_plan(1, 1) == ("streaming", 0)
+
+
+def test_k1_plan_past_the_ring_streams():
+    cap = kernels.RING_BYTES // (2 * kernels.RING_SLOT_BYTES)
+    assert cap == 227
+    assert kernels.k1_plan(cap, 256) == ("staged", 2)
+    assert kernels.k1_plan(cap + 1, 256) == ("streaming", 0)
+    assert kernels.k1_plan(8, 2) == ("staged", kernels.RING_MAX_STAGES)
+
+
+def test_k1_tiles_remap_slots_per_tile():
+    rng = np.random.default_rng(3)
+    q = kernels.Q_TILE * 2 + 5
+    idx = rng.integers(0, 40, (3, q)).astype(np.int32)
+    urows, qpos = kernels.k1_tiles(idx)
+    assert len(urows) == 3 and qpos.shape == (q, 3)
+    for t, rows in enumerate(urows):
+        sl = slice(t * kernels.Q_TILE, (t + 1) * kernels.Q_TILE)
+        np.testing.assert_array_equal(rows, np.unique(idx[:, sl]))
+        np.testing.assert_array_equal(rows[qpos[sl]].T, idx[:, sl])
 
 
 # --------------------------------------------- K2 twin vs jnp reductions

@@ -116,6 +116,10 @@ CORPUS = [
     "TopN(f, ids=[0, 1, 5, 12])",
     "TopN(f, Row(g=5), ids=[0, 2, 5, 10])",
     "TopN(f, n=5, threshold=300)",
+    # 40 distinct rows in one tree (past the old 32-row tape limit).
+    "Count(Union(" + ", ".join(f"Row({fl}={r})" for fl in "fg" for r in range(20)) + "))",
+    "Count(Difference(Row(f=0), " + ", ".join(
+        f"Intersect(Row(f={r}), Row(g={r}))" for r in range(1, 21)) + "))",
 ]
 
 
@@ -207,8 +211,9 @@ def test_respellings_share_one_plan_and_fit_the_kernel(pair):
     for q in RESPELLINGS:
         plan = tex.engine.plan("i", torch_parse(q).calls[0].children[0])
         sigs.add(plan.sig_tuple)
-        assert len(plan.expr.tape) <= kernels.MAX_TAPE
-        assert kernels.tape_depth(plan.expr.tape) <= kernels.MAX_STACK
+        ops = [code & 0xFF for code in plan.expr.tape]
+        n = sum(op == kernels.OP_PUSH or bool(op & kernels.OP_ACC) for op in ops)
+        assert kernels.tape_depth(plan.expr.tape) <= n.bit_length() <= kernels.MAX_STACK
     assert len(sigs) == 1
     answers = {tex.execute("i", q)[0] for q in RESPELLINGS}
     assert answers == {jex.execute("i", RESPELLINGS[0])[0]}
