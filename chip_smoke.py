@@ -8,21 +8,32 @@ for an H100, sm_90a). It imports nothing of JAX and nothing of pilosa_tpu.
 Phases, each of which fails the run if it fails:
 
 1. device  — the card's name and power limit (nvidia-smi).
-2. build   — nvcc builds K1 and K2 from pilosa_tpu_torch/csrc.
+2. build   — nvcc builds K1, K2 and K3 from pilosa_tpu_torch/csrc.
 3. kernels — each kernel against its plain PyTorch twin on the same CUDA
              tensors, exact equality. K1: both variants (staged and
              streaming) and k1_plan's choice, at small shapes (2 leaves,
              3 leaves with Difference, a deep k-ary nest, ragged S, a
              ragged tail, Q=5000), on trees past the old tape limits
              (a 300-leaf Union, a chain 40 deep, a Difference with
-             50 tails, a 40-row tree), at engine.count's Q=1 over S=256,
-             W=32768 (2 leaves, the nest, a 40-row Union) and at the
-             serving shape (U=128, S=256, W=32768, L=2, Q=256). K2 at
-             R=128 and R=1, S=256, with and without a mask. Kernel times
-             from torch.profiler's device time (CUDA events where it
-             shows none): K1 staged and streaming at the serving shape,
-             streaming at Q=1. Bytes moved, and bounds (K1's counts the
-             distinct slots a batch names, each read once).
+             50 tails, a 40-row tree), on BSI compares (every kind,
+             leading zeros, both strict last steps, depths 1, 17 and 40,
+             alone at Q=1 and nested at Q=9), at engine.count's Q=1 over
+             S=256, W=32768 (2 leaves, the nest, a 40-row Union, a
+             depth-17 Count(Range(v > x))), at the serving shape
+             (U=128, S=256, W=32768, L=2, Q=256) and at path (e)'s
+             count_batch shape (64 Count(Intersect(Row, Range(v > x))),
+             82 distinct slots, staged). K2 at R=128 and R=1,
+             S=256, with and without a mask, and on an 18-plane BSI Sum
+             stack. K3 (bsi_minmax): min and max, with and without a
+             filter, at depth 17 over S=256, W=32768, on ragged tails,
+             depths 0 and 40, and an empty filter. Kernel times from
+             torch.profiler's device time (CUDA events where it shows
+             none): K1 staged and streaming at the serving shape,
+             streaming at Q=1 on 2 leaves and on the depth-17 compare,
+             both at path (e)'s count_batch shape, K2
+             at the TopN chunk and on the Sum stack, K3 (both launches).
+             Bytes moved, and bounds (K1's counts the distinct slots a
+             batch names, each read once).
 4. main    — the bench_big serving shape through the port's entry
              points: index "big", field "f", 256 shards x 128 rows of
              random ~50%-density planes made from --seed and injected as
@@ -31,15 +42,26 @@ Phases, each of which fails the run if it fails:
              Xor nest and a 40-row Union, (b) engine.count_batch over 256
              distinct pairs, then timed batches, (c) TopN(f, n=10) and
              TopN(f, Row(f=a), n=10), (d) a Set on one shard and a
-             recount (the stale stack is re-gathered). Every answer is
-             checked against numpy on the fragments' host planes (TopN
-             against a numpy replay of the two-phase ranking).
+             recount (the stale stack is re-gathered), (e) on the same
+             index an int field v (min 0, max 100000, 17 bits, values on
+             about half the columns) and a YMD time field t (2 rows, 30
+             day views of January 2018 plus month, year and standard
+             views): Sum/Min/Max with and without Row(f=a), Count(Range(v
+             > x)), Count(Intersect(Row(f=a), Range(v < x))), Count(Range(t
+             = r, 10 day views)), a count_batch of 64 Range trees,
+             Range(v >< [lo, hi]) and Range(v == x) as Rows, TopN(f,
+             Range(v > x), n=10), then a SetValue and a timestamped Set,
+             each followed by a recount, and warm repeats with one warm
+             Max's host stages. Every answer is checked against numpy on
+             the fragments' host planes (TopN against a numpy replay of
+             the two-phase ranking).
 5. kernel line — launch counters set to 0 just before each path of
-             phase 4 and read just after it: K1 above 0 in (a), (b) and
-             (d) — its streaming variant only in the single Counts of
-             (a), its staged variant in the batches of (b) — K2 above 0
-             in the filtered TopN, the plain twins at 0 in every path;
-             the line carries their sums.
+             phase 4 and read just after it: K1 above 0 in (a), (b), (d)
+             and the Range Counts of (e) — its streaming variant only in
+             the single Counts, its staged variant in the batches — K2
+             above 0 in the filtered TopNs and in Sum, K3 above 0 in
+             Min/Max, the plain twins at 0 in every path and the compile
+             gate's refusals at 0; the line carries their sums.
 
 It prints the nvidia-smi line and a {"kernels": [...]} JSON line before
 the last line, and as its last line {"ok": true, "device": {...}}. With
@@ -108,10 +130,11 @@ def nvidia_smi() -> str:
 # ------------------------------------------------------------ phase 3
 
 
-def device_ms(torch, fn, kernel: str, reps: int = 10):
+def device_ms(torch, fn, kernel: str, reps: int = 10, per_call: bool = False):
     """Mean device time (ms) per launch of the CUDA kernels whose name
-    contains `kernel`, from torch.profiler over `reps` calls of fn(); None
-    when the profiler recorded no such kernel."""
+    contains `kernel` (per call of fn() with per_call, for wrappers that
+    launch more than one kernel), from torch.profiler over `reps` calls of
+    fn(); None when the profiler recorded no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -125,13 +148,13 @@ def device_ms(torch, fn, kernel: str, reps: int = 10):
         if kernel in ev.key:
             total_us += getattr(ev, "device_time_total", None) or ev.cuda_time_total
             count += ev.count
-    return total_us / count / 1e3 if count else None
+    return total_us / (reps if per_call else count) / 1e3 if count else None
 
 
-def kernel_ms(torch, fn, kernel: str, reps: int = 10):
+def kernel_ms(torch, fn, kernel: str, reps: int = 10, per_call: bool = False):
     """(ms, method): the profiler's device time of the kernel, or, where
     the profiler shows none, CUDA events around bursts of 5 calls."""
-    ms = device_ms(torch, fn, kernel, reps)
+    ms = device_ms(torch, fn, kernel, reps, per_call)
     if ms is not None:
         return ms, "profiler"
     return cuda_time_ms(torch, fn, reps, inner=5), "events"
@@ -170,19 +193,40 @@ BIG_TREES = {
 }
 
 
-def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
+def bsi_ir(op, depth, *pred):
+    """A compare over BSI planes 0..depth (plane depth is not-null)."""
+    idxs = tuple(range(depth + 1))
+    if op == "between":
+        return ("between", idxs, depth, *pred)
+    return ("cmp", op, idxs, depth, pred[0])
+
+
+# K1's BSI codes: (op, depth, predicate...). Leading zeros (lt 5, lt 4),
+# a strict last step on a 1 bit and on a 0 bit (gt 65536, gt 6; lt 5,
+# lt 4), every compare kind, depth 1, and a 40-bit field.
+BSI_CASES = [
+    ("lt", 17, 5), ("lt", 17, 4), ("lte", 17, 100000), ("gt", 17, 65536), ("gt", 17, 6),
+    ("gte", 17, 0), ("eq", 17, 12345), ("neq", 17, 12345), ("between", 17, 1000, 90000),
+    ("lt", 1, 1), ("gt", 1, 0), ("between", 1, 0, 1), ("eq", 1, 1),
+    ("lt", 40, (1 << 39) + 3), ("gt", 40, 123456789), ("between", 40, 77, (1 << 38) - 1),
+]
+
+
+def check_kernels(torch, kernels, engine_mod, rng, brng, report, u, s, q,
                   dev="cuda"):
     """Each kernel against its twin on the card; returns per-kernel rows.
-    (u, s, q) is the main path's batch shape: leaf rows, shards, queries."""
+    (u, s, q) is the main path's batch shape: leaf rows, shards, queries.
+    The BSI cases draw from brng, so rng's draws (the serving batch, then
+    the main path's index) do not depend on them."""
     from pilosa_tpu_torch.constants import WORDS_PER_ROW
 
     dev = torch.device(dev)
     P = engine_mod.lower_tape
-    maxerr = {"gather_expr_count": 0, "masked_plane_counts": 0}
+    maxerr = {"gather_expr_count": 0, "masked_plane_counts": 0, "bsi_minmax": 0}
 
-    def rand_planes(shape):
+    def rand_planes(shape, gen=rng):
         g = torch.Generator(device=dev)
-        g.manual_seed(int(rng.integers(1 << 31)))
+        g.manual_seed(int(gen.integers(1 << 31)))
         return torch.randint(-(1 << 31), (1 << 31) - 1, shape, dtype=torch.int32,
                              device=dev, generator=g)
 
@@ -237,6 +281,20 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
             5000)
     for name, (ir, _) in BIG_TREES.items():
         k1_case(name, 48, 3, 512, ir, 4)
+    # BSI compares, alone at Q=1 (engine.count's shape) and nested under
+    # an Intersect in a batch of 9 queries (both variants).
+    for case in BSI_CASES:
+        op, depth, *pred = case
+        n = depth + 1
+        stacked = rand_planes((n + 6, 3, 1028), brng)
+        tape = P(("Intersect", (leaf(n), bsi_ir(op, depth, *pred))))
+        k1_hold(f"BSI {case} Q=1", stacked, torch.arange(n + 1, dtype=torch.int32)
+                .reshape(-1, 1), tape)
+        k1_hold(f"BSI {case}", stacked, torch.from_numpy(
+            brng.integers(0, n + 6, (n + 1, 9)).astype(np.int32)), tape)
+    log(f"K1 BSI codes: {len(BSI_CASES)} compares (every kind, leading zeros, strict last "
+        f"steps, depths 1, 17, 40), alone at Q=1 and nested at Q=9: exact (staged and "
+        f"streaming)")
     # engine.count's shapes on the main path: Q=1 over the full S, W.
     k1_case("single Count, 2 leaves", 2, s, WORDS_PER_ROW,
             ("Intersect", (leaf(0), leaf(1))), 1, distinct=True)
@@ -346,10 +404,105 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
             if not torch.equal(got, want):
                 raise AssertionError(f"K2 R={r_} S={s_} W={w_}: kernel != twin")
     log("K2 small/ragged shapes: exact")
-    log("library yardstick: no single PyTorch call computes either function "
-        "(torch has no popcount), so library_ms is null")
-    del stacked, rows, mask
+    del stacked, rows
     torch.cuda.empty_cache()
+
+    # The BSI path's shapes: a depth-17 field (min 0, max 100000) over the
+    # full S, W: 18 planes, plane 17 the not-null row.
+    depth = 17
+    bsi = rand_planes((depth + 1, s, w), brng)
+    plane_bytes = s * w * 4
+    # K1: Count(Range(v > 50000)) at Q=1 (engine.count), 18 slots.
+    gt_tape = P(bsi_ir("gt", depth, 50000))
+    one18 = torch.arange(depth + 1, dtype=torch.int32).reshape(-1, 1)
+    k1_hold("BSI Count(Range(v > 50000)) at full width", bsi, one18, gt_tape)
+    k1b_ms, k1b_method = kernel_ms(
+        torch, lambda: kernels.gather_expr_count(bsi, one18, gt_tape), "k1_streaming_kernel", 20)
+    k1b_plain_ms = cuda_time_ms(
+        torch, lambda: kernels.gather_expr_count_plain(bsi, one18, gt_tape), 1, warm=0)
+    k1b_bytes = (depth + 1) * plane_bytes + (depth + 1) * 4 + 8
+    k1b_bound, k1b_by = bound(k1b_bytes, s * w * (3 * depth + 2))
+    log(f"K1 BSI Count(Range(v > 50000)), depth {depth}, Q=1, S={s} W={w}: exact; "
+        f"{k1b_ms:.4f} ms ({k1b_method}), bound {k1b_bound:.4f} ms ({k1b_by}, "
+        f"{k1b_bytes / 1e6:.1f} MB), {k1b_bound / k1b_ms:.3f} of it; twin {k1b_plain_ms:.2f} ms")
+    # K1 at path (e)'s count_batch shape: 64 queries
+    # Count(Intersect(Row(f=r), Range(v > x))), 19 leaf positions, 18 BSI
+    # planes shared by all and one row each: 82 distinct slots, staged.
+    n_bq = 64
+    batch = rand_planes((depth + 1 + n_bq, s, w), brng)
+    bq_tape = P(("Intersect", (leaf(depth + 1), bsi_ir("gt", depth, 61234))))
+    bq_idxs = torch.cat([torch.arange(depth + 1, dtype=torch.int32)[:, None].expand(-1, n_bq),
+                         depth + 1 + torch.arange(n_bq, dtype=torch.int32)[None]]).contiguous()
+    ran, chosen = k1_hold("BSI count_batch shape at full width", batch, bq_idxs, bq_tape)
+    assert chosen == "staged", chosen
+    k1bq = {v: kernel_ms(torch, lambda v=v: kernels.gather_expr_count(
+        batch, bq_idxs, bq_tape, variant=v), f"k1_{v}_kernel") for v in kernels.K1_VARIANTS}
+    k1bq_ms, k1bq_method = k1bq["staged"]
+    k1bq_plain_ms = cuda_time_ms(
+        torch, lambda: kernels.gather_expr_count_plain(batch, bq_idxs, bq_tape), 1, warm=0)
+    k1bq_bytes = batch.shape[0] * plane_bytes + bq_idxs.numel() * 4 + n_bq * 8
+    k1bq_bound, k1bq_by = bound(k1bq_bytes, n_bq * s * w * (3 * depth + 5))
+    log(f"K1 BSI count_batch shape (Q={n_bq}, L={depth + 2}, {batch.shape[0]} distinct slots, "
+        f"S={s} W={w}): exact ({', '.join(ran)}; k1_plan {chosen}); staged {k1bq_ms:.4f} ms "
+        f"({k1bq_method}), streaming {k1bq['streaming'][0]:.4f} ms; bound {k1bq_bound:.4f} ms "
+        f"({k1bq_by}, {k1bq_bytes / 1e9:.3f} GB), staged at {k1bq_bound / k1bq_ms:.3f} of it; "
+        f"twin {k1bq_plain_ms:.2f} ms")
+    del batch
+    # K2: Sum(Row(f=a), field=v) = per-plane counts of the stack, masked.
+    k2s_ms, k2s_method = kernel_ms(
+        torch, lambda: kernels.masked_plane_counts(bsi, mask), "masked_plane_counts_kernel", 20)
+    got = kernels.masked_plane_counts(bsi, mask)
+    want = kernels.masked_plane_counts_plain(bsi, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K2 BSI Sum stack: kernel != twin")
+    k2s_bytes = (depth + 2) * plane_bytes + (depth + 1) * s * 4
+    k2s_bound, k2s_by = bound(k2s_bytes, (depth + 1) * s * w * 3)
+    log(f"K2 BSI Sum (R={depth + 1} planes, masked) S={s} W={w}: exact; {k2s_ms:.4f} ms "
+        f"({k2s_method}), bound {k2s_bound:.4f} ms ({k2s_by}, {k2s_bytes / 1e6:.1f} MB), "
+        f"{k2s_bound / k2s_ms:.3f} of it")
+    # K3: Min and Max, with and without the filter, against the twin.
+    for maximize in (True, False):
+        for m in (mask, None):
+            bits, cnt = kernels.bsi_minmax(bsi, m, maximize)
+            wbits, wcnt = kernels.bsi_minmax_plain(bsi, m, maximize)
+            torch.cuda.synchronize()
+            err = max(int((bits - wbits).abs().max()), abs(int(cnt) - int(wcnt)))
+            maxerr["bsi_minmax"] = max(maxerr["bsi_minmax"], err)
+            if err:
+                raise AssertionError(f"K3 max={maximize} mask={m is not None}: kernel != twin")
+    k3_ms, k3_method = kernel_ms(
+        torch, lambda: kernels.bsi_minmax(bsi, mask, True), "bsi_minmax", 20, per_call=True)
+    k3_plain_ms = cuda_time_ms(
+        torch, lambda: kernels.bsi_minmax_plain(bsi, mask, True), 1, warm=0)
+    k3_bytes = (depth + 2) * plane_bytes + depth * 4 + 8
+    k3_bound, k3_by = bound(k3_bytes, s * w * 3 * depth)
+    log(f"K3 bsi_minmax at full width (depth {depth}, masked, S={s} W={w}): min and max, with "
+        f"and without the mask, exact; {k3_ms:.4f} ms ({k3_method}, both launches), bound "
+        f"{k3_bound:.4f} ms ({k3_by}, {k3_bytes / 1e6:.1f} MB), {k3_bound / k3_ms:.3f} of it; "
+        f"twin {k3_plain_ms:.2f} ms")
+    del bsi, mask
+    torch.cuda.empty_cache()
+    # Small and ragged K3 shapes (S*W not a multiple of a block's 4096
+    # words), depth 0 and 40, and an empty filter.
+    for shape, masked in (((18, 5, 1028), True), ((1, 2, 36), True), ((41, 3, 32768), True),
+                          ((6, 1, 4), False), ((18, 256, 4096), False)):
+        pl = rand_planes(shape, brng)
+        mk = rand_planes(shape[1:], brng) if masked else None
+        for maximize in (True, False):
+            got = kernels.bsi_minmax(pl, mk, maximize)
+            want = kernels.bsi_minmax_plain(pl, mk, maximize)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])):
+                raise AssertionError(f"K3 {shape} mask={masked} max={maximize}: kernel != twin")
+    full = torch.full((9, 4, 1024), -1, dtype=torch.int32, device=dev)
+    for maximize in (True, False):
+        bits, cnt = kernels.bsi_minmax(full, torch.zeros_like(full[0]), maximize)
+        torch.cuda.synchronize()
+        assert bits.tolist() == [int(not maximize)] * 8 and int(cnt) == 0, (maximize, bits, cnt)
+    log("K3 small/ragged shapes and an empty filter: exact")
+    log("library yardstick: no single PyTorch call computes any of the three functions "
+        "(torch has no popcount), so library_ms is null")
     report["kernel_phase"] = {
         "k1_serving": dict(ms=k1_ms, method=k1_method, plain_ms=k1_plain_ms,
                            bytes=k1_bytes, distinct_slots=k1_unique, ring_stages=k1_stages,
@@ -359,6 +512,15 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
         "k1_single": dict(ms=k1q1_ms, method=k1q1_method, bytes=k1q1_bytes,
                           bound_ms=k1q1_bound, bound_by=k1q1_by),
         "k2": k2, "copy_gbs": copy_bw / 1e9, "max_abs_err": maxerr,
+        "k1_bsi_single": dict(ms=k1b_ms, method=k1b_method, plain_ms=k1b_plain_ms,
+                              bytes=k1b_bytes, bound_ms=k1b_bound, bound_by=k1b_by),
+        "k1_bsi_batch": dict(ms=k1bq_ms, method=k1bq_method, plain_ms=k1bq_plain_ms,
+                             streaming_ms=k1bq["streaming"][0],
+                             bytes=k1bq_bytes, bound_ms=k1bq_bound, bound_by=k1bq_by),
+        "k2_bsi_sum": dict(ms=k2s_ms, method=k2s_method, bytes=k2s_bytes,
+                           bound_ms=k2s_bound, bound_by=k2s_by),
+        "k3": dict(ms=k3_ms, method=k3_method, plain_ms=k3_plain_ms, bytes=k3_bytes,
+                   bound_ms=k3_bound, bound_by=k3_by),
     }
     return {
         "gather_expr_count": dict(ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
@@ -368,6 +530,8 @@ def check_kernels(torch, kernels, engine_mod, rng, report, u, s, q,
                                     bound_ms=k2["mask R=chunk"]["bound_ms"],
                                     bound_by=k2["mask R=chunk"]["bound_by"],
                                     max_abs_err=maxerr["masked_plane_counts"]),
+        "bsi_minmax": dict(ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
+                           bound_by=k3_by, max_abs_err=maxerr["bsi_minmax"]),
     }
 
 
@@ -405,6 +569,73 @@ def build_index(pt, rng, n_shards: int, n_rows: int):
             frag.cache.bulk_add(row, int(counts[row].sum()))
         frag.cache.invalidate(force=True)
     return holder
+
+
+V_MAX = 100000  # bench.py:2221's int field: min 0, max 100000, 17 bits
+T_DAYS = 30     # day views of January 2018 in the YMD time field
+T_ROWS = 2
+
+
+def build_bsi_time(holder, rng, n_shards: int):
+    """Path (e)'s fields on the same index, injected as dense containers:
+    an int field v (min 0, max V_MAX) holding a value on about half of
+    every shard's columns, and a YMD time field t whose rows 0 and 1 hold
+    ~25%-density day views for January 1-30 of 2018, plus the month, year
+    and standard views a timestamped Set writes (their union). Returns
+    (vals, nn): the (S, SHARD_WIDTH) values and the (S, W) not-null words."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.constants import (SHARD_WIDTH, VIEW_BSI_GROUP_PREFIX,
+                                            WORDS_PER_ROW)
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.storage.bitmap import Container
+
+    idx = holder.index("big")
+    v = idx.create_field("v", FieldOptions(type="int", min=0, max=V_MAX))
+    depth = v.bsi_group("v").bit_depth()
+    bview = v.create_view_if_not_exists(VIEW_BSI_GROUP_PREFIX + "v")
+    t = idx.create_field("t", FieldOptions(type="time", time_quantum="YMD"))
+    day_views = [t.create_view_if_not_exists(f"standard_201801{d:02d}")
+                 for d in range(1, T_DAYS + 1)]
+    union_views = [t.create_view_if_not_exists(n)
+                   for n in ("standard_201801", "standard_2018", "standard")]
+    seeds = rng.integers(1 << 62, size=n_shards)
+    vals = np.empty((n_shards, SHARD_WIDTH), dtype=np.uint32)
+    nn = np.empty((n_shards, WORDS_PER_ROW), dtype=np.uint32)
+
+    def make(shard):
+        g = np.random.default_rng(int(seeds[shard]))
+        val = g.integers(0, V_MAX, SHARD_WIDTH, dtype=np.uint32, endpoint=True)
+        nnw = g.integers(0, 1 << 32, WORDS_PER_ROW, dtype=np.uint32)
+        bits = np.unpackbits(val.view(np.uint8).reshape(-1, 4), axis=1, bitorder="little")
+        planes = np.empty((depth + 1, WORDS_PER_ROW), dtype=np.uint32)
+        planes[:depth] = np.packbits(np.ascontiguousarray(bits[:, :depth].T), axis=1,
+                                     bitorder="little").view(np.uint32)
+        planes[:depth] &= nnw
+        planes[depth] = nnw
+        days = (g.integers(0, 1 << 32, (T_ROWS, T_DAYS, WORDS_PER_ROW), dtype=np.uint32)
+                & g.integers(0, 1 << 32, (T_ROWS, T_DAYS, WORDS_PER_ROW), dtype=np.uint32))
+        vals[shard], nn[shard] = val, nnw
+        return planes, days, np.bitwise_or.reduce(days, axis=1)
+
+    def inject(view, shard, rows_planes):
+        frag = view.create_fragment_if_not_exists(shard, broadcast=False)
+        for row, plane in rows_planes:
+            words = plane.view(np.uint64).reshape(-1, 1024)
+            counts = np.bitwise_count(words).sum(axis=1)
+            for ci in range(words.shape[0]):
+                if counts[ci]:
+                    frag.storage.containers[row * words.shape[0] + ci] = Container(
+                        bits=words[ci], n=int(counts[ci]))
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for shard, (planes, days, union) in enumerate(pool.map(make, range(n_shards))):
+            inject(bview, shard, enumerate(planes))
+            for d, view in enumerate(day_views):
+                inject(view, shard, ((r, days[r, d]) for r in range(T_ROWS)))
+            for view in union_views:  # each view owns its words: a write
+                inject(view, shard, enumerate(union.copy()))  # must not reach the others
+    return vals, nn, depth
 
 
 def host_planes(holder, n_shards: int, n_rows: int) -> np.ndarray:
@@ -652,6 +883,7 @@ def main_path(torch, pt, kernels, args, rng, report):
     end(ph, "gather_expr_count", "gather_expr_count_streaming", "gather_expr_count_staged")
     log("main (d): Set then recount: Count and count_batch see the write "
         "(stale stacks re-gathered)")
+    main_path_bsi(ex, eng, H, rng, n_shards, start, end, out)
     launches = {k: sum(p["launches"][k] for p in phases.values())
                 for k in kernels.LAUNCHES}
     out["engine"] = eng.snapshot()
@@ -662,6 +894,208 @@ def main_path(torch, pt, kernels, args, rng, report):
     ex.close()
     holder.close()
     return launches
+
+
+def main_path_bsi(ex, eng, H, rng, n_shards, start, end, out):
+    """Path (e): BSI Sum/Min/Max and Range, time-quantum Range, a BSI TopN
+    filter and their writes on the same 256-shard index, each answer
+    against numpy on the fragments' host planes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pilosa_tpu_torch.constants import SHARD_WIDTH, VIEW_BSI_GROUP_PREFIX
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.plan.signature import Leaf
+
+    torch_sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    vals, nn_words, depth = build_bsi_time(ex.holder, rng, n_shards)
+    e = {"build_s": time.perf_counter() - t0}
+    # The reference reads the fragments' host planes: the BSI planes must
+    # be the generated values bit for bit, and the time Range's reference
+    # is the union of the day views' host planes.
+    t0 = time.perf_counter()
+
+    def check_shard(shard):
+        frag = ex.holder.fragment("big", "v", VIEW_BSI_GROUP_PREFIX + "v", shard)
+        nnw = frag.plane_np(depth)
+        bits = np.unpackbits(vals[shard].view(np.uint8).reshape(-1, 4), axis=1,
+                             bitorder="little")[:, :depth]
+        want = np.packbits(np.ascontiguousarray(bits.T), axis=1,
+                           bitorder="little").view(np.uint32) & nnw
+        return bool(np.array_equal(nnw, nn_words[shard])) and all(
+            np.array_equal(frag.plane_np(i), want[i]) for i in range(depth))
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        assert all(pool.map(check_shard, range(n_shards))), "BSI host planes != values"
+    nn = np.unpackbits(nn_words.view(np.uint8), axis=1, bitorder="little").view(bool)
+    day_lo, day_hi = 5, 15  # Range(t=r, 2018-01-05T00:00, 2018-01-15T00:00): 10 day views
+    t10 = np.zeros((T_ROWS, n_shards, H.shape[2]), dtype=np.uint32)
+    for r in range(T_ROWS):
+        for d in range(day_lo, day_hi):
+            for shard in range(n_shards):
+                t10[r, shard] |= ex.holder.fragment(
+                    "big", "t", f"standard_201801{d:02d}", shard).plane_np(r)
+    e["reference_s"] = time.perf_counter() - t0
+    log(f"main (e): built v (depth {depth}, {int(nn.sum())} values) and t ({T_ROWS} rows x "
+        f"{T_DAYS} day views + month/year/standard) in {e['build_s']:.1f} s; host reference "
+        f"in {e['reference_s']:.1f} s")
+    fa = int(rng.integers(H.shape[0]))
+    fbits = np.unpackbits(H[fa].view(np.uint8), axis=1, bitorder="little").view(bool)
+    with ThreadPoolExecutor(max_workers=8) as pool:  # rank counts after (d)'s Set
+        cache = np.stack(list(pool.map(
+            lambda r: np.bitwise_count(H[r]).sum(axis=1, dtype=np.int64), range(H.shape[0]))))
+    timed = {}
+
+    def run(q):
+        t0 = time.perf_counter()
+        got = ex.execute("big", q)[0]
+        timed[q] = (time.perf_counter() - t0) * 1e3
+        return got
+
+    def want_vc(kind, mask):
+        sel = vals[mask]
+        if kind == "sum":
+            return int(sel.sum(dtype=np.int64)), int(sel.size)
+        best = int(sel.max() if kind == "max" else sel.min())
+        return best, int(np.count_nonzero(sel == best))
+
+    # ---- Sum (K2), then Min/Max (K3), with and without Row(f=fa)
+    ph = start("e_bsi_sum")
+    for flt, mask in (("", nn), (f"Row(f={fa}), ", nn & fbits)):
+        got = run(f"Sum({flt}field=v)")
+        assert (got.val, got.count) == want_vc("sum", mask), (flt, got)
+    end(ph, "masked_plane_counts", none=("bsi_minmax", "gather_expr_count"))
+    ph = start("e_bsi_minmax")
+    for kind in ("min", "max"):
+        for flt, mask in (("", nn), (f"Row(f={fa}), ", nn & fbits)):
+            got = run(f"{kind.title()}({flt}field=v)")
+            assert (got.val, got.count) == want_vc(kind, mask), (kind, flt, got)
+    end(ph, "bsi_minmax", none=("gather_expr_count",))
+    log(f"main (e): Sum/Min/Max(field=v), with and without Row(f={fa}), equal numpy")
+
+    # ---- Range Counts on K1: BSI, BSI under an Intersect, time
+    x_gt, x_lt = 61234, 4321
+    ph = start("e_range_count")
+    got = run(f"Count(Range(v > {x_gt}))")
+    assert got == int(np.count_nonzero(nn & (vals > x_gt))), got
+    got = run(f"Count(Intersect(Row(f={fa}), Range(v < {x_lt})))")
+    assert got == int(np.count_nonzero(nn & fbits & (vals < x_lt))), got
+    tq = "Count(Range(t={}, 2018-01-05T00:00, 2018-01-15T00:00))"
+    t_counts = [np_count(t10[r]) for r in range(T_ROWS)]
+    for r in range(T_ROWS):
+        assert run(tq.format(r)) == t_counts[r], r
+    end(ph, "gather_expr_count", "gather_expr_count_streaming")
+    log("main (e): Count(Range(v > x)), Count(Intersect(Row, Range(v < x))) and "
+        "Count(Range(t=r, 10 day views)) equal numpy")
+
+    # ---- count_batch of BSI trees: one predicate, 64 rows (staged K1)
+    gt_plane = np.packbits(nn & (vals > x_gt), axis=1, bitorder="little").view(np.uint32)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        inter = np.stack(list(pool.map(
+            lambda r: np.bitwise_count(H[r] & gt_plane).sum(axis=1, dtype=np.int64),
+            range(H.shape[0]))))
+    from pilosa_tpu_torch.pql.parser import parse
+
+    bq = "Count(Intersect(Row(f={}), Range(v > %d)))" % x_gt
+    n_b = min(64, H.shape[0])
+    calls = [parse(bq.format(r)).calls[0].children[0] for r in range(n_b)]
+    shards = list(range(n_shards))
+    ph = start("e_range_count_batch")
+    got = eng.count_batch("big", calls, shards)
+    assert got.tolist() == inter[:n_b].sum(axis=1).tolist(), "BSI count_batch != numpy"
+    torch_sync()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eng.count_batch_async("big", calls, shards)
+    torch_sync()
+    e["bsi_batch_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    end(ph, "gather_expr_count_staged", none=("gather_expr_count_streaming",))
+    log(f"main (e): count_batch of {n_b} Count(Intersect(Row(f=r), Range(v > {x_gt}))) equals "
+        f"numpy; {e['bsi_batch_ms']:.3f} ms per warm batch (host clock)")
+
+    # ---- Ranges as Rows (elementwise torch on the device, no count kernel)
+    ph = start("e_range_rows")
+    lo, hi, eq = 50000, 50010, 77777
+    flat_vals, flat_nn = vals.reshape(-1), nn.reshape(-1)
+    got = run(f"Range(v >< [{lo}, {hi}])").columns()
+    want = np.flatnonzero(flat_nn & (flat_vals >= lo) & (flat_vals <= hi))
+    assert np.array_equal(got, want.astype(np.uint64)), (len(got), len(want))
+    got = run(f"Range(v == {eq})").columns()
+    want = np.flatnonzero(flat_nn & (flat_vals == eq))
+    assert np.array_equal(got, want.astype(np.uint64)), (len(got), len(want))
+    end(ph)
+    log(f"main (e): Range(v >< [{lo}, {hi}]) and Range(v == {eq}) rows equal numpy")
+
+    # ---- TopN over a BSI Range (K2 against the range's plane)
+    ph = start("e_topn_range")
+    got = run(f"TopN(f, Range(v > {x_gt}), n=10)")
+    want = replay_topn(inter, cache, 10)
+    assert [(p.id, p.count) for p in got] == want, (got, want)
+    end(ph, "masked_plane_counts", none=("bsi_minmax",))
+    log(f"main (e): TopN(f, Range(v > {x_gt}), n=10) equals the numpy replay")
+
+    # ---- writes: a SetValue and a timestamped Set, then recounts
+    shard = n_shards // 3
+    col = int(np.flatnonzero(~nn[shard])[0])
+    new_val = 54321
+    before_eq = int(np.count_nonzero(nn & (vals == new_val)))
+    ph = start("e_writes_recount")
+    assert run(f"SetValue(col={shard * SHARD_WIDTH + col}, v={new_val})") is None
+    vals[shard, col], nn[shard, col] = new_val, True
+    got = run("Sum(field=v)")
+    assert (got.val, got.count) == want_vc("sum", nn), got
+    assert run(f"Count(Range(v == {new_val}))") == before_eq + 1
+    tcol = int(np.flatnonzero(np.unpackbits(
+        t10[1, shard].view(np.uint8), bitorder="little") == 0)[0])
+    assert run(f"Set({shard * SHARD_WIDTH + tcol}, t=1, 2018-01-07T00:00)") is True
+    assert run(tq.format(1)) == t_counts[1] + 1
+    end(ph, "gather_expr_count", "masked_plane_counts")
+    refusals = eng.snapshot()["compile_gate_refusals"]
+    assert refusals == 0, refusals
+    log("main (e): SetValue then Sum and Count(Range(v == x)), timestamped Set then the "
+        "time Count: each sees its write; compile-gate refusals 0")
+    # ---- warm repeats (resident stacks), and one warm Max's host stages
+    ph = start("e_warm")
+    warm = {}
+    for q in (f"Sum(Row(f={fa}), field=v)", f"Max(Row(f={fa}), field=v)",
+              f"Count(Range(v > {x_gt}))", tq.format(1)):
+        reps = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            ex.execute("big", q)
+            reps.append((time.perf_counter() - t0) * 1e3)
+        warm[q] = statistics.median(reps)
+    flt = parse(f"Row(f={fa})").calls[0]
+    leaves = [Leaf("v", VIEW_BSI_GROUP_PREFIX + "v", i) for i in range(depth + 1)]
+    stages = {}
+    t0 = time.perf_counter()
+    eng.supports(flt, "big")
+    stages["gate_plan_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    planes = eng._stacked_leaf_tensor("big", leaves, tuple(shards))
+    stages["stack_probe_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mask = eng._src_plane("big", flt, tuple(shards))
+    torch_sync()
+    stages["filter_plane_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    bits, count = kernels.bsi_minmax(planes, mask, True)
+    int(count)
+    stages["k3_and_readback_ms"] = (time.perf_counter() - t0) * 1e3
+    del planes, mask
+    end(ph, "bsi_minmax", "masked_plane_counts", "gather_expr_count")
+    e["warm_ms"], e["warm_max_stages"] = warm, stages
+    log("main (e) warm, median of 10 (ms, host clock): " + "; ".join(
+        f"{q} {ms:.3f}" for q, ms in warm.items()))
+    log(f"main (e) host stages of one warm Max(Row(f={fa}), field=v) (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    e["query_ms"] = timed
+    e["depth"] = depth
+    out["bsi"] = e
+    log("main (e) times (ms, host clock, one call each): " + "; ".join(
+        f"{q} {ms:.1f}" for q, ms in timed.items()))
 
 
 def main() -> int:
@@ -708,13 +1142,14 @@ def main() -> int:
     report["build_s"] = build_s
 
     rng = np.random.default_rng(args.seed)
-    rows = check_kernels(torch, kernels, engine_mod, rng, report,
-                         args.rows, args.shards, args.batch)
+    rows = check_kernels(torch, kernels, engine_mod, rng, np.random.default_rng([args.seed, 3]),
+                         report, args.rows, args.shards, args.batch)
     launches = main_path(torch, pt, kernels, args, rng, report)
 
     source = "pilosa_tpu_torch/csrc/bitplane_kernels.cu"
     replaces = {"gather_expr_count": "pilosa_tpu/ops/pallas_kernels.py:145",
-                "masked_plane_counts": "pilosa_tpu/parallel/engine.py:1922"}
+                "masked_plane_counts": "pilosa_tpu/parallel/engine.py:1922",
+                "bsi_minmax": "pilosa_tpu/parallel/engine.py:2099"}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"],

@@ -77,6 +77,38 @@
 //
 // Counts are int64 (the caller zero-fills out).
 //
+// BSI compares (Range(v < x), v >< [lo, hi], ...) reach K1 as codes of
+// the same tape: the host unrolls each bit-serial compare of reference
+// fragment.go:683-851 into one code per value plane (ops/kernels.py
+// documents them), settling the predicate's bits, its leading zeros and
+// the strict last step at compile time. The evaluator keeps the two
+// compare masks keep1/keep2 in registers beside the top of the stack, so
+// a depth-D compare reads each of its D+1 planes once, like D+1 fused
+// leaves. Tapes with such codes run a second instantiation of each
+// variant (template BSI = true). Set-op tapes keep the first: run through
+// the BSI one, the staged variant was 4.5% slower at the serving shape
+// (PERF.md), from the extra op tests on every code.
+//
+// ---------------------------------------------------------------------
+// K3  bsi_minmax
+//
+// Replaces the XLA min/max program of the TPU engine's bsi_val_count
+// (pilosa_tpu/parallel/engine.py:2099-2119): over a (D+1, S, W) BSI stack
+// (plane D = not-null row), optionally ANDed with a filter plane, a D-step
+// bit scan that keeps `consider` = the columns still able to be extreme
+// and needs a GLOBAL "popcount(x) > 0" at every step.
+//
+// Bound: bytes, (D+1 + 1 if filtered) * S * W * 4 (each plane read once).
+// Design: the scan is sequential only globally. Max and min are
+// associative, so each block runs the whole D-step scan on its own chunk
+// (4096 words of every plane), `consider` in registers (4 uint4 a thread),
+// the block's "nonzero" from __syncthreads_or, the next plane's chunk
+// loaded before the barrier. A block writes (local extreme, local count).
+// A second launch of one block reduces them: the best value among blocks
+// whose count > 0 wins and the counts of the blocks holding it add up;
+// with no such block the bits are all 0 (max) or all 1 (min), count 0,
+// which is what the global scan gives an empty `consider`.
+//
 // ---------------------------------------------------------------------
 // K2  masked_plane_counts
 //
@@ -104,6 +136,13 @@
 #define OP_ANDNOT 4
 #define OP_NOTAND 5
 #define OP_ACC 8
+#define OP_BSI_PUSH 0x10
+#define OP_BSI_KEEP1 0x20
+#define OP_BSI_KEEP2 0x21
+#define GT_KEEP 1
+#define GT_CLEAR 2
+#define LT_CLEAR 1
+#define LT_KEEP 2
 #define RING_CHUNK 32
 #define Q_TILE 256
 
@@ -118,6 +157,10 @@
 #ifndef ST_QB
 #define ST_QB 4  // queries evaluated together by one tape pass
 #endif
+#define K3_THREADS 256
+#define K3_WARPS (K3_THREADS / 32)
+#define K3_VEC 4  // uint4 of each plane per thread: 4096 words a block
+#define K3_REDUCE_THREADS 1024
 
 __device__ __forceinline__ uint4 apply_op(int op, uint4 a, uint4 b) {
   uint4 r;
@@ -151,16 +194,34 @@ __device__ __forceinline__ unsigned long long warp_sum64(unsigned long long v) {
   return v;
 }
 
+__device__ __forceinline__ uint4 and4(uint4 a, uint4 b) {
+  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+}
+
+__device__ __forceinline__ uint4 or4(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+
+__device__ __forceinline__ uint4 not4(uint4 a) { return make_uint4(~a.x, ~a.y, ~a.z, ~a.w); }
+
 // Evaluates the tape for QB independent operand sets at once (QB queries
 // of the staged variant, or QB = 1): each code is decoded once and its QB
 // loads are independent, so they overlap. fetch(b, slot) returns set b's
 // uint4 of that leaf position. stk is the caller's (local-memory) stack
-// below the top; the tape is validated on the host (depth <= MAX_STACK).
-template <int QB, class Fetch>
+// below the top; the tape is validated on the host (depth <= MAX_STACK,
+// BSI steps and keeps only inside a compare). BSI: the tape may hold BSI
+// compare codes, evaluated with the masks keep1/keep2 in registers.
+template <int QB, bool BSI, class Fetch>
 __device__ __forceinline__ void eval_tape(const int* __restrict__ tape, int n, Fetch fetch,
                                           uint4 (*stk)[QB], uint4 (&top)[QB]) {
+  uint4 keep1[QB], keep2[QB];
+  if (BSI) {
+#pragma unroll
+    for (int b = 0; b < QB; ++b) keep1[b] = keep2[b] = make_uint4(0u, 0u, 0u, 0u);
+  }
   {
-    const int slot = __ldg(tape) >> 8;  // a valid tape starts with a PUSH
+    // A valid tape starts with a PUSH or a BSI_PUSH (keeps already 0).
+    const int slot = __ldg(tape) >> 8;
 #pragma unroll
     for (int b = 0; b < QB; ++b) top[b] = fetch(b, slot);
   }
@@ -168,13 +229,33 @@ __device__ __forceinline__ void eval_tape(const int* __restrict__ tape, int n, F
   for (int t = 1; t < n; ++t) {
     const int code = __ldg(tape + t);
     const int op = code & 0xff;
-    if (op == OP_PUSH) {
+    if (op == OP_PUSH || (BSI && op == OP_BSI_PUSH)) {
 #pragma unroll
       for (int b = 0; b < QB; ++b) {
         stk[sp][b] = top[b];
         top[b] = fetch(b, code >> 8);
+        if (BSI && op == OP_BSI_PUSH) keep1[b] = keep2[b] = make_uint4(0u, 0u, 0u, 0u);
       }
       ++sp;
+    } else if (BSI && op >= OP_BSI_KEEP1) {
+#pragma unroll
+      for (int b = 0; b < QB; ++b) top[b] = op == OP_BSI_KEEP1 ? keep1[b] : keep2[b];
+    } else if (BSI && op > OP_BSI_PUSH) {  // a plane step: ">" part, then "<" part
+      const int gt = op & 3, lt = (op >> 2) & 3;
+#pragma unroll
+      for (int b = 0; b < QB; ++b) {
+        const uint4 row = fetch(b, code >> 8);
+        if (gt == GT_KEEP) {
+          keep1[b] = or4(keep1[b], and4(top[b], row));
+        } else if (gt == GT_CLEAR) {
+          top[b] = and4(top[b], or4(row, keep1[b]));
+        }
+        if (lt == LT_CLEAR) {
+          top[b] = and4(top[b], or4(not4(row), keep2[b]));
+        } else if (lt == LT_KEEP) {
+          keep2[b] = or4(keep2[b], and4(top[b], not4(row)));
+        }
+      }
     } else if (op & OP_ACC) {
 #pragma unroll
       for (int b = 0; b < QB; ++b) top[b] = apply_op(op & ~OP_ACC, top[b], fetch(b, code >> 8));
@@ -204,7 +285,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // Q_TILE queries; urows: the tiles' distinct stack rows; qpos: (Q, L) ring
 // position of each query's leaf positions; dynamic shared memory: NS
 // stages of (nu_max, RING_CHUNK) uint4.
-template <int NS>
+template <int NS, bool BSI>
 __global__ void __launch_bounds__(ST_THREADS)
 k1_staged_kernel(const uint4* __restrict__ stacked, long long plane_vec,
                  const int* __restrict__ tape, int tape_len, int n_leaves,
@@ -267,7 +348,7 @@ k1_staged_kernel(const uint4* __restrict__ stacked, long long plane_vec,
           pos[b] = qpos + (long long)(q0 + (qi < qn ? qi : 0)) * n_leaves;
         }
         uint4 top[ST_QB];
-        eval_tape<ST_QB>(
+        eval_tape<ST_QB, BSI>(
             tape, tape_len,
             [&](int b, int slot) { return chunk[__ldg(pos[b] + slot) * RING_CHUNK]; }, stk,
             top);
@@ -291,6 +372,7 @@ k1_staged_kernel(const uint4* __restrict__ stacked, long long plane_vec,
 
 // idxs: (L, Q) slot ids; items are (query, chunk) pairs numbered
 // query-fastest.
+template <bool BSI>
 __global__ void __launch_bounds__(THREADS)
 k1_streaming_kernel(const uint4* __restrict__ stacked, long long plane_vec,
                     const int* __restrict__ tape, int tape_len,
@@ -310,7 +392,7 @@ k1_streaming_kernel(const uint4* __restrict__ stacked, long long plane_vec,
       const long long i = chunk0 + (long long)it * THREADS + threadIdx.x;
       if (i < plane_vec) {
         uint4 v[1];
-        eval_tape<1>(
+        eval_tape<1, BSI>(
             tape, tape_len,
             [&](int, int slot) {
               return __ldg(stacked + (long long)__ldg(idxs + (long long)slot * q_total + q) *
@@ -385,13 +467,136 @@ masked_plane_counts_kernel(const uint4* __restrict__ stack, const uint4* __restr
   }
 }
 
-template <int NS>
+// K3, first pass. planes: (depth + 1, plane_vec) uint4, plane `depth` the
+// not-null row; mask: (plane_vec) uint4 or null. part: (gridDim.x, 2) =
+// (the block's extreme value, how many of its columns hold it).
+template <bool MAX>
+__global__ void __launch_bounds__(K3_THREADS)
+bsi_minmax_kernel(const uint4* __restrict__ planes, const uint4* __restrict__ mask, int depth,
+                  long long plane_vec, unsigned long long* __restrict__ part) {
+  __shared__ unsigned int warp_sums[K3_WARPS];
+  const long long i0 = (long long)blockIdx.x * (K3_THREADS * K3_VEC) + threadIdx.x;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 consider[K3_VEC], next[K3_VEC];
+  // Lanes past the plane's end hold 0 and never count.
+  auto load = [&](int plane, uint4 (&dst)[K3_VEC]) {
+#pragma unroll
+    for (int it = 0; it < K3_VEC; ++it) {
+      const long long i = i0 + (long long)it * K3_THREADS;
+      dst[it] = i < plane_vec ? __ldg(planes + (long long)plane * plane_vec + i) : zero;
+    }
+  };
+  load(depth, consider);
+  if (mask != nullptr) {
+#pragma unroll
+    for (int it = 0; it < K3_VEC; ++it) {
+      const long long i = i0 + (long long)it * K3_THREADS;
+      consider[it] = and4(consider[it], i < plane_vec ? __ldg(mask + i) : zero);
+    }
+  }
+  if (depth > 0) load(depth - 1, next);
+  unsigned long long value = 0;
+  for (int bit = depth - 1; bit >= 0; --bit) {
+    uint4 row[K3_VEC];
+#pragma unroll
+    for (int it = 0; it < K3_VEC; ++it) row[it] = next[it];
+    if (bit > 0) load(bit - 1, next);  // in flight across the barrier
+    uint4 x[K3_VEC];
+    unsigned int any = 0;
+#pragma unroll
+    for (int it = 0; it < K3_VEC; ++it) {
+      x[it] = MAX ? and4(row[it], consider[it]) : and4(consider[it], not4(row[it]));
+      any |= x[it].x | x[it].y | x[it].z | x[it].w;
+    }
+    const int nonzero = __syncthreads_or(any != 0);
+    if (nonzero) {
+#pragma unroll
+      for (int it = 0; it < K3_VEC; ++it) consider[it] = x[it];
+    }
+    if (MAX ? nonzero : !nonzero) value |= 1ull << bit;
+  }
+  unsigned int cnt = 0;
+#pragma unroll
+  for (int it = 0; it < K3_VEC; ++it) cnt += popc4(consider[it]);
+  cnt = warp_sum(cnt);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = cnt;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long total = 0;
+#pragma unroll
+    for (int w = 0; w < K3_WARPS; ++w) total += warp_sums[w];
+    part[2 * blockIdx.x] = value;
+    part[2 * blockIdx.x + 1] = total;
+  }
+}
+
+// K3, second pass: one block of K3_REDUCE_THREADS over the n_blocks
+// partials; writes bits (depth,) int32 and count int64.
+template <bool MAX>
+__global__ void __launch_bounds__(K3_REDUCE_THREADS)
+bsi_minmax_reduce_kernel(const unsigned long long* __restrict__ part, int n_blocks, int depth,
+                         int* __restrict__ bits, unsigned long long* __restrict__ count) {
+  __shared__ unsigned long long sh[K3_REDUCE_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = K3_REDUCE_THREADS / 32;
+  // The neutral value of the combine, and the answer when no block
+  // considered a column: bits all 0 (max) or all 1 (min). Values hold at
+  // most 63 bits, so no real minimum equals it.
+  const unsigned long long empty = MAX ? 0ull : ~0ull;
+  unsigned long long best = empty;
+  for (int b = threadIdx.x; b < n_blocks; b += K3_REDUCE_THREADS) {
+    if (part[2 * b + 1]) {
+      const unsigned long long v = part[2 * b];
+      best = MAX ? (v > best ? v : best) : (v < best ? v : best);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_down_sync(0xffffffffu, best, off);
+    best = MAX ? (o > best ? o : best) : (o < best ? o : best);
+  }
+  if (lane == 0) sh[warp] = best;
+  __syncthreads();
+  best = sh[0];
+  for (int w = 1; w < n_warps; ++w) best = MAX ? (sh[w] > best ? sh[w] : best)
+                                               : (sh[w] < best ? sh[w] : best);
+  __syncthreads();  // every thread has read sh[] before it is reused
+  unsigned long long total = 0;
+  for (int b = threadIdx.x; b < n_blocks; b += K3_REDUCE_THREADS) {
+    if (part[2 * b + 1] && part[2 * b] == best) total += part[2 * b + 1];
+  }
+  total = warp_sum64(total);
+  if (lane == 0) sh[warp] = total;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sum = 0;
+    for (int w = 0; w < n_warps; ++w) sum += sh[w];
+    *count = sum;
+  }
+  for (int i = threadIdx.x; i < depth; i += K3_REDUCE_THREADS) bits[i] = (int)((best >> i) & 1ull);
+}
+
+template <bool MAX>
+static int launch_bsi_minmax(const void* planes, const void* mask, int depth,
+                             long long plane_vec, void* part, int n_blocks, void* bits,
+                             void* count, cudaStream_t stream) {
+  bsi_minmax_kernel<MAX><<<(unsigned int)n_blocks, K3_THREADS, 0, stream>>>(
+      (const uint4*)planes, (const uint4*)mask, depth, plane_vec, (unsigned long long*)part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bsi_minmax_reduce_kernel<MAX><<<1, K3_REDUCE_THREADS, 0, stream>>>(
+      (const unsigned long long*)part, n_blocks, depth, (int*)bits,
+      (unsigned long long*)count);
+  return (int)cudaGetLastError();
+}
+
+template <int NS, bool BSI>
 static int launch_staged(const void* stacked, long long plane_vec, const void* tape,
                          int tape_len, int n_leaves, const void* tiles, int n_tiles,
                          const void* urows, const void* qpos, int q, int nu_max, void* out,
                          cudaStream_t stream) {
   const size_t smem = (size_t)NS * nu_max * RING_CHUNK * sizeof(uint4);
-  auto kern = k1_staged_kernel<NS>;
+  auto kern = k1_staged_kernel<NS, BSI>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -421,14 +626,15 @@ extern "C" {
 // both in one device buffer built by ops/kernels.py. out: (q,) int64,
 // zero-filled by the caller. Returns a cudaError_t (0 = launched).
 int pt_k1_streaming(const void* stacked, long long plane_words, const void* tape,
-                    int tape_len, const void* idxs, int q, void* out, void* stream) {
+                    int tape_len, const void* idxs, int q, int bsi, void* out, void* stream) {
   if (q <= 0 || plane_words <= 0) return (int)cudaSuccess;
   if (tape_len <= 0 || plane_words % 4 != 0) return (int)cudaErrorInvalidValue;
   const long long plane_vec = plane_words / 4;
   const long long per_block = (long long)THREADS * K1_ITERS;
   const long long n_items = (plane_vec + per_block - 1) / per_block * q;
   const long long grid = n_items < (1LL << 30) ? n_items : (1LL << 30);
-  k1_streaming_kernel<<<(unsigned int)grid, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kern = bsi ? k1_streaming_kernel<true> : k1_streaming_kernel<false>;
+  kern<<<(unsigned int)grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const uint4*)stacked, plane_vec, (const int*)tape, tape_len, (const int*)idxs, q,
       n_items, (unsigned long long*)out);
   return (int)cudaGetLastError();
@@ -436,10 +642,12 @@ int pt_k1_streaming(const void* stacked, long long plane_words, const void* tape
 
 // K1, staged variant. tiles: (n_tiles, 2) int32 (offset into urows,
 // distinct slots); urows: the tiles' distinct stack rows; qpos: (q, L)
-// ring positions; n_stages: ring stages (2..4) of nu_max slots each.
+// ring positions; n_stages: ring stages (2..4) of nu_max slots each;
+// bsi: the tape holds BSI compare codes.
 int pt_k1_staged(const void* stacked, long long plane_words, const void* tape, int tape_len,
                  int n_leaves, const void* tiles, int n_tiles, const void* urows,
-                 const void* qpos, int q, int nu_max, int n_stages, void* out, void* stream) {
+                 const void* qpos, int q, int nu_max, int n_stages, int bsi, void* out,
+                 void* stream) {
   if (q <= 0 || plane_words <= 0) return (int)cudaSuccess;
   if (tape_len <= 0 || plane_words % 4 != 0 || nu_max <= 0 || n_tiles <= 0 ||
       n_tiles > 65535 || (long long)n_tiles * Q_TILE < q) {
@@ -449,14 +657,17 @@ int pt_k1_staged(const void* stacked, long long plane_words, const void* tape, i
   cudaStream_t st = (cudaStream_t)stream;
   switch (n_stages) {
     case 2:
-      return launch_staged<2>(stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles,
-                              urows, qpos, q, nu_max, out, st);
+      return (bsi ? launch_staged<2, true> : launch_staged<2, false>)(
+          stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles, urows, qpos, q, nu_max,
+          out, st);
     case 3:
-      return launch_staged<3>(stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles,
-                              urows, qpos, q, nu_max, out, st);
+      return (bsi ? launch_staged<3, true> : launch_staged<3, false>)(
+          stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles, urows, qpos, q, nu_max,
+          out, st);
     case 4:
-      return launch_staged<4>(stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles,
-                              urows, qpos, q, nu_max, out, st);
+      return (bsi ? launch_staged<4, true> : launch_staged<4, false>)(
+          stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles, urows, qpos, q, nu_max,
+          out, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -476,6 +687,25 @@ int pt_masked_plane_counts(const void* stack, const void* mask, int n_rows, int 
   masked_plane_counts_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const uint4*)stack, (const uint4*)mask, n_rows, n_shards, wvec, (int*)out);
   return (int)cudaGetLastError();
+}
+
+// K3. planes: (depth + 1, plane_words) words, plane `depth` the not-null
+// row; mask: (plane_words) words or null; part: (n_blocks, 2) int64
+// scratch, n_blocks = ceil(plane_words / 4096); bits: (depth,) int32;
+// count: one int64.
+int pt_bsi_minmax(const void* planes, const void* mask, int depth, long long plane_words,
+                  int maximize, void* part, int n_blocks, void* bits, void* count,
+                  void* stream) {
+  if (plane_words <= 0 || plane_words % 4 != 0 || depth < 0 || depth > 63)
+    return (int)cudaErrorInvalidValue;
+  const long long plane_vec = plane_words / 4;
+  const long long per_block = (long long)K3_THREADS * K3_VEC;
+  if ((plane_vec + per_block - 1) / per_block != n_blocks) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return maximize ? launch_bsi_minmax<true>(planes, mask, depth, plane_vec, part, n_blocks,
+                                            bits, count, st)
+                  : launch_bsi_minmax<false>(planes, mask, depth, plane_vec, part, n_blocks,
+                                             bits, count, st);
 }
 
 }  // extern "C"

@@ -1,47 +1,65 @@
-"""PQL executor: single-node execution of the read hot path.
+"""PQL executor: single-node execution of the read and write paths.
 
 Port of the local half of pilosa_tpu/executor.py (itself a port of
-reference executor.go): Set / Clear writes, Row / Intersect / Union
-/ Difference / Xor bitmaps, Count of such trees, and two-phase TopN
-(executor.go:524-560) with an optional filter. Bitmap and Count calls run
-over all shards at once on the device engine (parallel/engine.py); TopN
-without a filter ranks from the fragments' host rank caches, as the JAX
-package does, and TopN with a filter counts the candidate rows against
-the filter with the masked_plane_counts kernel.
+reference executor.go): Set / Clear / SetValue / SetRowAttrs /
+SetColumnAttrs writes; Row / Intersect / Union / Difference / Xor and BSI
+and time-quantum Range bitmaps; Count of such trees; Sum / Min / Max over
+a BSI field with an optional filter; and two-phase TopN
+(executor.go:524-560) with an optional filter, attribute filter and
+tanimoto threshold.
 
-Everything else the JAX executor serves — Sum/Min/Max, BSI and time
-Ranges, attribute writes, key translation, cluster fan-out, the
-collective plane, the device-fault ladder — raises a QueryError saying it
-is not ported yet.
+Every tree the plan compiler lowers runs over all shards at once on the
+device engine (parallel/engine.py): Counts on the gather-count kernel,
+Sum on masked_plane_counts, Min/Max on bsi_minmax, TopN filters on
+masked_plane_counts. A tree the engine's compile gate refuses (a time
+Range over a field without a quantum or over no populated views, more
+than 256 views, a missing field) is walked shard by shard, as the JAX
+executor walks it; the walk is never a fallback for a kernel failure.
+
+Not ported yet: key translation, cluster fan-out and write forwarding,
+the collective plane, the micro-batcher and the device-fault ladder; keys
+raise a QueryError saying so.
 """
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
-from .constants import MAX_WRITES_PER_REQUEST, VIEW_STANDARD, WORDS_PER_ROW
+from .constants import (
+    MAX_WRITES_PER_REQUEST,
+    VIEW_BSI_GROUP_PREFIX,
+    VIEW_STANDARD,
+    WORDS_PER_ROW,
+)
 from .core.cache import Pair, add_pairs, sort_pairs
-from .core.fragment import TopOptions
+from .core.fragment import Fragment, TopOptions
 from .core.holder import Holder
 from .core.row import Row
 from .errors import (
+    BSIGroupNotFoundError,
     FieldNotFoundError,
     IndexNotFoundError,
     PilosaError,
     QueryError,
     TooManyWritesError,
 )
+from .ops.bitplane import compose_bits
 from .parallel.engine import ShardedQueryEngine
 from .pql import parser as pql_parser
-from .pql.ast import Call
-from .timeq import parse_timestamp
+from .pql.ast import BETWEEN, GT, GTE, LT, LTE, NEQ, Call, Condition
+from .timeq import parse_timestamp, views_by_time_range
 
 DEFAULT_FIELD = "general"
 DEFAULT_MIN_THRESHOLD = 1
 
 _WRITE_CALLS = {"Set", "Clear", "SetValue", "SetRowAttrs", "SetColumnAttrs"}
-_BITMAP_CALLS = {"Row", "Intersect", "Union", "Difference", "Xor"}
+# String arguments that are times, not keys.
+_TIME_ARGS = ("_timestamp", "_start", "_end")
+_NARY_SHARD_OPS = {"Difference": "difference", "Intersect": "intersect",
+                   "Union": "union", "Xor": "xor"}
 
 
 def _topn_chunk(n_shards: int) -> int:
@@ -54,6 +72,27 @@ def _topn_chunk(n_shards: int) -> int:
 
 def _not_ported(what: str) -> QueryError:
     return QueryError(f"{what} is not ported to the PyTorch/CUDA executor yet")
+
+
+@dataclass
+class ValCount:
+    """Sum/Min/Max result (reference executor.go:1762-1808)."""
+
+    val: int = 0
+    count: int = 0
+
+    def add(self, other: "ValCount") -> "ValCount":
+        return ValCount(self.val + other.val, self.count + other.count)
+
+    def smaller(self, other: "ValCount") -> "ValCount":
+        if self.count == 0 or (other.val < self.val and other.count > 0):
+            return other
+        return ValCount(self.val, self.count)
+
+    def larger(self, other: "ValCount") -> "ValCount":
+        if self.count == 0 or (other.val > self.val and other.count > 0):
+            return other
+        return ValCount(self.val, self.count)
 
 
 class Executor:
@@ -96,29 +135,61 @@ class Executor:
         being silently treated as ids."""
         if idx.keys():
             raise _not_ported("key translation (index 'keys' option)")
-        for v in c.args.values():
-            if isinstance(v, str) and c.name in ("Set", "Clear", "Row"):
-                raise _not_ported("key translation (string row/column)")
+        if c.name in ("Set", "Clear", "Row") and any(
+                isinstance(v, str) for k, v in c.args.items() if k not in _TIME_ARGS):
+            raise _not_ported("key translation (string row/column)")
         for child in c.children:
             self._check_untranslated(idx, child)
 
     def _execute_call(self, index: str, c: Call, shards: List[int]):
+        if c.name in ("Sum", "Min", "Max"):
+            return self._execute_val_count(index, c, shards, c.name.lower())
         if c.name == "Count":
             return self._execute_count(index, c, shards)
         if c.name == "Set":
             return self._execute_set_bit(index, c)
         if c.name == "Clear":
             return self._execute_clear_bit(index, c)
+        if c.name == "SetValue":
+            self._execute_set_value(index, c)
+            return None
+        if c.name == "SetRowAttrs":
+            self._execute_set_row_attrs(index, c)
+            return None
+        if c.name == "SetColumnAttrs":
+            self._execute_set_column_attrs(index, c)
+            return None
         if c.name == "TopN":
             return self._execute_topn(index, c, shards)
-        if c.name in _BITMAP_CALLS:
-            return self._execute_bitmap_call(index, c, shards)
-        raise _not_ported(f"{c.name}()")
+        return self._execute_bitmap_call(index, c, shards)
+
+    def _supports(self, index: str, c: Call, shards: List[int]):
+        """The engine's compile gate; nothing to run over no shards."""
+        return bool(shards) and self.engine.supports(c, index)
+
+    @staticmethod
+    def _map_reduce(shards: List[int], map_fn: Callable, reduce_fn: Callable):
+        """The per-shard walk for trees the engine does not compile: one
+        shard at a time, reduced in shard order (None over no shards)."""
+        result = None
+        for shard in shards:
+            v = map_fn(shard)
+            result = v if result is None else reduce_fn(result, v)
+        return result
 
     # ------------------------------------------------------------- bitmaps
 
     def _execute_bitmap_call(self, index: str, c: Call, shards: List[int]) -> Row:
-        row = self.engine.bitmap(index, c, shards) if shards else Row()
+        if self._supports(index, c, shards):
+            row = self.engine.bitmap(index, c, shards)
+        else:
+            def merge(prev: Row, v: Row) -> Row:
+                prev.merge(v)
+                return prev
+
+            row = self._map_reduce(
+                shards, lambda s: self._execute_bitmap_call_shard(index, c, s),
+                merge) or Row()
         if c.name == "Row":
             fld = self.holder.field(index, c.field_arg())
             if fld is not None:
@@ -126,6 +197,108 @@ class Executor:
                 if ok:
                     row.attrs = fld.row_attr_store.attrs(row_id)
         return row
+
+    def _execute_bitmap_call_shard(self, index: str, c: Call, shard: int) -> Row:
+        if c.name == "Row":
+            return self._execute_row_shard(index, c, shard)
+        if c.name in _NARY_SHARD_OPS:
+            return self._execute_nary_shard(index, c, shard, _NARY_SHARD_OPS[c.name])
+        if c.name == "Range":
+            return self._execute_range_shard(index, c, shard)
+        raise QueryError(f"unknown call: {c.name}")
+
+    def _execute_row_shard(self, index: str, c: Call, shard: int) -> Row:
+        field_name = c.field_arg()
+        if self.holder.field(index, field_name) is None:
+            raise FieldNotFoundError(field_name)
+        row_id, ok = c.uint_arg(field_name)
+        if not ok:
+            raise QueryError("Row() must specify row")
+        frag = self.holder.fragment(index, field_name, VIEW_STANDARD, shard)
+        return Row() if frag is None else frag.row(row_id)
+
+    def _execute_nary_shard(self, index: str, c: Call, shard: int, op: str) -> Row:
+        if not c.children and op in ("difference", "intersect"):
+            raise QueryError(f"empty {c.name} query is currently not supported")
+        rows = [self._execute_bitmap_call_shard(index, ch, shard) for ch in c.children]
+        if not rows:
+            return Row()
+        out = rows[0]
+        for r in rows[1:]:
+            out = getattr(out, op)(r)
+        return out
+
+    def _execute_range_shard(self, index: str, c: Call, shard: int) -> Row:
+        if c.has_condition_arg():
+            return self._execute_bsi_range_shard(index, c, shard)
+        field_name = c.field_arg()
+        fld = self.holder.field(index, field_name)
+        if fld is None:
+            raise FieldNotFoundError(field_name)
+        row_id, ok = c.uint_arg(field_name)
+        if not ok:
+            raise QueryError("Range() must specify row")
+        start, end = c.args.get("_start"), c.args.get("_end")
+        if not isinstance(start, str) or not isinstance(end, str):
+            raise QueryError("Range() start/end time required")
+        start_t, end_t = parse_timestamp(start), parse_timestamp(end)
+        q = fld.time_quantum()
+        if not q:
+            return Row()
+        row = Row()
+        for view_name in views_by_time_range(VIEW_STANDARD, start_t, end_t, q):
+            frag = self.holder.fragment(index, field_name, view_name, shard)
+            if frag is not None:
+                row.merge(frag.row(row_id))
+        return row
+
+    def _execute_bsi_range_shard(self, index: str, c: Call, shard: int) -> Row:
+        if len(c.args) == 0:
+            raise QueryError("Range(): condition required")
+        if len(c.args) > 1:
+            raise QueryError("Range(): too many arguments")
+        (field_name, cond), = c.args.items()
+        if not isinstance(cond, Condition):
+            raise QueryError(f"Range(): expected condition argument, got {cond!r}")
+        fld = self.holder.field(index, field_name)
+        if fld is None:
+            raise FieldNotFoundError(field_name)
+        bsig = fld.bsi_group(field_name)
+        if bsig is None:
+            raise BSIGroupNotFoundError(field_name)
+        depth = bsig.bit_depth()
+        frag = self.holder.fragment(index, field_name, VIEW_BSI_GROUP_PREFIX + field_name, shard)
+
+        if cond.op == NEQ and cond.value is None:  # != null
+            return frag.not_null(depth) if frag else Row()
+
+        if cond.op == BETWEEN:
+            predicates = cond.int_slice_value()
+            if len(predicates) != 2:
+                raise QueryError("Range(): BETWEEN condition requires exactly two integer values")
+            lo, hi, out_of_range = bsig.base_value_between(*predicates)
+            if out_of_range or frag is None:
+                return Row()
+            if predicates[0] <= bsig.min and predicates[1] >= bsig.max:
+                return frag.not_null(depth)
+            return frag.range_between(depth, lo, hi)
+
+        if not isinstance(cond.value, int) or isinstance(cond.value, bool):
+            raise QueryError("Range(): conditions only support integer values")
+        value = cond.value
+        base, out_of_range = bsig.base_value(cond.op, value)
+        if (out_of_range and cond.op != NEQ) or frag is None:
+            return Row()
+        # Full-range LT/GT collapse to not-null (executor.go:938-948).
+        if (
+            (cond.op == LT and value > bsig.max)
+            or (cond.op == LTE and value >= bsig.max)
+            or (cond.op == GT and value < bsig.min)
+            or (cond.op == GTE and value <= bsig.min)
+            or out_of_range  # != a value outside the range
+        ):
+            return frag.not_null(depth)
+        return frag.range_op(cond.op, depth, base)
 
     # --------------------------------------------------------------- count
 
@@ -135,19 +308,80 @@ class Executor:
         if len(c.children) > 1:
             raise QueryError("Count() only accepts a single bitmap input")
         child = c.children[0]
-        if child.name not in _BITMAP_CALLS:
-            raise _not_ported(f"Count({child.name}())")
-        if not shards:
-            return 0
-        return self.engine.count(index, child, shards)
+        if self._supports(index, child, shards):
+            return self.engine.count(index, child, shards)
+        result = self._map_reduce(
+            shards, lambda s: self._execute_bitmap_call_shard(index, child, s).count(),
+            lambda a, b: a + b)
+        return int(result or 0)
+
+    # --------------------------------------------------------- sum/min/max
+
+    def _execute_val_count(self, index: str, c: Call, shards: List[int],
+                           kind: str) -> ValCount:
+        field_name = c.args.get("field")
+        if not field_name:
+            raise QueryError(f"{c.name}(): field required")
+        if len(c.children) > 1:
+            raise QueryError(f"{c.name}() only accepts a single bitmap input")
+        fld = self.holder.field(index, field_name)
+        bsig = fld.bsi_group(field_name) if fld else None
+        filter_call = c.children[0] if c.children else None
+        if bsig is not None and (self._supports(index, filter_call, shards)
+                                 if filter_call is not None else shards):
+            out = self.engine.bsi_val_count(
+                index, field_name, kind, bsig.bit_depth(), shards, filter_call)
+            result = self._compose_bsi_result(bsig, kind, out)
+        else:
+            reduce_fn = {"sum": ValCount.add, "min": ValCount.smaller,
+                         "max": ValCount.larger}[kind]
+            result = self._map_reduce(
+                shards, lambda s: self._execute_val_count_shard(index, c, s, kind),
+                reduce_fn) or ValCount()
+        if result.count == 0:
+            return ValCount()
+        return result
+
+    @staticmethod
+    def _compose_bsi_result(bsig, kind: str, out) -> ValCount:
+        """ValCount from an engine.bsi_val_count result: the offset and
+        weight math (executor.py:1219-1237 of the JAX package)."""
+        depth = bsig.bit_depth()
+        if kind == "sum":
+            vcount = int(out[depth])
+            if vcount == 0:
+                return ValCount()
+            vsum = sum((1 << i) * int(out[i]) for i in range(depth))
+            return ValCount(vsum + vcount * bsig.min, vcount)
+        bits, count = out
+        if count == 0:
+            return ValCount()
+        return ValCount(compose_bits(bits) + bsig.min, count)
+
+    def _execute_val_count_shard(self, index: str, c: Call, shard: int,
+                                 kind: str) -> ValCount:
+        filter_row = None
+        if len(c.children) == 1:
+            filter_row = self._execute_bitmap_call_shard(index, c.children[0], shard)
+        field_name = c.args.get("field")
+        fld = self.holder.field(index, field_name)
+        bsig = fld.bsi_group(field_name) if fld else None
+        if bsig is None:
+            return ValCount()
+        frag = self.holder.fragment(index, field_name, VIEW_BSI_GROUP_PREFIX + field_name, shard)
+        if frag is None:
+            return ValCount()
+        if kind == "sum":
+            vsum, vcount = frag.sum(filter_row, bsig.bit_depth())
+            return ValCount(val=vsum + vcount * bsig.min, count=vcount)
+        v, cnt = getattr(frag, kind)(filter_row, bsig.bit_depth())
+        return ValCount(val=v + bsig.min if cnt else 0, count=cnt)
 
     # ----------------------------------------------------------------- TopN
 
     def _execute_topn(self, index: str, c: Call, shards: List[int]) -> List[Pair]:
         ids_arg = self._uint_slice_arg(c, "ids")
         n, _ = c.uint_arg("n")
-        if c.args.get("attrName") or c.args.get("tanimotoThreshold"):
-            raise _not_ported("TopN attribute and tanimoto filters")
         pairs = self._execute_topn_shards(index, c, shards)
         if not pairs or ids_arg:
             return pairs
@@ -161,49 +395,73 @@ class Executor:
         return trimmed
 
     def _execute_topn_shards(self, index: str, c: Call, shards: List[int]) -> List[Pair]:
-        field_name = c.args.get("_field") or DEFAULT_FIELD
         ids = self._uint_slice_arg(c, "ids")
+        tanimoto, _ = c.uint_arg("tanimotoThreshold")
+        if tanimoto > 100:
+            raise QueryError("Tanimoto Threshold is from 1 to 100 only")
         if len(c.children) > 1:
             raise QueryError("TopN() can only have one input bitmap")
         src_call = c.children[0] if c.children else None
-        if src_call is not None and src_call.name not in _BITMAP_CALLS:
-            raise _not_ported(f"TopN over {src_call.name}()")
+        # Without a filter the host rank caches hold exact counts: the
+        # per-shard walk needs no device work, as in the JAX package.
+        if src_call is None or not self._supports(index, src_call, shards):
+            return sort_pairs(self._map_reduce(
+                shards, lambda s: self._execute_topn_shard(index, c, s),
+                add_pairs) or [])
+        field_name = c.args.get("_field") or DEFAULT_FIELD
         thr = max(c.uint_arg("threshold")[0], DEFAULT_MIN_THRESHOLD)
-        n_arg, _ = c.uint_arg("n")
-
-        if src_call is None:
-            # No filter: ranks come from each fragment's host rank cache
-            # (exact counts) — no device work, as in the JAX package.
-            out: List[Pair] = []
-            for s in shards:
-                frag = self.holder.fragment(index, field_name, VIEW_STANDARD, s)
-                if frag is None:
-                    continue
-                out = add_pairs(out, frag.top(TopOptions(
-                    n=n_arg, row_ids=ids, min_threshold=thr)))
-            return sort_pairs(out)
-
+        attr_name = c.args.get("attrName", "")
+        attr_values = c.args.get("attrValues") or []
         if ids:
-            # Phase 2: every candidate's per-shard count against the
-            # filter, one K2 pass over the stacked candidate rows.
-            _, inter, _ = self.engine.topn_shard_counts(
-                index, field_name, ids, shards, src_call,
-                need_row_counts=False)
-            pairs: Dict[int, int] = {}
-            for ri, row_id in enumerate(ids):
-                for si in range(len(shards)):
-                    count = int(inter[ri, si])
-                    if count == 0 or count < thr:
-                        continue
-                    pairs[row_id] = pairs.get(row_id, 0) + count
-            return sort_pairs([Pair(id=r, count=n) for r, n in pairs.items()])
+            return self._topn_candidates(index, field_name, ids, shards, src_call,
+                                         thr, tanimoto, attr_name, attr_values)
+        return self._topn_ranked(index, field_name, shards, src_call, TopOptions(
+            n=c.uint_arg("n")[0], min_threshold=thr, filter_name=attr_name,
+            filter_values=attr_values, tanimoto_threshold=tanimoto))
 
-        # Phase 1: each shard's candidates come from its rank cache; the
-        # filter intersections for the union of candidates run as K2
-        # passes over all shards at once, and each fragment replays the
-        # reference heap selection from the precomputed counts
-        # (fragment.go:899-990).
-        topn_opt = TopOptions(n=n_arg, min_threshold=thr)
+    def _topn_candidates(self, index, field_name, ids, shards, src_call, thr,
+                         tanimoto, attr_name, attr_values) -> List[Pair]:
+        """Phase 2: every candidate's per-shard count against the filter,
+        one K2 pass over the stacked candidate rows, keeping per-shard
+        MinThreshold, tanimoto (fragment.go:899-990, 1008-1027: the
+        coefficient is a function of the row, intersection and src counts)
+        and the attr filter (a host check against the field's row attr
+        store, fragment.go:922-934)."""
+        if attr_name and attr_values:
+            fld = self.holder.field(index, field_name)
+            store = fld.row_attr_store if fld else None
+            values = set(attr_values)
+            ids = [r for r in ids if Fragment.row_attrs_match(store, r, attr_name, values)]
+            if not ids:
+                return []
+        # Row counts only gate tanimoto and thresholds > 1; at thr <= 1
+        # the count > 0 check below subsumes them.
+        need_rc = bool(tanimoto) or thr > 1
+        row_counts, inter, src_counts = self.engine.topn_shard_counts(
+            index, field_name, ids, shards, src_call, need_row_counts=need_rc)
+        pairs: Dict[int, int] = {}
+        for ri, row_id in enumerate(ids):
+            for si in range(len(shards)):
+                count = int(inter[ri, si])
+                cnt = int(row_counts[ri, si]) if need_rc else count
+                if cnt <= 0 or count == 0:
+                    continue
+                if tanimoto:
+                    tan = math.ceil(count * 100.0 / (cnt + int(src_counts[si]) - count))
+                    if tan <= tanimoto:
+                        continue
+                elif cnt < thr or count < thr:
+                    continue
+                pairs[row_id] = pairs.get(row_id, 0) + count
+        return sort_pairs([Pair(id=r, count=n) for r, n in pairs.items()])
+
+    def _topn_ranked(self, index, field_name, shards, src_call,
+                     topn_opt: TopOptions) -> List[Pair]:
+        """Phase 1: each shard's candidates come from its rank cache; the
+        filter intersections for the union of candidates run as K2 passes
+        over all shards at once, and each fragment replays the reference
+        heap selection (tanimoto and attr filter included) from the
+        precomputed counts (fragment.go:899-990)."""
         frags = []
         union: List[int] = []
         seen = set()
@@ -239,6 +497,24 @@ class Executor:
             out.extend(frag.top(topn_opt, inter_counts=counts,
                                 src_count=src_count_by_shard[frag.shard]))
         return sort_pairs(add_pairs([], out))
+
+    def _execute_topn_shard(self, index: str, c: Call, shard: int) -> List[Pair]:
+        field_name = c.args.get("_field") or DEFAULT_FIELD
+        src = None
+        if c.children:
+            src = self._execute_bitmap_call_shard(index, c.children[0], shard)
+        frag = self.holder.fragment(index, field_name, VIEW_STANDARD, shard)
+        if frag is None:
+            return []
+        return frag.top(TopOptions(
+            n=c.uint_arg("n")[0],
+            src=src,
+            row_ids=self._uint_slice_arg(c, "ids"),
+            min_threshold=c.uint_arg("threshold")[0] or DEFAULT_MIN_THRESHOLD,
+            filter_name=c.args.get("attrName", ""),
+            filter_values=c.args.get("attrValues") or [],
+            tanimoto_threshold=c.uint_arg("tanimotoThreshold")[0],
+        ))
 
     @staticmethod
     def _uint_slice_arg(c: Call, key: str) -> List[int]:
@@ -278,3 +554,38 @@ class Executor:
     def _execute_clear_bit(self, index: str, c: Call) -> bool:
         fld, row_id, col_id = self._write_target(index, c, "Clear")
         return bool(fld.clear_bit(row_id, col_id))
+
+    def _execute_set_value(self, index: str, c: Call) -> None:
+        col_id, ok = c.uint_arg("col")
+        if not ok:
+            # Message parity: executor_test.go:451-458.
+            raise QueryError("SetValue() column field 'col' required")
+        for name, value in c.args.items():
+            if name == "col":
+                continue
+            fld = self.holder.field(index, name)
+            if fld is None:
+                raise FieldNotFoundError(name)
+            if not isinstance(value, int) or isinstance(value, bool):
+                # pilosa.go:42 ErrInvalidBSIGroupValueType.
+                raise QueryError("invalid bsigroup value type")
+            fld.set_value(col_id, value)
+
+    def _execute_set_row_attrs(self, index: str, c: Call) -> None:
+        field_name = c.args.get("_field")
+        fld = self.holder.field(index, field_name)
+        if fld is None:
+            raise FieldNotFoundError(field_name)
+        row_id, ok = c.uint_arg("_row")
+        if not ok:
+            raise QueryError("SetRowAttrs() row argument required")
+        attrs = {k: v for k, v in c.args.items() if k not in ("_field", "_row")}
+        fld.row_attr_store.set_attrs(row_id, attrs)
+
+    def _execute_set_column_attrs(self, index: str, c: Call) -> None:
+        idx = self.holder.index(index)
+        col, ok = c.uint_arg("_col")
+        if not ok:
+            raise QueryError("SetColumnAttrs() col argument required")
+        attrs = {k: v for k, v in c.args.items() if k not in ("_col", "field")}
+        idx.column_attr_store.set_attrs(col, attrs)

@@ -9,9 +9,14 @@ K1 ``gather_expr_count(stacked, idxs, tape) -> (Q,) int64``
 K2 ``masked_plane_counts(stack, mask) -> (R, S) int32``
     ``popcount(stack[r][s] & mask[s])`` per (row, shard); ``mask=None``
     counts the rows alone. Replaces the XLA popcount reductions of the
-    TPU engine's TopN and per-shard counting paths.
+    TPU engine's TopN, per-shard counting and BSI Sum paths.
+K3 ``bsi_minmax(planes, mask, maximize) -> (bits (D,) int32, count)``
+    The bit-sliced Min/Max scan of a (D+1, S, W) BSI stack (plane D is
+    the not-null row) over every shard at once, optionally filtered.
+    Replaces the XLA min/max program of the TPU engine's
+    ``bsi_val_count`` (pilosa_tpu/parallel/engine.py:2099-2119).
 
-Both kernels live in csrc/bitplane_kernels.cu (design and bounds are
+The kernels live in csrc/bitplane_kernels.cu (design and bounds are
 noted there), are compiled with ``nvcc`` for sm_90a into
 ``_build/libbitplane_kernels.so`` at first use, and are bound with
 ctypes. Each wrapper checks device, dtype, shape and contiguity; on a CUDA
@@ -26,7 +31,25 @@ pushes ``left OP right`` (ANDNOT: ``left & ~right``; NOTAND:
 ``~left & right``). A fused op ``OP_ACC | op`` with a slot applies
 ``top = top OP plane[slot]`` without touching the stack, so a left-folded
 k-ary node over leaves needs no stack at all. parallel/engine.py
-``lower_tape`` compiles the canonical set-op IR into it.
+``lower_tape`` compiles the canonical IR into it.
+
+BSI compares (the bit-serial programs of reference fragment.go:683-851)
+are unrolled on the host into one code per value plane; the evaluator
+keeps two masks, keep1 (the ">" side) and keep2 (the "<" side), beside
+the top of the stack:
+
+- ``OP_BSI_PUSH`` (slot): push plane[slot] (the not-null row) and set
+  keep1 = keep2 = 0: the start of a compare.
+- ``OP_BSI_STEP | gt | lt << 2`` (slot): with row = plane[slot], first the
+  ">" part (``GT_KEEP``: keep1 |= top & row; ``GT_CLEAR``: top &= row |
+  keep1), then the "<" part (``LT_CLEAR``: top &= ~row | keep2;
+  ``LT_KEEP``: keep2 |= top & ~row). A ``between`` step carries both.
+- ``OP_BSI_KEEP1`` / ``OP_BSI_KEEP2`` (no slot): top = keep1 / keep2, the
+  early ``return keep`` of a strict compare.
+
+Steps and keeps act only inside a compare, after its ``OP_BSI_PUSH``;
+fused ops may sit between them (leading zeros). Predicates never enter a
+code: each plane's predicate bits select the step kind.
 
 K1 has two variants, chosen by ``k1_plan`` from the batch's distinct
 slots and Q alone: "staged" (Q > 1, and the distinct slots fit a ring of
@@ -49,10 +72,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .bitplane import popcount_words
+from .bitplane import bsi_max, bsi_min, popcount_words
 
 OP_PUSH, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_NOTAND = 0, 1, 2, 3, 4, 5
 OP_ACC = 8  # OP_ACC | op: top = top OP plane[slot]
+# BSI compare codes (module docstring); must match csrc/bitplane_kernels.cu.
+OP_BSI_PUSH = 0x10
+OP_BSI_STEP = 0x10  # | gt | lt << 2, (gt, lt) != (0, 0)
+OP_BSI_KEEP1, OP_BSI_KEEP2 = 0x20, 0x21
+GT_KEEP, GT_CLEAR = 1, 2
+LT_CLEAR, LT_KEEP = 1, 2
 
 # K1's limits (must match csrc/bitplane_kernels.cu). The evaluation stack
 # holds MAX_STACK planes; lower_tape's child order keeps a tree of n
@@ -72,9 +101,15 @@ RING_MAX_STAGES = 4
 Q_TILE = 256
 
 K1_VARIANTS = ("staged", "streaming")
+# K3's first pass: each block scans K3_BLOCK_WORDS words of every plane
+# (must match csrc/bitplane_kernels.cu: 256 threads x 4 uint4).
+K3_BLOCK_WORDS = 4096
+K3_MAX_DEPTH = 63
 LAUNCHES: Dict[str, int] = {"gather_expr_count": 0, "gather_expr_count_staged": 0,
-                            "gather_expr_count_streaming": 0, "masked_plane_counts": 0}
-PLAIN_CALLS: Dict[str, int] = {"gather_expr_count": 0, "masked_plane_counts": 0}
+                            "gather_expr_count_streaming": 0, "masked_plane_counts": 0,
+                            "bsi_minmax": 0}
+PLAIN_CALLS: Dict[str, int] = {"gather_expr_count": 0, "masked_plane_counts": 0,
+                               "bsi_minmax": 0}
 
 
 def reset_counters() -> None:
@@ -139,13 +174,15 @@ def load():
         build()
         lib = ctypes.CDLL(LIBRARY)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pt_k1_streaming.argtypes = [vp, i64, vp, i32, vp, i32, vp, vp]
+        lib.pt_k1_streaming.argtypes = [vp, i64, vp, i32, vp, i32, i32, vp, vp]
         lib.pt_k1_streaming.restype = i32
         lib.pt_k1_staged.argtypes = [
-            vp, i64, vp, i32, i32, vp, i32, vp, vp, i32, i32, i32, vp, vp]
+            vp, i64, vp, i32, i32, vp, i32, vp, vp, i32, i32, i32, i32, vp, vp]
         lib.pt_k1_staged.restype = i32
         lib.pt_masked_plane_counts.argtypes = [vp, vp, i32, i32, i64, vp, vp]
         lib.pt_masked_plane_counts.restype = i32
+        lib.pt_bsi_minmax.argtypes = [vp, vp, i32, i64, i32, vp, i32, vp, vp, vp]
+        lib.pt_bsi_minmax.restype = i32
         _lib = lib
         return _lib
 
@@ -162,24 +199,64 @@ def _stream(t: torch.Tensor) -> int:
 # ------------------------------------------------------------------ tape
 
 
+def bsi_step(gt: int, lt: int, slot: int) -> int:
+    """The code of one BSI plane step (module docstring)."""
+    return OP_BSI_STEP | gt | (lt << 2) | (slot << 8)
+
+
+def _op_kind(op: int) -> str:
+    """'push', 'binary', 'acc', 'bsi_push', 'step' or 'keep'; raises on an
+    op byte no evaluator knows."""
+    if op == OP_PUSH:
+        return "push"
+    if OP_AND <= op <= OP_NOTAND:
+        return "binary"
+    if OP_AND <= op - OP_ACC <= OP_NOTAND:
+        return "acc"
+    if op == OP_BSI_PUSH:
+        return "bsi_push"
+    if op in (OP_BSI_KEEP1, OP_BSI_KEEP2):
+        return "keep"
+    if op & ~0xF == OP_BSI_STEP and (op & 3) <= 2 and (op >> 2) & 3 <= 2:
+        return "step"
+    raise ValueError(f"unknown tape op {op}")
+
+
+def reads_slot(code: int) -> bool:
+    """Whether a code reads a leaf plane (its slot field is a slot)."""
+    return _op_kind(code & 0xFF) in ("push", "acc", "bsi_push", "step")
+
+
+def has_bsi(tape: Sequence[int]) -> bool:
+    return any(code & 0xFF >= OP_BSI_PUSH for code in tape)
+
+
 def tape_depth(tape: Sequence[int]) -> int:
     """Largest evaluation-stack depth the tape reaches; raises on a tape
-    that underflows, names an unknown op, or does not leave exactly one
-    value."""
+    that underflows, names an unknown op, does not leave exactly one
+    value, or holds a BSI step or keep outside a compare (before any
+    OP_BSI_PUSH, or after a push, binary op or keep ended the compare)."""
     depth = peak = 0
+    in_compare = False
     for code in tape:
-        op = code & 0xFF
-        if op == OP_PUSH:
+        kind = _op_kind(code & 0xFF)
+        if kind in ("push", "bsi_push"):
             depth += 1
-        elif not OP_AND <= op & ~OP_ACC <= OP_NOTAND:
-            raise ValueError(f"unknown tape op {op}")
-        elif op & OP_ACC:
+            in_compare = kind == "bsi_push"
+        elif kind == "binary":
+            depth -= 1
+            in_compare = False
             if depth < 1:
                 raise ValueError(f"op tape underflows: {list(tape)}")
         else:
-            depth -= 1
             if depth < 1:
                 raise ValueError(f"op tape underflows: {list(tape)}")
+            if kind != "acc" and not in_compare:
+                raise ValueError(f"BSI {kind} outside a compare: {list(tape)}")
+            if kind == "keep":
+                if code >> 8:
+                    raise ValueError(f"BSI keep code {code} carries a slot")
+                in_compare = False
         peak = max(peak, depth)
     if depth != 1:
         raise ValueError(f"op tape leaves {depth} values: {list(tape)}")
@@ -203,15 +280,33 @@ def _apply(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _eval_tape(tape: Sequence[int], leaf):
     """Plain tape evaluation; `leaf(slot)` returns that slot's plane."""
     stack = []
+    keep1 = keep2 = None
     for code in tape:
         op = code & 0xFF
-        if op == OP_PUSH:
+        kind = _op_kind(op)
+        if kind in ("push", "bsi_push"):
             stack.append(leaf(code >> 8))
-        elif op & OP_ACC:
+            if kind == "bsi_push":
+                keep1 = keep2 = torch.zeros_like(stack[-1])
+        elif kind == "acc":
             stack[-1] = _apply(op & ~OP_ACC, stack[-1], leaf(code >> 8))
-        else:
+        elif kind == "binary":
             b = stack.pop()
             stack[-1] = _apply(op, stack[-1], b)
+        elif kind == "keep":
+            stack[-1] = keep1 if op == OP_BSI_KEEP1 else keep2
+        else:  # step: the ">" part, then the "<" part
+            row, gt, lt = leaf(code >> 8), op & 3, (op >> 2) & 3
+            if gt == GT_KEEP:
+                keep1 = torch.bitwise_or(keep1, torch.bitwise_and(stack[-1], row))
+            elif gt == GT_CLEAR:
+                stack[-1] = torch.bitwise_and(stack[-1], torch.bitwise_or(row, keep1))
+            if lt == LT_CLEAR:
+                stack[-1] = torch.bitwise_and(
+                    stack[-1], torch.bitwise_or(torch.bitwise_not(row), keep2))
+            elif lt == LT_KEEP:
+                keep2 = torch.bitwise_or(
+                    keep2, torch.bitwise_and(stack[-1], torch.bitwise_not(row)))
     return stack[0]
 
 
@@ -259,7 +354,7 @@ def _check_k1(stacked, idxs, tape) -> None:
     if tape_depth(tape) > MAX_STACK:
         raise ValueError(f"tape needs a stack deeper than {MAX_STACK}")
     for code in tape:
-        if (code & 0xFF == OP_PUSH or code & OP_ACC) and not 0 <= code >> 8 < n_leaves:
+        if reads_slot(code) and not 0 <= code >> 8 < n_leaves:
             raise ValueError(f"tape names slot {code >> 8} of {n_leaves}")
 
 
@@ -333,6 +428,9 @@ def gather_expr_count(stacked: torch.Tensor, idxs: torch.Tensor,
                     f"{distinct} distinct slots do not fit the staged variant's ring "
                     f"({RING_BYTES // (2 * RING_SLOT_BYTES)} at most)")
     variant = variant or "streaming"
+    # Tapes with BSI codes run the kernels' instantiation that keeps the
+    # two compare masks; set-op tapes keep the registers for the rest.
+    bsi = has_bsi(tape)
     lib = load()
     dev, stream = stacked.device, _stream(stacked)
     if variant == "staged":
@@ -346,12 +444,13 @@ def gather_expr_count(stacked: torch.Tensor, idxs: torch.Tensor,
         qpos_at = urows_at + 4 * sum(sizes)
         err = lib.pt_k1_staged(
             stacked.data_ptr(), s * w, buf.data_ptr(), len(tape), n_leaves, tiles_at,
-            len(urows), urows_at, qpos_at, q, max(sizes), stages, out.data_ptr(), stream)
+            len(urows), urows_at, qpos_at, q, max(sizes), stages, int(bsi),
+            out.data_ptr(), stream)
     else:
         buf = _to_device(np.concatenate([tape_np, idx_np.ravel()]), dev)
         err = lib.pt_k1_streaming(
             stacked.data_ptr(), s * w, buf.data_ptr(), len(tape),
-            buf.data_ptr() + 4 * len(tape), q, out.data_ptr(), stream)
+            buf.data_ptr() + 4 * len(tape), q, int(bsi), out.data_ptr(), stream)
     _check_launch(f"gather_expr_count ({variant})", err)
     LAUNCHES["gather_expr_count"] += 1
     LAUNCHES[f"gather_expr_count_{variant}"] += 1
@@ -406,3 +505,58 @@ def masked_plane_counts(stack: torch.Tensor,
     _check_launch("masked_plane_counts", err)
     LAUNCHES["masked_plane_counts"] += 1
     return out
+
+
+# -------------------------------------------------------------------- K3
+
+
+def _check_k3(planes, mask) -> None:
+    _check_k2(planes, mask)
+    if not 1 <= planes.shape[0] <= K3_MAX_DEPTH + 1:
+        raise ValueError(f"a BSI stack holds 1..{K3_MAX_DEPTH + 1} planes, "
+                         f"got {planes.shape[0]}")
+
+
+def bsi_minmax_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],
+                     maximize: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of K3: ops/bitplane.py's bsi_max / bsi_min over
+    the stack flattened to (D+1, S*W), so every step's "popcount > 0" is
+    global across the shards."""
+    PLAIN_CALLS["bsi_minmax"] += 1
+    depth = planes.shape[0] - 1
+    flat = planes.reshape(depth + 1, -1)
+    flt = None if mask is None else mask.reshape(-1)
+    bits, count = (bsi_max if maximize else bsi_min)(flat, depth, flt)
+    return bits, count.to(torch.int64)
+
+
+def bsi_minmax(planes: torch.Tensor, mask: Optional[torch.Tensor] = None,
+               maximize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: the Min (maximize=False) or Max scan of a (D+1, S, W) int32 BSI
+    stack, plane D the not-null row, its columns ANDed with mask (S, W)
+    when given. Returns (bits (D,) int32, count () int64) on the stack's
+    device: bit i of the extreme value, and how many columns hold it.
+    With no column considered, bits are all 0 (max) or all 1 (min) and
+    count is 0, as the TPU engine's scan gives them."""
+    _check_k3(planes, mask)
+    if not planes.is_cuda:
+        return bsi_minmax_plain(planes, mask, maximize)
+    d1, s, w = planes.shape
+    if w % 4 or planes.data_ptr() % 16 or (mask is not None and mask.data_ptr() % 16):
+        raise ValueError("K3 needs 16-byte aligned planes (W % 4 == 0)")
+    bits = torch.zeros(d1 - 1, dtype=torch.int32, device=planes.device)
+    count = torch.zeros((), dtype=torch.int64, device=planes.device)
+    if s * w == 0:
+        if not maximize:
+            bits.fill_(1)
+        return bits, count
+    n_blocks = -(-s * w // K3_BLOCK_WORDS)
+    part = torch.empty((n_blocks, 2), dtype=torch.int64, device=planes.device)
+    lib = load()
+    err = lib.pt_bsi_minmax(
+        planes.data_ptr(), None if mask is None else mask.data_ptr(), d1 - 1, s * w,
+        int(maximize), part.data_ptr(), n_blocks, bits.data_ptr(), count.data_ptr(),
+        _stream(planes))
+    _check_launch("bsi_minmax", err)
+    LAUNCHES["bsi_minmax"] += 1
+    return bits, count

@@ -2,25 +2,31 @@
 memory, counted by the hand-written kernels of ops/kernels.py.
 
 The counterpart of pilosa_tpu/parallel/engine.py for one CUDA device (or
-the CPU, when the holder was opened with device="cpu"). A PQL set-op tree
-(Row / Intersect / Union / Difference / Xor) is canonicalized by
-plan/signature.py; its leaf planes are gathered once from the fragments
-into (S, W) int32 tensors on the device and cached, keyed on the
-fragments' (incarnation, generation) fingerprints, so a write makes the
-affected entries stale and the next query simply re-gathers them.
+the CPU, when the holder was opened with device="cpu"). A PQL tree
+(Row / Intersect / Union / Difference / Xor, BSI and time-quantum Range)
+is canonicalized by plan/signature.py; its leaf planes are gathered once
+from the fragments into (S, W) int32 tensors on the device and cached,
+keyed on the fragments' (incarnation, generation) fingerprints, so a
+write makes the affected entries stale and the next query simply
+re-gathers them.
 
 - ``count`` and ``count_batch`` run K1 (``gather_expr_count``) over a
   resident (U, S, W) stack of the batch's distinct leaves, the query's
-  expression compiled to a postfix op tape (``lower_tape``). A single
-  Count is the batch of one: Q=1, idxs = arange(L).
+  expression compiled to a postfix op tape (``lower_tape``; BSI compares
+  unroll into per-plane codes). A single Count is the batch of one: Q=1,
+  idxs = arange(L).
 - ``bitmap`` evaluates the tree with elementwise torch ops (``_lower_ir``)
   and returns a Row whose segments stay on the device.
 - ``topn_shard_counts`` / ``topn_counts`` run K2 (``masked_plane_counts``)
   over the stacked candidate rows, with the src tree's plane as the mask.
+- ``bsi_val_count`` runs BSI Sum on K2 over the (D+1, S, W) plane stack
+  and Min/Max on K3 (``bsi_minmax``).
+- ``supports`` is the compile gate: a tree the plan compiler refuses is
+  walked shard by shard by the executor.
 
 Not in this engine (yet): the result memos, delta refresh of stale
-entries, tiered demotion, the device-fault ladder, BSI and time-range
-programs, and multi-device meshes.
+entries, tiered demotion, the device-fault ladder, ``bitmap_batch``, and
+multi-device meshes.
 """
 
 from __future__ import annotations
@@ -32,9 +38,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..constants import VIEW_STANDARD, WORDS_PER_ROW
+from ..constants import VIEW_BSI_GROUP_PREFIX, VIEW_STANDARD, WORDS_PER_ROW
 from ..core.row import Row
-from ..errors import QueryError
+from ..errors import PilosaError, QueryError
+from ..ops import bitplane as bp
 from ..ops import kernels
 from ..plan.signature import CompiledPlan, Leaf, cached_plan
 from ..pql.ast import Call
@@ -52,16 +59,12 @@ _TORCH_OPS = {
 }
 
 
-def _not_ported(kind: str) -> QueryError:
-    return QueryError(
-        f"{kind} plans are not ported to the PyTorch/CUDA engine yet")
-
-
 def _lower_ir(ir: tuple) -> Callable:
-    """Canonical set-op IR (plan/signature.py) -> torch closure over the
-    tuple of (S, W) leaf planes. A k-ary node reduces its k operands in one
-    chained pass; a Difference pays ONE complement for its whole
-    subtracting set (head AND NOT(OR(tail)))."""
+    """Canonical IR (plan/signature.py) -> torch closure over the tuple of
+    (S, W) leaf planes. A k-ary node reduces its k operands in one chained
+    pass; a Difference pays ONE complement for its whole subtracting set
+    (head AND NOT(OR(tail))); BSI compares run ops/bitplane.py's bit-serial
+    programs over their stacked planes."""
     kind = ir[0]
     if kind == "leaf":
         i = ir[1]
@@ -90,7 +93,41 @@ def _lower_ir(ir: tuple) -> Callable:
             return torch.bitwise_and(head(leaves), torch.bitwise_not(mask))
 
         return fn
-    raise _not_ported(kind)
+    if kind == "timerange":
+        idxs = ir[1]
+
+        def fn(leaves, idxs=idxs):
+            out = leaves[idxs[0]]
+            for i in idxs[1:]:
+                out = torch.bitwise_or(out, leaves[i])
+            return out
+
+        return fn
+    if kind == "zero":
+        i = ir[1]
+        return lambda leaves: torch.zeros_like(leaves[i])
+    if kind == "notnull":
+        i = ir[1]
+        return lambda leaves: leaves[i]
+    if kind == "between":
+        idxs, depth, lo, hi = ir[1], ir[2], ir[3], ir[4]
+        return lambda leaves: bp.bsi_range_between(
+            torch.stack([leaves[i] for i in idxs]), depth, lo, hi)
+    if kind == "cmp":
+        _, op, idxs, depth, base = ir
+
+        def fn(leaves, op=op, idxs=idxs, depth=depth, base=base):
+            planes = torch.stack([leaves[i] for i in idxs])
+            if op == "eq":
+                return bp.bsi_range_eq(planes, depth, base)
+            if op == "neq":
+                return bp.bsi_range_neq(planes, depth, base)
+            if op in ("lt", "lte"):
+                return bp.bsi_range_lt(planes, depth, base, op == "lte")
+            return bp.bsi_range_gt(planes, depth, base, op == "gte")
+
+        return fn
+    raise QueryError(f"unknown plan IR node: {kind!r}")
 
 
 def _fold(first: Tuple[List[int], int],
@@ -101,7 +138,7 @@ def _fold(first: Tuple[List[int], int],
     Returns (codes, stack depth needed)."""
     ops, need = list(first[0]), first[1]
     for op, (sub, sub_need) in rest:
-        if len(sub) == 1:
+        if len(sub) == 1 and sub[0] & 0xFF == kernels.OP_PUSH:
             ops.append((kernels.OP_ACC | op) | (sub[0] & ~0xFF))
         else:
             ops.extend(sub)
@@ -118,10 +155,90 @@ def _first_key(sub: Tuple[List[int], int]) -> Tuple[int, bool]:
     return -sub[1], len(sub[0]) == 1
 
 
+def _push(slot: int) -> int:
+    return kernels.OP_PUSH | (slot << 8)
+
+
+def _acc(op: int, slot: int) -> int:
+    return kernels.OP_ACC | op | (slot << 8)
+
+
+def _compare_codes(op: str, idxs: Sequence[int], depth: int, base: int) -> List[int]:
+    """One BSI compare unrolled into K1 codes, plane by plane, exactly as
+    ops/bitplane.py's bsi_range_* walk the planes (reference
+    fragment.go:683-800): the predicate's bits, its leading zeros and the
+    strict last step are settled here. idxs[i] is the slot of value plane
+    i, idxs[depth] that of the not-null row."""
+    K = kernels
+    notnull = idxs[depth]
+    bits = [(base >> i) & 1 for i in range(depth)]
+    if op in ("eq", "neq"):
+        codes = [_push(notnull)] + [
+            _acc(K.OP_AND if bits[i] else K.OP_ANDNOT, idxs[i])
+            for i in range(depth - 1, -1, -1)]
+        if op == "neq":  # not-null minus eq: ~eq & notnull
+            codes.append(_acc(K.OP_NOTAND, notnull))
+        return codes
+    codes = [K.OP_BSI_PUSH | (notnull << 8)]
+    if op in ("lt", "lte"):
+        leading_zeros = True
+        for i in range(depth - 1, -1, -1):
+            if leading_zeros:
+                if bits[i] == 0:
+                    codes.append(_acc(K.OP_ANDNOT, idxs[i]))
+                    continue
+                leading_zeros = False
+            if i == 0 and op == "lt":
+                codes.append(K.OP_BSI_KEEP2 if bits[i] == 0
+                             else K.bsi_step(0, K.LT_CLEAR, idxs[0]))
+                break
+            if bits[i] == 0:
+                codes.append(K.bsi_step(0, K.LT_CLEAR, idxs[i]))
+            elif i > 0:
+                codes.append(K.bsi_step(0, K.LT_KEEP, idxs[i]))
+    else:  # gt, gte
+        for i in range(depth - 1, -1, -1):
+            if i == 0 and op == "gt":
+                codes.append(K.OP_BSI_KEEP1 if bits[i] == 1
+                             else K.bsi_step(K.GT_CLEAR, 0, idxs[0]))
+                break
+            if bits[i] == 1:
+                codes.append(K.bsi_step(K.GT_CLEAR, 0, idxs[i]))
+            elif i > 0:
+                codes.append(K.bsi_step(K.GT_KEEP, 0, idxs[i]))
+    return codes
+
+
+def _between_codes(idxs: Sequence[int], depth: int, lo: int, hi: int) -> List[int]:
+    """`lo <= value <= hi` unrolled (reference fragment.go:812-851): per
+    plane one step carrying the ">=" part (keep1) and the "<=" part
+    (keep2)."""
+    K = kernels
+    codes = [K.OP_BSI_PUSH | (idxs[depth] << 8)]
+    for i in range(depth - 1, -1, -1):
+        gt = K.GT_CLEAR if (lo >> i) & 1 else (K.GT_KEEP if i > 0 else 0)
+        lt = K.LT_CLEAR if not (hi >> i) & 1 else (K.LT_KEEP if i > 0 else 0)
+        if gt or lt:
+            codes.append(K.bsi_step(gt, lt, idxs[i]))
+    return codes
+
+
 def _emit(node: tuple) -> Tuple[List[int], int]:
     kind = node[0]
     if kind == "leaf":
-        return [kernels.OP_PUSH | (node[1] << 8)], 1
+        return [_push(node[1])], 1
+    if kind == "timerange":
+        slots = node[1]
+        return [_push(slots[0])] + [_acc(kernels.OP_OR, s) for s in slots[1:]], 1
+    if kind == "zero":
+        return [_push(node[1]), _acc(kernels.OP_ANDNOT, node[1])], 1
+    if kind == "notnull":
+        return [_push(node[1])], 1
+    if kind in ("cmp", "between"):
+        codes = (_compare_codes(*node[1:]) if kind == "cmp" else _between_codes(*node[1:]))
+        if len(codes) == 1:  # depth 0: the not-null row itself
+            codes = [_push(codes[0] >> 8)]
+        return codes, 1
     if kind in _BINARY:
         subs = sorted((_emit(ch) for ch in node[1]), key=_first_key)
         return _fold(subs[0], [(_BINARY[kind], t) for t in subs[1:]])
@@ -143,7 +260,7 @@ def _emit(node: tuple) -> Tuple[List[int], int]:
             else:
                 rest.append((kernels.OP_ANDNOT if seen_head else kernels.OP_OR, sub))
         return _fold(order[0][1], rest)
-    raise _not_ported(kind)
+    raise QueryError(f"unknown plan IR node: {kind!r}")
 
 
 def lower_tape(ir: tuple) -> Tuple[int, ...]:
@@ -227,6 +344,8 @@ class ShardedQueryEngine:
             # matrices) and elementwise bitmap evaluations.
             "count_dispatches": 0, "topn_dispatches": 0,
             "bitmap_dispatches": 0,
+            # Trees the compile gate refused (walked shard by shard).
+            "compile_gate_refusals": 0,
         }
 
     def snapshot(self) -> dict:
@@ -482,3 +601,43 @@ class ShardedQueryEngine:
             index, field, row_ids, shards, src_call,
             need_row_counts=src_call is None)
         return (inter if src_call is not None else rc).sum(axis=1)
+
+    def bsi_val_count(
+        self, index: str, field: str, kind: str, bit_depth: int,
+        shards: Sequence[int], filter_call: Optional[Call] = None,
+    ):
+        """BSI Sum/Min/Max over all shards at once (engine.py:2045-2136 of
+        the JAX package, without its result memo).
+
+        kind='sum' returns the (depth+1,) per-plane global counts as int64
+        (the caller composes the weighted sum in Python ints): K2 over the
+        (D+1, S, W) plane stack masked by the filter, summed over S.
+        kind='min'/'max' returns (bits (depth,) int32, count): K3's
+        bit-sliced scan over every shard at once."""
+        shards = tuple(shards)
+        view = VIEW_BSI_GROUP_PREFIX + field
+        leaves = [Leaf(field, view, i) for i in range(bit_depth + 1)]
+        planes = self._stacked_leaf_tensor(index, leaves, shards)  # (D+1, S, W)
+        flt = None
+        if filter_call is not None:
+            flt = self._src_plane(index, filter_call, shards)
+        if kind == "sum":
+            counts = kernels.masked_plane_counts(planes, flt)  # (D+1, S)
+            return counts.sum(dim=1, dtype=torch.int64).cpu().numpy()
+        bits, count = kernels.bsi_minmax(planes, flt, maximize=kind == "max")
+        return bits.cpu().numpy(), int(count)
+
+    def supports(self, call: Call, index: str):
+        """The compile gate (engine.py:2138-2163 of the JAX package): the
+        tree's plan when the plan compiler lowers it onto the engine, else
+        False — the executor then walks the tree shard by shard. The
+        compiler alone decides (holder lookups, no device work), so e.g. a
+        time Range over a field without a quantum, over no populated
+        views or over more than 256 views is refused here and answered by
+        the walk. Refusals are counted: a climbing count on a workload
+        that should compile is the signal a gate bug would otherwise bury."""
+        try:
+            return self.plan(index, call)
+        except (PilosaError, ValueError):  # schema, query and timestamp errors
+            self._bump("compile_gate_refusals")
+            return False

@@ -255,3 +255,126 @@ def test_executor_on_card_matches_cpu(cuda_device):
     for ex, h in zip(exs, holders):
         ex.close()
         h.close()
+
+
+# ------------------------------------------------ K1 BSI codes, K3
+
+
+def bsi_ir(op, depth, *pred):
+    idxs = tuple(range(depth + 1))
+    if op == "between":
+        return ("between", idxs, depth, *pred)
+    return ("cmp", op, idxs, depth, pred[0])
+
+
+BSI_CASES = [
+    # (op, depth, predicate...): leading zeros, strict i == 0 both ways,
+    # all ones, depth 1 and a deep field.
+    ("lt", 17, 5), ("lt", 17, 4), ("lte", 17, 100000), ("gt", 17, 65536), ("gt", 17, 6),
+    ("gte", 17, 0), ("eq", 17, 12345), ("neq", 17, 12345), ("between", 17, 1000, 90000),
+    ("lt", 1, 1), ("gt", 1, 0), ("between", 1, 0, 1), ("eq", 1, 1),
+    ("lt", 40, (1 << 39) + 3), ("gt", 40, 123456789), ("between", 40, 77, (1 << 38) - 1),
+]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("case", BSI_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_k1_bsi_codes_on_card(cuda_device, variant, case):
+    """Each compare alone (engine.count's Q=1 over slots 0..D) and nested
+    in a batch of queries over a wider stack, against the twin."""
+    op, depth, *pred = case
+    rng = np.random.default_rng(depth + sum(pred) % 1000)
+    n = depth + 1
+    stacked = rand_stack(rng, (n + 6, 3, 1028), cuda_device)
+    tape = lower_tape(("Intersect", (leaf(n), bsi_ir(op, depth, *pred))))
+    one = torch.arange(n + 1, dtype=torch.int32).reshape(-1, 1)
+    k1_on_card(stacked, one, tape, "streaming")
+    idxs = torch.from_numpy(rng.integers(0, n + 6, (n + 1, 9)).astype(np.int32))
+    k1_on_card(stacked, idxs, tape, variant)
+
+
+@pytest.mark.parametrize("maximize", [False, True])
+@pytest.mark.parametrize("shape,masked", [((18, 5, 1028), True), ((18, 256, 4096), False),
+                                          ((1, 2, 36), True), ((41, 3, 32768), True),
+                                          ((6, 1, 4), False)])
+def test_k3_kernel_matches_twin_on_card(cuda_device, maximize, shape, masked):
+    """Min and max, with and without a filter, ragged tails (S*W not a
+    multiple of the block's 4096 words), depth 0 and 40."""
+    rng = np.random.default_rng(sum(shape) + masked)
+    planes = rand_stack(rng, shape, cuda_device)
+    d1 = shape[0]
+    planes[:d1 - 1] &= rand_stack(rng, (d1 - 1,) + shape[1:], cuda_device)
+    mask = rand_stack(rng, shape[1:], cuda_device) if masked else None
+    before = kernels.LAUNCHES["bsi_minmax"]
+    bits, count = kernels.bsi_minmax(planes, mask, maximize)
+    wbits, wcount = kernels.bsi_minmax_plain(planes, mask, maximize)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, wbits) and int(count) == int(wcount) > 0
+    assert kernels.LAUNCHES["bsi_minmax"] == before + 1
+
+
+@pytest.mark.parametrize("maximize", [False, True])
+def test_k3_empty_filter_on_card(cuda_device, maximize):
+    planes = torch.full((9, 4, 1024), -1, dtype=torch.int32, device=cuda_device)
+    bits, count = kernels.bsi_minmax(planes, torch.zeros_like(planes[0]), maximize)
+    torch.cuda.synchronize()
+    assert bits.tolist() == [int(not maximize)] * 8 and int(count) == 0
+
+
+BSI_QUERIES = [
+    "Sum(field=v)", "Min(field=v)", "Max(field=v)", "Sum(Row(f=1), field=v)",
+    "Min(Row(f=1), field=v)", "Max(Row(f=99), field=v)",
+    "Count(Range(v > 100))", "Count(Range(v >< [-50, 400]))", "Range(v == 7)",
+    "Count(Intersect(Row(f=0), Range(v < 0)))", "TopN(f, Range(v > 0), n=3)",
+    "Count(Range(t=1, 2018-01-02T00:00, 2018-01-09T00:00))",
+    "SetValue(col=3, v=-200)", "Min(field=v)", "Count(Range(v == -200))",
+    "Set(5, t=1, 2018-01-03T00:00)", "Count(Range(t=1, 2018-01-02T00:00, 2018-01-09T00:00))",
+]
+
+
+def test_bsi_executor_on_card_matches_cpu(cuda_device):
+    """Sum/Min/Max, BSI and time Ranges and their writes: the card's
+    answers equal the CPU's, only kernels ran, K3 among them."""
+    from datetime import datetime, timedelta
+
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    holders = [pilosa_tpu_torch.Holder(None), pilosa_tpu_torch.Holder(None, device="cpu")]
+    for h in holders:
+        h.open()
+        idx = h.create_index("i")
+        r = np.random.default_rng(402)
+        f = idx.create_field("f")
+        for row in range(3):
+            cols = r.choice(2 * SHARD_WIDTH, 3000, replace=False)
+            f.import_bits([row] * len(cols), [int(c) for c in cols])
+        v = idx.create_field("v", FieldOptions(type="int", min=-300, max=900))
+        cols = r.choice(2 * SHARD_WIDTH, 5000, replace=False)
+        v.import_value([int(c) for c in cols], [int(x) for x in r.integers(-300, 900, 5000)])
+        t = idx.create_field("t", FieldOptions(type="time", time_quantum="YMD"))
+        cols = r.choice(2 * SHARD_WIDTH, 600, replace=False)
+        t.import_bits([1] * 600, [int(c) for c in cols],
+                      [datetime(2018, 1, 1) + timedelta(days=i % 20) for i in range(600)])
+    exs = [pilosa_tpu_torch.Executor(h) for h in holders]
+
+    def norm(x):
+        if isinstance(x, pilosa_tpu_torch.Row):
+            return x.columns().tolist()
+        if isinstance(x, list):
+            return [(p.id, p.count) for p in x]
+        if hasattr(x, "val"):
+            return (x.val, x.count)
+        return x
+
+    before = dict(kernels.LAUNCHES)
+    for q in BSI_QUERIES:
+        kernels.PLAIN_CALLS.update({k: 0 for k in kernels.PLAIN_CALLS})
+        on_card = [norm(x) for x in exs[0].execute("i", q)]
+        assert kernels.PLAIN_CALLS == {k: 0 for k in kernels.PLAIN_CALLS}, q
+        assert on_card == [norm(x) for x in exs[1].execute("i", q)], q
+    for k in ("gather_expr_count", "masked_plane_counts", "bsi_minmax"):
+        assert kernels.LAUNCHES[k] > before[k], k
+    assert exs[0].engine.snapshot()["compile_gate_refusals"] == 0
+    for ex, h in zip(exs, holders):
+        ex.close()
+        h.close()

@@ -161,12 +161,12 @@ def test_lower_tape_shapes():
 
 def test_lower_tape_limits_raise():
     """No tree raises for its size below 2^23 distinct rows; past the
-    kernel's slot field, and for kinds the port has no program for, it
+    kernel's slot field, and for a node kind no plan compiler emits, it
     does."""
     with pytest.raises(QueryError, match="distinct rows"):
         lower_tape(("Union", (leaf(0), leaf(kernels.MAX_SLOTS))))
-    with pytest.raises(QueryError, match="not ported"):
-        lower_tape(("timerange", (0, 1)))
+    with pytest.raises(QueryError, match="unknown plan IR node"):
+        lower_tape(("GroupBy", (0, 1)))
     wide = ("Union", tuple(leaf(i) for i in range(1 << 16)))
     tape = lower_tape(wide)
     assert len(tape) == 1 << 16 and kernels.tape_depth(tape) == 1
@@ -288,3 +288,214 @@ def test_wrappers_check_their_inputs():
         kernels.gather_expr_count(good, idxs, [push(0), push(1)])
     with pytest.raises(ValueError, match="lie in"):
         kernels.gather_expr_count(good, idxs + 2, AND_TAPE)
+
+
+# ------------------------------------------- K1's BSI codes vs pilosa_tpu
+
+
+def bsi_want(op, planes, depth, *pred):
+    """The JAX package's bit-serial compare on the same numpy planes."""
+    from pilosa_tpu.ops import bitplane as jbp
+
+    p = jnp.asarray(planes)
+    if op == "between":
+        return np.asarray(jbp.bsi_range_between(p, depth, *pred))
+    if op in ("lt", "lte"):
+        return np.asarray(jbp.bsi_range_lt(p, depth, pred[0], op == "lte"))
+    if op in ("gt", "gte"):
+        return np.asarray(jbp.bsi_range_gt(p, depth, pred[0], op == "gte"))
+    return np.asarray(getattr(jbp, f"bsi_range_{op}")(p, depth, pred[0]))
+
+
+def predicates(depth: int):
+    """Leading zeros, all ones, single bits, both values of bit 0, and a
+    few seeded values, within `depth` bits."""
+    top = (1 << depth) - 1
+    rng = np.random.default_rng(depth)
+    fixed = {0, 1, top, top - 1, 1 << (depth - 1), top >> 1, 0b1010101 & top}
+    return sorted(fixed | {int(x) for x in rng.integers(0, top, 3, endpoint=True)})
+
+
+def bsi_ir(op, depth, *pred):
+    idxs = tuple(range(depth + 1))
+    if op == "between":
+        return ("between", idxs, depth, *pred)
+    return ("cmp", op, idxs, depth, pred[0])
+
+
+def tape_popcount_and_plane(ir, planes):
+    """K1's twin count of the tape, and the tape's plane by _eval_tape."""
+    tape = lower_tape(ir)
+    idxs = torch.arange(planes.shape[0], dtype=torch.int32).reshape(-1, 1)
+    count = int(kernels.gather_expr_count(t32(planes), idxs, tape)[0])
+    plane = kernels._eval_tape(tape, lambda s: t32(planes[s]))
+    return count, plane.numpy().view(np.uint32), tape
+
+
+@pytest.mark.parametrize("op", ["eq", "neq", "lt", "lte", "gt", "gte"])
+@pytest.mark.parametrize("depth", [1, 3, 17, 40])
+def test_bsi_compare_tape_matches_jax(op, depth):
+    """Each compare, unrolled into K1 codes, computes pilosa_tpu's
+    bsi_range_* bit for bit, for every predicate shape."""
+    rng = np.random.default_rng(depth * 7 + len(op))
+    planes = rng.integers(0, 1 << 32, (depth + 1, 2, 64), dtype=np.uint32)
+    for base in predicates(depth):
+        want = bsi_want(op, planes, depth, base)
+        count, plane, tape = tape_popcount_and_plane(bsi_ir(op, depth, base), planes)
+        np.testing.assert_array_equal(plane, want, err_msg=f"{op} {base}")
+        assert count == int(np.bitwise_count(want).sum())
+        # One code per plane at most, plus the push (and neq's NOTAND).
+        assert len(tape) <= depth + 2 and kernels.tape_depth(tape) == 1
+
+
+@pytest.mark.parametrize("depth", [1, 3, 17, 40])
+def test_bsi_between_tape_matches_jax(depth):
+    rng = np.random.default_rng(500 + depth)
+    planes = rng.integers(0, 1 << 32, (depth + 1, 2, 64), dtype=np.uint32)
+    preds = predicates(depth)
+    for lo in preds:
+        for hi in preds[::2]:
+            want = bsi_want("between", planes, depth, lo, hi)
+            count, plane, tape = tape_popcount_and_plane(
+                bsi_ir("between", depth, lo, hi), planes)
+            np.testing.assert_array_equal(plane, want, err_msg=f"{lo} {hi}")
+            assert count == int(np.bitwise_count(want).sum())
+            assert len(tape) <= depth + 1
+
+
+BSI_TREES = {
+    "Intersect(Row, lt)": (("Intersect", (leaf(0), ("cmp", "lt", tuple(range(1, 19)), 17, 70000))), 19),
+    "Union(gt, between)": (("Union", (("cmp", "gt", tuple(range(6)), 5, 9),
+                                      ("between", tuple(range(6)), 5, 3, 20))), 6),
+    "Difference(Row, neq, timerange)": (
+        ("Difference", leaf(0), (("cmp", "neq", (1, 2, 3, 4), 3, 5),
+                                 ("timerange", (5, 6, 7)))), 8),
+    "Xor(zero, notnull, eq)": (("Xor", (("zero", 0), ("notnull", 3),
+                                        ("cmp", "eq", (0, 1, 2, 3), 3, 6))), 4),
+    "two compares of one field": (("Intersect", (("cmp", "gte", (0, 1, 2, 3), 3, 2),
+                                                 ("cmp", "lte", (0, 1, 2, 3), 3, 6))), 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BSI_TREES))
+def test_bsi_trees_count_like_jax(name):
+    """Compares nested in set-op trees (and time ranges, zero, notnull):
+    the tape counts what the JAX engine's _lower_ir program counts, and
+    the torch bitmap closure equals that program bit for bit."""
+    ir, n_leaves = BSI_TREES[name]
+    rng = np.random.default_rng(len(name))
+    leaves = rng.integers(0, 1 << 32, (n_leaves, 3, 128), dtype=np.uint32)
+    jplane = np.asarray(jax_lower_ir(ir)(tuple(jnp.asarray(x) for x in leaves)))
+    tape = lower_tape(ir)
+    idxs = torch.arange(n_leaves, dtype=torch.int32).reshape(-1, 1)
+    assert int(kernels.gather_expr_count(t32(leaves), idxs, tape)[0]) == int(
+        np.bitwise_count(jplane).sum())
+    tplane = torch_lower_ir(ir)(tuple(t32(x) for x in leaves))
+    np.testing.assert_array_equal(tplane.numpy().view(np.uint32), jplane)
+    assert kernels.tape_depth(tape) <= 2
+
+
+def test_bsi_tape_shapes():
+    """The host settles the predicate: leading zeros are fused ANDNOTs, a
+    strict compare ends on its early `return keep`, depth 0 is the
+    not-null row alone."""
+    K = kernels
+    P = lambda s: PUSH | (s << 8)  # noqa: E731
+    ACC = lambda op, s: K.OP_ACC | op | (s << 8)  # noqa: E731
+    B = K.OP_BSI_PUSH | (3 << 8)
+    # v < 0b010 over 3 bits: bit 2 leading zero, bit 1 keeps, bit 0 strict.
+    assert lower_tape(("cmp", "lt", (0, 1, 2, 3), 3, 2)) == (
+        B, ACC(ANDNOT, 2), K.bsi_step(0, K.LT_KEEP, 1), K.OP_BSI_KEEP2)
+    # v > 0b101, strict: bit 0 is 1, so the answer is keep1.
+    assert lower_tape(("cmp", "gt", (0, 1, 2, 3), 3, 5)) == (
+        B, K.bsi_step(K.GT_CLEAR, 0, 2), K.bsi_step(K.GT_KEEP, 0, 1), K.OP_BSI_KEEP1)
+    assert lower_tape(("cmp", "eq", (0, 1, 2, 3), 3, 5)) == (
+        P(3), ACC(AND, 2), ACC(ANDNOT, 1), ACC(AND, 0))
+    assert lower_tape(("cmp", "neq", (0, 1), 1, 0)) == (P(1), ACC(ANDNOT, 0), ACC(NOTAND, 1))
+    assert lower_tape(("between", (0, 1, 2), 2, 1, 2)) == (
+        K.OP_BSI_PUSH | (2 << 8), K.bsi_step(K.GT_KEEP, K.LT_KEEP, 1),
+        K.bsi_step(K.GT_CLEAR, K.LT_CLEAR, 0))
+    assert lower_tape(("cmp", "lt", (0,), 0, 0)) == (P(0),)
+    assert lower_tape(("timerange", (4, 2, 9))) == (P(4), ACC(OR, 2), ACC(OR, 9))
+    assert lower_tape(("zero", 1)) == (P(1), ACC(ANDNOT, 1))
+    assert lower_tape(("notnull", 7)) == (P(7),)
+    assert not kernels.has_bsi(lower_tape(("cmp", "eq", (0, 1), 1, 1)))
+    assert kernels.has_bsi(lower_tape(("cmp", "gte", (0, 1), 1, 1)))
+
+
+@pytest.mark.parametrize("tape,match", [
+    ([kernels.bsi_step(kernels.GT_KEEP, 0, 0)], "underflows"),
+    ([push(0), kernels.bsi_step(kernels.GT_KEEP, 0, 1)], "outside a compare"),
+    ([push(0), kernels.OP_BSI_KEEP1], "outside a compare"),
+    ([kernels.OP_BSI_PUSH, kernels.OP_BSI_KEEP2, kernels.bsi_step(0, kernels.LT_CLEAR, 1)],
+     "outside a compare"),
+    ([kernels.OP_BSI_PUSH, push(1), AND, kernels.OP_BSI_KEEP1], "outside a compare"),
+    ([kernels.OP_BSI_PUSH, kernels.OP_BSI_KEEP1 | (1 << 8)], "carries a slot"),
+    ([kernels.OP_BSI_PUSH, kernels.OP_BSI_STEP | 3], "unknown tape op"),
+    ([kernels.OP_BSI_PUSH, kernels.OP_BSI_STEP | (3 << 2)], "unknown tape op"),
+    ([kernels.OP_BSI_PUSH, 0x22], "unknown tape op"),
+    ([kernels.OP_BSI_PUSH | (1 << 8), kernels.OP_BSI_PUSH], "leaves 2 values"),
+])
+def test_malformed_bsi_tapes_are_refused(tape, match):
+    """tape_depth, and so K1's input check, refuse malformed BSI code runs
+    before any kernel could read them."""
+    with pytest.raises(ValueError, match=match):
+        kernels.tape_depth(tape)
+    stack = torch.zeros((2, 1, 64), dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        kernels.gather_expr_count(stack, torch.zeros((2, 1), dtype=torch.int32), tape)
+
+
+def test_bsi_steps_name_checked_slots():
+    stack = torch.zeros((3, 1, 64), dtype=torch.int32)
+    idxs = torch.zeros((2, 1), dtype=torch.int32)
+    for tape in ([kernels.OP_BSI_PUSH | (2 << 8)],
+                 [kernels.OP_BSI_PUSH, kernels.bsi_step(kernels.GT_CLEAR, 0, 2)]):
+        with pytest.raises(ValueError, match="slot 2 of 2"):
+            kernels.gather_expr_count(stack, idxs, tape)
+
+
+# ------------------------------------------------ K3's twin vs pilosa_tpu
+
+
+@pytest.mark.parametrize("maximize", [False, True])
+@pytest.mark.parametrize("depth,masked", [(0, False), (1, True), (5, False), (5, True),
+                                          (17, True), (40, False)])
+def test_k3_twin_matches_jax_bsi_scan(maximize, depth, masked):
+    """bsi_minmax's twin over a (D+1, S, W) stack equals pilosa_tpu's
+    bsi_max / bsi_min run on the same planes flattened over the shards
+    (the global scan of the JAX engine's bsi_val_count)."""
+    from pilosa_tpu.ops import bitplane as jbp
+
+    rng = np.random.default_rng(depth * 2 + masked)
+    s, w = 3, 96
+    planes = rng.integers(0, 1 << 32, (depth + 1, s, w), dtype=np.uint32)
+    # Sparse value planes, so the scan's steps keep narrowing.
+    planes[:depth] &= rng.integers(0, 1 << 32, (depth, s, w), dtype=np.uint32)
+    mask = rng.integers(0, 1 << 32, (s, w), dtype=np.uint32) if masked else None
+    fn = jbp.bsi_max if maximize else jbp.bsi_min
+    jbits, jcount = fn(jnp.asarray(planes.reshape(depth + 1, -1)), depth,
+                       None if mask is None else jnp.asarray(mask.reshape(-1)))
+    bits, count = kernels.bsi_minmax(t32(planes), None if mask is None else t32(mask), maximize)
+    assert bits.dtype == torch.int32 and tuple(bits.shape) == (depth,)
+    assert bits.tolist() == np.asarray(jbits).tolist()
+    assert int(count) == int(jcount) > 0
+
+
+@pytest.mark.parametrize("maximize", [False, True])
+def test_k3_twin_empty_filter(maximize):
+    """Nothing considered: bits all 0 for max, all 1 for min, count 0."""
+    planes = torch.full((6, 2, 32), -1, dtype=torch.int32)
+    bits, count = kernels.bsi_minmax(planes, torch.zeros((2, 32), dtype=torch.int32), maximize)
+    assert bits.tolist() == [int(not maximize)] * 5 and int(count) == 0
+
+
+def test_k3_wrapper_checks_and_counts():
+    before = dict(kernels.PLAIN_CALLS)
+    kernels.bsi_minmax(torch.zeros((3, 1, 64), dtype=torch.int32))
+    assert kernels.PLAIN_CALLS["bsi_minmax"] == before["bsi_minmax"] + 1
+    with pytest.raises(ValueError, match="1..64 planes"):
+        kernels.bsi_minmax(torch.zeros((65, 1, 64), dtype=torch.int32))
+    with pytest.raises(ValueError, match="mask"):
+        kernels.bsi_minmax(torch.zeros((3, 2, 64), dtype=torch.int32),
+                           torch.zeros((1, 64), dtype=torch.int32))

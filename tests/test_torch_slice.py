@@ -220,10 +220,14 @@ def test_respellings_share_one_plan_and_fit_the_kernel(pair):
 
 
 def test_calls_outside_the_slice_raise_not_ported(pair):
+    """Key translation is still outside the port: string keys and an index
+    with the `keys` option raise instead of being read as ids."""
     _, tex = pair
+    from pilosa_tpu_torch.core.index import IndexOptions
     from pilosa_tpu_torch.errors import QueryError
 
-    for q in ("Sum(field=f)", "SetRowAttrs(f, 1, x=1)",
-              "Count(Range(f=1, 2010-01-01T00:00, 2011-01-01T00:00))"):
+    tex.holder.create_index("keyed", IndexOptions(keys=True))
+    for index, q in (("i", 'Row(f="a")'), ("i", 'Set(1, f="x")'),
+                     ("keyed", "Count(Row(f=1))")):
         with pytest.raises(QueryError, match="not ported"):
-            tex.execute("i", q)
+            tex.execute(index, q)

@@ -8,8 +8,9 @@ QB it builds pilosa_tpu_torch/csrc/bitplane_kernels.cu with -DST_QB=QB
 into pilosa_tpu_torch/_build/, checks the staged variant against the
 plain twin at the serving shape (U=128, S=256, W=32768, Q=256) for a
 2-leaf Intersect and a 4-leaf Difference nest, and prints the kernel's
-device time (torch.profiler) beside the streaming variant's. Imports
-nothing of JAX.
+device time (torch.profiler) beside the streaming variant's, with the
+registers of the set-op and the BSI instantiations. Imports nothing of
+JAX.
 """
 
 import os
@@ -61,8 +62,12 @@ def main() -> int:
             print(proc.stderr, file=sys.stderr)
             return 1
         report = (proc.stdout + proc.stderr).splitlines()
-        at = next(i for i, line in enumerate(report) if "k1_staged_kernelILi3" in line)
-        regs = next(line.split(":", 1)[1].strip() for line in report[at:] if "Used" in line)
+        regs = []
+        for inst, name in (("Lb0", "set-op"), ("Lb1", "BSI")):
+            at = next(j for j, line in enumerate(report)
+                      if f"k1_staged_kernelILi3E{inst}" in line)
+            regs.append(name + " " + next(line.split(":", 1)[1].strip()
+                                          for line in report[at:] if "Used" in line))
         kernels.LIBRARY, kernels._lib = lib, None
         times = []
         for name, (tape, idxs) in cases.items():
@@ -75,7 +80,7 @@ def main() -> int:
                 for v in kernels.K1_VARIANTS}
             times.append(f"{name}: staged {ms['staged']:.4f} ms, "
                          f"streaming {ms['streaming']:.4f} ms")
-        print(f"ST_QB={qb} ({regs}): " + "; ".join(times), flush=True)
+        print(f"ST_QB={qb} ({'; '.join(regs)}): " + "; ".join(times), flush=True)
     return 0
 
 
