@@ -42,7 +42,8 @@ Phases, each of which fails the run if it fails:
              Xor nest and a 40-row Union, (b) engine.count_batch over 256
              distinct pairs, then timed batches, (c) TopN(f, n=10) and
              TopN(f, Row(f=a), n=10), (d) a Set on one shard and a
-             recount (the stale stack is re-gathered), (e) on the same
+             recount (the stale leaf and the batch's stack are refreshed
+             by a delta scatter: full_refresh_bytes does not move), (e) on the same
              index an int field v (min 0, max 100000, 17 bits, values on
              about half the columns) and a YMD time field t (2 rows, 30
              day views of January 2018 plus month, year and standard
@@ -52,16 +53,43 @@ Phases, each of which fails the run if it fails:
              Range(v >< [lo, hi]) and Range(v == x) as Rows, TopN(f,
              Range(v > x), n=10), then a SetValue and a timestamped Set,
              each followed by a recount, and warm repeats with one warm
-             Max's host stages. Every answer is checked against numpy on
-             the fragments' host planes (TopN against a numpy replay of
-             the two-phase ranking).
+             Max's host stages. (f) the engine layers around the kernels:
+             (f1) the result and aux memos — (a)'s Counts, the 256-query
+             count_batch, Sum/Max with and without Row(f=a) and a filtered
+             TopN repeated launch no kernel, and one memo-hit Count is
+             timed; (f2) delta refresh — a Set on one shard and a SetValue,
+             the batch's stack refreshed by a scatter into a clone (device
+             time, host time and peak memory beside a full regather of the
+             same leaf set by a second engine, and torch.equal to it), then
+             the Count, the batch, Sum and Max recounted; (f3) tiering — an
+             Executor whose leaf cache holds 8 planes sweeps 32 rows,
+             demoting 24 into a 48-plane host tier, a first Count over two
+             demoted rows is answered on the host from the compressed bytes
+             and its repeat promotes them and launches K1; (f4) the fault
+             ladder on an Executor of its own — device-dispatch=1*error
+             under a Count and under a filtered TopN (answered by the host
+             rung, K1/K2 not launched), device-dispatch=1*oom under a
+             count_batch (backpressure, one retry, K1 launched), a
+             planted K1 launch error raising DeviceKernelFault out of
+             Executor.execute (no host rung on the card), a real CUDA OOM
+             classified `oom`, and a forced nvcc failure in a fresh
+             process raising out of Executor.execute. Memo-hit times sit
+             beside the kernel-path times: the warm loops of (a), (c) and
+             (e) run inside engine.memos_off(). Every answer is checked
+             against numpy on the fragments' host planes (TopN against a
+             numpy replay of the two-phase ranking).
 5. kernel line — launch counters set to 0 just before each path of
              phase 4 and read just after it: K1 above 0 in (a), (b), (d)
              and the Range Counts of (e) — its streaming variant only in
              the single Counts, its staged variant in the batches — K2
              above 0 in the filtered TopNs and in Sum, K3 above 0 in
-             Min/Max, the plain twins at 0 in every path and the compile
-             gate's refusals at 0; the line carries their sums.
+             Min/Max, none of the three in the memo hits of (f1), the
+             plain twins at 0 in every path and the compile gate's
+             refusals at 0; outside (f4) the fault-ladder and host
+             counters (host_counts, host_topn, device_dispatch_errors,
+             oom_*, watchdog_timeouts, kernel_faults; host_cold_counts
+             outside (f3)) are
+             0 after every path. The line carries the launch sums.
 
 It prints the nvidia-smi line and a {"kernels": [...]} JSON line before
 the last line, and as its last line {"ok": true, "device": {...}}. With
@@ -112,6 +140,35 @@ def cuda_time_ms(torch, fn, reps: int, warm: int = 1, inner: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def device_total_ms(torch, fn):
+    """(fn()'s value, host ms of the call, device ms, method): the self
+    device time of every kernel and copy torch.profiler recorded during
+    the call ("profiler"), or, where it recorded none, CUDA events around
+    the call ("events", host gaps included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        a.record()
+        val = fn()
+        b.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages())
+    if dev_us:
+        return val, host_ms, dev_us / 1e3, "profiler"
+    return val, host_ms, a.elapsed_time(b), "events"
+
+
+# Counters of the device-fault ladder and the host rungs: 0 after every
+# path that injects no fault.
+LADDER = ("host_counts", "host_topn", "host_cold_counts", "device_dispatch_errors",
+          "oom_backpressure", "oom_retries", "oom_batch_splits", "watchdog_timeouts",
+          "kernel_faults")
 
 
 def bound(nbytes: float, ops: float):
@@ -725,7 +782,9 @@ def main_path(torch, pt, kernels, args, rng, report):
         kernels.reset_counters()
         return name
 
-    def end(name, *need, none=()):
+    def end(name, *need, none=(), quiet=(eng,), allow=()):
+        """Read the launch counters of the path just driven; `quiet`
+        engines must show no ladder or host-rung counts but `allow`."""
         torch.cuda.synchronize()
         got = {"launches": dict(kernels.LAUNCHES), "plain_calls": dict(kernels.PLAIN_CALLS)}
         phases[name] = got
@@ -735,6 +794,10 @@ def main_path(torch, pt, kernels, args, rng, report):
             assert got["launches"][k] > 0, (name, k, got)
         for k in none:
             assert got["launches"][k] == 0, (name, k, got)
+        for e in quiet:
+            snap = e.snapshot()
+            bad = {k: snap[k] for k in LADDER if k not in allow and snap[k]}
+            assert not bad, (name, bad)
 
     # ---- (a) Count through Executor.execute
     ph = start("a_execute_count")
@@ -801,9 +864,10 @@ def main_path(torch, pt, kernels, args, rng, report):
     stages["plans_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     slots, idxs_np, _, _ = eng._batch_slot_gather(plans, len(plans))
+    slots = list(slots)  # the batch's stack: (index, slots, shards)
     stages["slot_gather_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    eng._stacked_leaf_tensor("big", list(slots), tuple(shards))
+    eng._stacked_leaf_tensor("big", slots, tuple(shards))
     stages["stack_probe_ms"] = (time.perf_counter() - t0) * 1e3
     stages["k1_ms"] = k1_ms
     out["batch_host_stages"] = stages
@@ -820,11 +884,12 @@ def main_path(torch, pt, kernels, args, rng, report):
     ph = start("a_execute_count_timed")
     qpairs = distinct_pairs(rng, n_rows, args.single)
     qs = [f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in qpairs]
-    ex.execute("big", qs[0])
-    t0 = time.perf_counter()
-    for q in qs:
-        ex.execute("big", q)
-    dt = time.perf_counter() - t0
+    with eng.memos_off():  # the kernel path, as before the memo
+        ex.execute("big", qs[0])
+        t0 = time.perf_counter()
+        for q in qs:
+            ex.execute("big", q)
+        dt = time.perf_counter() - t0
     out["count_qps"] = len(qs) / dt
     out["count_ms"] = dt / len(qs) * 1e3
     log(f"main (a) timed: {len(qs)} Executor Counts, {out['count_ms']:.3f} ms each, "
@@ -854,36 +919,56 @@ def main_path(torch, pt, kernels, args, rng, report):
     want = replay_topn(inter, cache, 10)
     assert [(p.id, p.count) for p in got] == want, (got, want)
     fb = (fa + 1) % n_rows
-    ex.execute("big", f"TopN(f, Row(f={fb}), n=10)")
-    t0 = time.perf_counter()
-    ex.execute("big", f"TopN(f, Row(f={fa}), n=10)")
-    out["topn_filter_ms"] = (time.perf_counter() - t0) * 1e3
+    with eng.memos_off():  # the kernel path, as before the memo
+        ex.execute("big", f"TopN(f, Row(f={fb}), n=10)")
+        t0 = time.perf_counter()
+        ex.execute("big", f"TopN(f, Row(f={fa}), n=10)")
+        out["topn_filter_ms"] = (time.perf_counter() - t0) * 1e3
     end(ph, "masked_plane_counts")
     log(f"main (c): TopN(f, n=10) and TopN(f, Row(f={fa}), n=10) equal the numpy "
         f"replay; {out['topn_ms']:.1f} ms and {out['topn_filter_ms']:.1f} ms warm "
         f"({out['topn_filter_cold_ms']:.1f} ms first)")
 
-    # ---- (d) a write, then recounts re-gather the stale stack
+    # ---- (d) a write, then recounts: the stale leaf and the batch's
+    # stack are refreshed by a delta scatter, nothing is re-gathered
     a, b = (int(x) for x in pairs[0])
     s = n_shards // 2
     cols = np.flatnonzero(np.unpackbits(
         (~H[a, s] & H[b, s]).view(np.uint8), bitorder="little"))
     col = s * (H.shape[2] * 32) + int(cols[0])
-    misses = eng.snapshot()["stack_misses"]
+    # Other paths' stacks may have pushed the batch's stack out of the
+    # LRU stack cache: make it resident (a hit or a restack of resident
+    # leaves) so the write below has a cached stack to refresh.
+    eng._stacked_leaf_tensor("big", slots, tuple(shards))
+    base = eng.snapshot()
     ph = start("d_set_recount")
     assert ex.execute("big", f"Set({col}, f={a})") == [True]
     H[a, s, int(cols[0]) >> 5] |= np.uint32(1 << (int(cols[0]) & 31))
     got = ex.execute("big", f"Count(Intersect(Row(f={a}), Row(f={b})))")[0]
     assert got == want_pair(a, b) == wants[0] + 1, (got, wants[0])
+    wants = [want_pair(int(p[0]), int(p[1])) if a in (int(p[0]), int(p[1])) else w
+             for p, w in zip(pairs, wants)]
+    # The whole batch, unmemoized, reads the batch's stack: one scatter.
+    res = eng.count_batch_async("big", calls, shards).cpu().numpy()
+    assert res.tolist() == wants, "count_batch_async != numpy"
+    # Through the memo: the write moved the generation of a fragment every
+    # leaf of f has a shard in, so every query but the Count above misses
+    # and the misses ride one K1 launch over a stack of their own leaves.
     res = eng.count_batch("big", calls, shards)
-    assert int(res[0]) == wants[0] + 1 and [int(x) for x in res[1:]] == [
-        want_pair(int(p[0]), int(p[1])) if a in (int(p[0]), int(p[1])) else w
-        for p, w in zip(pairs[1:], wants[1:])]
-    assert eng.snapshot()["stack_misses"] >= misses + 2, "stale stack not re-gathered"
+    assert [int(x) for x in res] == wants and int(res[0]) == wants[0], "count_batch != numpy"
+    now = eng.snapshot()
+    dd = {k: now[k] - base[k] for k in ("leaf_delta_hits", "stack_delta_hits", "delta_bytes",
+                                        "full_refresh_bytes", "memo_hits", "memo_misses")}
+    assert dd["leaf_delta_hits"] >= 1 and dd["stack_delta_hits"] >= 1, dd
+    assert dd["full_refresh_bytes"] == 0 and 0 < dd["delta_bytes"] <= 1024, dd
+    out["d_counters"] = dd
     end(ph, "gather_expr_count", "gather_expr_count_streaming", "gather_expr_count_staged")
-    log("main (d): Set then recount: Count and count_batch see the write "
-        "(stale stacks re-gathered)")
-    main_path_bsi(ex, eng, H, rng, n_shards, start, end, out)
+    log(f"main (d): Set then recount: Count, count_batch (memo) and the whole batch see "
+        f"the write; refreshed by deltas, nothing re-gathered: {dd}")
+    bsi = main_path_bsi(ex, eng, H, rng, n_shards, start, end, out)
+    main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, dict(
+        pairs_a=pairs_a, nest_q=nest_q, calls=calls, pairs=pairs, wants=wants, fa=fa,
+        slots=slots))
     launches = {k: sum(p["launches"][k] for p in phases.values())
                 for k in kernels.LAUNCHES}
     out["engine"] = eng.snapshot()
@@ -1059,14 +1144,15 @@ def main_path_bsi(ex, eng, H, rng, n_shards, start, end, out):
     # ---- warm repeats (resident stacks), and one warm Max's host stages
     ph = start("e_warm")
     warm = {}
-    for q in (f"Sum(Row(f={fa}), field=v)", f"Max(Row(f={fa}), field=v)",
-              f"Count(Range(v > {x_gt}))", tq.format(1)):
-        reps = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            ex.execute("big", q)
-            reps.append((time.perf_counter() - t0) * 1e3)
-        warm[q] = statistics.median(reps)
+    with eng.memos_off():  # the kernel path, as before the memo
+        for q in (f"Sum(Row(f={fa}), field=v)", f"Max(Row(f={fa}), field=v)",
+                  f"Count(Range(v > {x_gt}))", tq.format(1)):
+            reps = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                ex.execute("big", q)
+                reps.append((time.perf_counter() - t0) * 1e3)
+            warm[q] = statistics.median(reps)
     flt = parse(f"Row(f={fa})").calls[0]
     leaves = [Leaf("v", VIEW_BSI_GROUP_PREFIX + "v", i) for i in range(depth + 1)]
     stages = {}
@@ -1096,6 +1182,407 @@ def main_path_bsi(ex, eng, H, rng, n_shards, start, end, out):
     out["bsi"] = e
     log("main (e) times (ms, host clock, one call each): " + "; ".join(
         f"{q} {ms:.1f}" for q, ms in timed.items()))
+    return dict(vals=vals, nn=nn, fa=fa, fbits=fbits, want_vc=want_vc, x_gt=x_gt,
+                warm_ms=warm)
+
+
+# (f4): a fresh process whose kernel build cannot run (an empty build
+# directory and a missing nvcc) drives one Count through Executor.execute.
+BUILD_FAIL_SCRIPT = r"""
+import json, os, shutil, sys, tempfile
+sys.path.insert(0, sys.argv[1])
+import pilosa_tpu_torch as pt
+from pilosa_tpu_torch.ops import kernels
+
+os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+empty = tempfile.mkdtemp(prefix="empty-", dir=kernels.BUILD_DIR)
+try:
+    kernels.BUILD_DIR = empty
+    kernels.LIBRARY = os.path.join(empty, "libbitplane_kernels.so")
+    kernels._nvcc = lambda: os.path.join(empty, "nvcc-missing")
+    holder = pt.Holder(None)
+    holder.open()
+    holder.create_index("i").create_field("f").import_bits([0, 0, 1], [1, 70000, 1])
+    ex = pt.Executor(holder)
+    try:
+        ex.execute("i", "Count(Intersect(Row(f=0), Row(f=1)))")
+        out = {"raised": None}
+    except Exception as e:
+        out = {"raised": type(e).__name__, "message": str(e)[:300]}
+    snap = ex.engine.snapshot()
+    out.update({k: snap[k] for k in ("device_dispatch_errors", "host_counts", "host_topn",
+                                     "count_dispatches")})
+    out["plane"] = ex.engine.device_health.plane_state()
+    out["dispatch_failures"] = ex.engine.device_health.snapshot()["dispatch_failures"]
+    out["launches"] = sum(kernels.LAUNCHES.values())
+    out["on_card"] = holder.device.type
+    ex.close()
+    holder.close()
+finally:
+    shutil.rmtree(empty, ignore_errors=True)
+print(json.dumps(out))
+"""
+
+
+def main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, ctx):
+    """Path (f): the result and aux memos, delta refresh, tiering and the
+    device-fault ladder on the same 256-shard index."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch import failpoints
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+    from pilosa_tpu_torch.parallel import EngineConfig
+    from pilosa_tpu_torch.parallel.device_health import (DeviceKernelFault, ResilienceConfig,
+                                                         classify_device_error)
+    from pilosa_tpu_torch.parallel.engine import ShardedQueryEngine
+    from pilosa_tpu_torch.tier import TierConfig
+
+    n_rows, n_shards, n_words = H.shape
+    shards = list(range(n_shards))
+    plane_bytes = n_shards * n_words * 4
+    vals, nn, bfa, fbits, want_vc = (bsi[k] for k in ("vals", "nn", "fa", "fbits", "want_vc"))
+    calls, pairs = ctx["calls"], ctx["pairs"]
+    f = {}
+
+    def want_pair(a, b):
+        return np_count(np.bitwise_and(H[a], H[b]))
+
+    def ranked(src_row):
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            cache = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r]).sum(axis=1, dtype=np.int64), range(n_rows))))
+            inter = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r] & H[src_row]).sum(axis=1, dtype=np.int64),
+                range(n_rows))))
+        return replay_topn(inter, cache, 10)
+
+    def median_ms(fn, reps=20):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    # ---- (f1) memos: (a)'s Counts, the batch, Sum/Max and a filtered TopN
+    union_q = "Count(Union(" + ", ".join(f"Row(f={r})" for r in range(40)) + "))"
+    u = H[1] | H[2] | H[3]
+    nest_want = np_count(u & ~((H[4] ^ H[5]) | (H[6] & H[7])))
+    u = H[0].copy()
+    for r in range(1, 40):
+        u |= H[r]
+    union_want = np_count(u)
+    del u
+    counts = [(f"Count(Intersect(Row(f={a}), Row(f={b})))", want_pair(int(a), int(b)))
+              for a, b in ctx["pairs_a"]] + [(ctx["nest_q"], nest_want), (union_q, union_want)]
+    tfa = ctx["fa"]
+    topn_q = f"TopN(f, Row(f={tfa}), n=10)"
+    topn_want = ranked(tfa)
+    aux = [("Sum(field=v)", want_vc("sum", nn)),
+           (f"Sum(Row(f={bfa}), field=v)", want_vc("sum", nn & fbits)),
+           ("Max(field=v)", want_vc("max", nn)),
+           (f"Max(Row(f={bfa}), field=v)", want_vc("max", nn & fbits))]
+
+    def setop_pass():
+        for q, w in counts:
+            assert ex.execute("big", q)[0] == w, q
+        assert [int(x) for x in eng.count_batch("big", calls, shards)] == ctx["wants"]
+
+    def aux_pass():
+        for q, w in aux:
+            got = ex.execute("big", q)[0]
+            assert (got.val, got.count) == w, (q, got)
+        got = ex.execute("big", topn_q)[0]
+        assert [(p.id, p.count) for p in got] == topn_want, (got, topn_want)
+
+    ph = start("f1_memo_prime")  # (d) and (e) wrote: re-validate once
+    setop_pass()
+    aux_pass()
+    end(ph)
+    ph = start("f1_memo")
+    s0 = eng.snapshot()
+    setop_pass()
+    s1 = eng.snapshot()
+    aux_pass()
+    s2 = eng.snapshot()
+    assert s1["memo_hits"] - s0["memo_hits"] == len(counts) + len(calls), (s0, s1)
+    assert s2["memo_hits"] - s1["memo_hits"] >= len(aux) + 1, (s1, s2)
+    assert s2["memo_misses"] == s0["memo_misses"], (s0, s2)
+    memo_ms = {
+        "count": median_ms(lambda: ex.execute("big", counts[0][0])),
+        "count_batch_256": median_ms(lambda: eng.count_batch("big", calls, shards), 10),
+        "sum_filtered": median_ms(lambda: ex.execute("big", aux[1][0])),
+        "max_filtered": median_ms(lambda: ex.execute("big", aux[3][0])),
+        "topn_filtered": median_ms(lambda: ex.execute("big", topn_q), 10),
+    }
+    end(ph, none=("gather_expr_count", "masked_plane_counts", "bsi_minmax"))
+    f["memo"] = dict(set_op_hits=s1["memo_hits"] - s0["memo_hits"],
+                     aux_hits=s2["memo_hits"] - s1["memo_hits"], hit_ms=memo_ms)
+    log(f"main (f1): {len(counts)} Counts, a {len(calls)}-query count_batch, Sum/Max with and "
+        f"without Row(f={bfa}) and TopN(f, Row(f={tfa}), n=10) repeated: equal numpy, "
+        f"memo_hits +{f['memo']['set_op_hits']} and +{f['memo']['aux_hits']}, no kernel "
+        f"launched; memo-hit medians (ms, host clock): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in memo_ms.items()))
+
+    # ---- (f2) delta refresh of the batch's stack, beside a full regather
+    slots = ctx["slots"]
+    stack_shards = tuple(shards)
+    eng._stacked_leaf_tensor("big", slots, stack_shards)  # resident before the write
+    eng_nd = ShardedQueryEngine(
+        ex.holder, config=EngineConfig(delta_max_fraction=0.0),
+        tier_config=TierConfig(host_bytes=0, disk_bytes=0))
+    rebuilt, cold_host_ms, cold_dev_ms, cold_how = device_total_ms(
+        torch, lambda: eng_nd._stacked_leaf_tensor("big", slots, stack_shards))
+    del rebuilt
+    cold_bytes = eng_nd.snapshot()["full_refresh_bytes"]
+    a2, b2 = (int(x) for x in pairs[1])
+    s2_ = n_shards // 4
+    c2 = int(np.flatnonzero(np.unpackbits((~H[a2, s2_] & H[b2, s2_]).view(np.uint8),
+                                          bitorder="little"))[0])
+    vshard = n_shards // 5
+    vcol = int(np.flatnonzero(~nn[vshard])[0])
+    new_val = 99999
+    base = eng.snapshot()
+    ph = start("f2_delta")
+    assert ex.execute("big", f"Set({s2_ * SHARD_WIDTH + c2}, f={a2})") == [True]
+    H[a2, s2_, c2 >> 5] |= np.uint32(1 << (c2 & 31))
+    assert ex.execute("big", f"SetValue(col={vshard * SHARD_WIDTH + vcol}, v={new_val})") == [None]
+    vals[vshard, vcol], nn[vshard, vcol] = new_val, True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    # The refresh's device work is one call of the engine's _scatter (the
+    # index upload, the clone, the index_put): CUDA events around it.
+    # torch.profiler records no device activity in a window this short on
+    # the card (only the runtime calls), so it cannot time this call.
+    scatter_ms = []
+    real_scatter = eng._scatter
+
+    def timed_scatter(*a):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        got = real_scatter(*a)
+        ev1.record()
+        torch.cuda.synchronize()
+        scatter_ms.append(ev0.elapsed_time(ev1))
+        return got
+
+    eng._scatter = timed_scatter
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refreshed = eng._stacked_leaf_tensor("big", slots, stack_shards)
+        torch.cuda.synchronize()
+        delta_host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del eng._scatter
+    assert len(scatter_ms) == 1, scatter_ms
+    delta_dev_ms = scatter_ms[0]
+    delta_peak = torch.cuda.max_memory_allocated()
+    # The clone alone, the allocator's block already free (no cudaMalloc).
+    clone_ms = cuda_time_ms(torch, lambda: refreshed.clone(), 3)
+    mid = eng.snapshot()
+    assert mid["stack_delta_hits"] == base["stack_delta_hits"] + 1, (base, mid)
+    assert mid["full_refresh_bytes"] == base["full_refresh_bytes"], (base, mid)
+    # The same refresh without the delta path (the port before it): the
+    # write moved the generation of a fragment every leaf has a shard in,
+    # so every leaf is re-gathered from the host planes and restacked.
+    torch.cuda.reset_peak_memory_stats()
+    mem1 = torch.cuda.memory_allocated()
+    rebuilt, full_host_ms, full_dev_ms, full_how = device_total_ms(
+        torch, lambda: eng_nd._stacked_leaf_tensor("big", slots, stack_shards))
+    full_peak = torch.cuda.max_memory_allocated()
+    regathered = eng_nd.snapshot()["full_refresh_bytes"] - cold_bytes
+    assert regathered == len(slots) * plane_bytes, (regathered, len(slots))
+    assert torch.equal(refreshed, rebuilt), "delta-refreshed stack != stack from host planes"
+    del refreshed, rebuilt
+    eng_nd.close()
+    torch.cuda.empty_cache()
+    # The host container walk of a cold gather, per plane: serial (the
+    # default), and on the auto-sized gather pool (gather_workers=0).
+    gather_ms = {}
+    for gw in (1, 0):
+        e2 = ShardedQueryEngine(ex.holder, config=EngineConfig(gather_workers=gw),
+                                tier_config=TierConfig(host_bytes=0, disk_bytes=0))
+        t0 = time.perf_counter()
+        for leaf in slots[:8]:
+            e2._host_gather([ex.holder.fragment("big", leaf.field, leaf.view, sh)
+                             for sh in shards], leaf.row)
+        gather_ms[e2._gather_workers] = (time.perf_counter() - t0) / 8 * 1e3
+        e2.close()
+    # The recounts see both writes.
+    assert ex.execute("big", f"Count(Intersect(Row(f={a2}), Row(f={b2})))")[0] == \
+        want_pair(a2, b2)
+    wants = [want_pair(int(p[0]), int(p[1])) if a2 in (int(p[0]), int(p[1])) else w
+             for p, w in zip(pairs, ctx["wants"])]
+    ctx["wants"] = wants
+    assert [int(x) for x in eng.count_batch("big", calls, shards)] == wants
+    assert eng.count_batch_async("big", calls, shards).cpu().numpy().tolist() == wants
+    for q, kind in (("Sum(field=v)", "sum"), ("Max(field=v)", "max")):
+        got = ex.execute("big", q)[0]
+        assert (got.val, got.count) == want_vc(kind, nn), (q, got)
+    now = eng.snapshot()
+    dd = {k: now[k] - base[k] for k in ("leaf_delta_hits", "stack_delta_hits", "delta_bytes",
+                                        "full_refresh_bytes")}
+    # The BSI stack may have left the LRU stack cache since (e): then its
+    # planes are refreshed one by one (leaf deltas) and restacked.
+    assert dd["leaf_delta_hits"] >= 1 and dd["stack_delta_hits"] >= 1, dd
+    assert dd["full_refresh_bytes"] == 0 and 0 < dd["delta_bytes"] <= 2048, dd
+    end(ph, "gather_expr_count", "masked_plane_counts", "bsi_minmax")
+    gib = 2 ** 30
+    f["delta"] = dict(
+        counters=dd, stack_leaves=len(slots), stack_gb=len(slots) * plane_bytes / 1e9,
+        delta_host_ms=delta_host_ms, delta_device_ms=delta_dev_ms,
+        device_ms_by=dict(delta="events around the scatter", full_refresh=full_how,
+                          cold_gather=cold_how), clone_alone_ms=clone_ms,
+        delta_peak_gib=delta_peak / gib, delta_peak_over_gib=(delta_peak - mem0) / gib,
+        full_refresh_host_ms=full_host_ms, full_refresh_device_ms=full_dev_ms,
+        full_refresh_bytes=regathered,
+        full_refresh_peak_gib=full_peak / gib, full_refresh_peak_over_gib=(full_peak - mem1) / gib,
+        cold_gather_host_ms=cold_host_ms, cold_gather_device_ms=cold_dev_ms,
+        host_gather_ms_per_plane_by_workers=gather_ms)
+    log(f"main (f2): Set on shard {s2_} and SetValue: Count, count_batch, Sum and Max equal "
+        f"numpy; {dd}. The {len(slots)}-leaf stack ({len(slots) * plane_bytes / 1e9:.2f} GB) "
+        f"refreshed by a delta in {delta_host_ms:.3f} ms host, {delta_dev_ms:.3f} ms device "
+        f"(events around the scatter; the clone alone {clone_ms:.3f} ms), peak "
+        f"{delta_peak / gib:.2f} GiB (+{(delta_peak - mem0) / gib:.2f}); without the delta path "
+        f"(every leaf re-gathered, {regathered / 1e9:.2f} GB, and restacked) {full_host_ms:.3f} ms host, "
+        f"{full_dev_ms:.3f} ms device ({full_how}), peak +{(full_peak - mem1) / gib:.2f} GiB; "
+        f"the whole leaf set gathered from the host {cold_host_ms:.1f} ms host, "
+        f"{cold_dev_ms:.3f} ms device ({cold_how}); host walk per plane by gather threads "
+        f"{ {k: round(v, 3) for k, v in gather_ms.items()} } ms; "
+        f"torch.equal to the rebuilt stack")
+
+    # ---- (f3) tiering: a leaf cache of 8 planes, a 48-plane host tier
+    keep, tier_planes, n_sweep = 8, 48, 32
+    tcfg = TierConfig(host_bytes=tier_planes * plane_bytes, disk_bytes=0, prefetch_interval=0)
+    ex_t = pt.Executor(ex.holder, engine_config=EngineConfig(
+        leaf_cache_bytes=keep * plane_bytes, stack_cache_bytes=keep * plane_bytes),
+        tier_config=tcfg)
+    et = ex_t.engine
+    # Memo off: the second touch below must reach the tier.
+    with et.memos_off():
+        ph = start("f3_sweep")
+        t0 = time.perf_counter()
+        for r in range(n_sweep):
+            assert ex_t.execute("big", f"Count(Row(f={r}))")[0] == np_count(H[r]), r
+        sweep_s = time.perf_counter() - t0
+        assert et.tier.drain(timeout=300)
+        tsnap = et.tier.snapshot()
+        assert tsnap["demotions_host"] >= 16, tsnap
+        end(ph, "gather_expr_count", quiet=(eng, et))
+        q = "Count(Intersect(Row(f=0), Row(f=1)))"
+        ph = start("f3_cold_host")
+        t0 = time.perf_counter()
+        got = ex_t.execute("big", q)[0]
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        assert got == want_pair(0, 1), got
+        assert et.snapshot()["host_cold_counts"] == 1
+        end(ph, none=("gather_expr_count",), quiet=(eng, et), allow=("host_cold_counts",))
+        ph = start("f3_promote")
+        tb = et.snapshot()
+        t0 = time.perf_counter()
+        got = ex_t.execute("big", q)[0]
+        promote_ms = (time.perf_counter() - t0) * 1e3
+        assert got == want_pair(0, 1), got
+        ta = et.snapshot()
+        assert ta["leaf_tier_hits"] - tb["leaf_tier_hits"] == 2, (tb, ta)
+        assert ta["host_cold_counts"] == 1 and ta["leaf_misses"] == tb["leaf_misses"]
+        end(ph, "gather_expr_count", quiet=(eng, et), allow=("host_cold_counts",))
+        f["tier"] = dict(leaf_cache_planes=keep, host_tier_bytes=tcfg.host_bytes,
+                         swept=n_sweep, sweep_s=sweep_s, tier=et.tier.snapshot(),
+                         cold_host_count_ms=cold_ms, promote_count_ms=promote_ms,
+                         tier_promote_bytes=ta["tier_promote_bytes"] - tb["tier_promote_bytes"])
+        log(f"main (f3): {n_sweep} rows swept through a {keep}-plane leaf cache in "
+            f"{sweep_s:.1f} s, {tsnap['demotions_host']} planes demoted into a "
+            f"{tcfg.host_bytes} B host tier ({tsnap['host_bytes']} B held); {q} first "
+            f"answered on the host from the compressed bytes in {cold_ms:.1f} ms, then "
+            f"promoted (leaf_tier_hits +2) and counted by K1 in {promote_ms:.1f} ms; both "
+            f"equal numpy")
+    ex_t.close()
+
+    # ---- (f4) the fault ladder, on an Executor of its own (OOM
+    # backpressure halves its budgets for its lifetime)
+    ex_l = pt.Executor(ex.holder,
+                       resilience_config=ResilienceConfig(device_breaker_failures=100))
+    el = ex_l.engine
+    try:
+        ph = start("f4_error_count")
+        failpoints.configure("device-dispatch", "error", count=1)
+        got = ex_l.execute("big", "Count(Intersect(Row(f=2), Row(f=3)))")[0]
+        failpoints.reset()
+        assert got == want_pair(2, 3), got
+        s = el.snapshot()
+        assert s["host_counts"] == 1 and s["device_dispatch_errors"] == 1, s
+        end(ph, none=("gather_expr_count",))
+        ph = start("f4_error_topn")
+        failpoints.configure("device-dispatch", "error")
+        got = ex_l.execute("big", topn_q)[0]
+        failpoints.reset()
+        assert [(p.id, p.count) for p in got] == ranked(tfa), got
+        s = el.snapshot()
+        assert s["host_topn"] >= 1 and s["host_topn"] == s["device_dispatch_errors"] - 1, s
+        end(ph, none=("masked_plane_counts",))
+        ph = start("f4_oom_batch")
+        failpoints.configure("device-dispatch", "oom", count=1)
+        res = el.count_batch("big", calls, shards)
+        failpoints.reset()
+        assert [int(x) for x in res] == wants, "count_batch after an OOM != numpy"
+        s = el.snapshot()
+        assert s["oom_backpressure"] == 1 and s["oom_retries"] == 1, s
+        end(ph, "gather_expr_count", "gather_expr_count_staged")
+        # A real fault of a kernel on the card (a planted launch error) is
+        # classified and recorded, then raised out of execute: no host rung.
+        ph = start("f4_kernel_fault")
+        real_check = kernels._check_launch
+
+        def planted(name, err):
+            raise RuntimeError(f"{name} kernel launch failed: cudaError 700")
+
+        kernels._check_launch = planted
+        fault = None
+        try:
+            ex_l.execute("big", "Count(Intersect(Row(f=4), Row(f=5)))")
+        except DeviceKernelFault as e:
+            fault = e.kind
+        finally:
+            kernels._check_launch = real_check
+        s2 = el.snapshot()
+        assert fault == "runtime" and s2["kernel_faults"] == 1, (fault, s2)
+        assert s2["host_counts"] == s["host_counts"] and s2["host_topn"] == s["host_topn"], s2
+        assert el.device_health.snapshot()["failures_runtime"] >= 1
+        end(ph, none=("gather_expr_count",))
+        s = s2
+        ladder = {k: s[k] for k in LADDER}
+    finally:
+        failpoints.reset()
+        ex_l.close()
+    total = torch.cuda.mem_get_info()[1]
+    try:  # more than the card holds: no cached block can serve it
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device="cuda")
+        raise AssertionError("allocating past the card's memory did not fail")
+    except torch.cuda.OutOfMemoryError as e:
+        oom_kind = classify_device_error(e)
+        oom_text = str(e).splitlines()[0][:120]
+    assert oom_kind == "oom", (oom_kind, oom_text)
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-c", BUILD_FAIL_SCRIPT, HERE],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    build_fail = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert build_fail["raised"] == "KernelBuildError", build_fail
+    assert build_fail["on_card"] == "cuda" and build_fail["plane"] == "closed", build_fail
+    assert not any(build_fail[k] for k in ("device_dispatch_errors", "host_counts", "host_topn",
+                                           "dispatch_failures", "launches")), build_fail
+    f["ladder"] = dict(counters=ladder, cuda_oom=oom_text, build_failure=build_fail)
+    log(f"main (f4): device-dispatch=1*error under a Count and =error under a filtered TopN "
+        f"answered by the host rung (equal numpy, K1/K2 not launched); =1*oom under a "
+        f"count_batch: backpressure, one retry, K1 launched; a planted K1 launch error "
+        f"raises DeviceKernelFault out of Executor.execute; ladder counters {ladder}; a "
+        f"real CUDA OOM ({oom_text!r}) classifies {oom_kind}; a forced nvcc failure raises "
+        f"{build_fail['raised']} out of Executor.execute with no dispatch error, no host "
+        f"answer and the plane breaker closed")
+    out["f"] = f
 
 
 def main() -> int:

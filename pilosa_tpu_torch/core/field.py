@@ -136,6 +136,7 @@ class Field:
         epoch=None,
         storage_config=None,
         snapshotter=None,
+        delta_journal_ops=None,
         device=None,
     ):
         validate_name(name)
@@ -148,6 +149,7 @@ class Field:
         self.epoch = epoch
         self.storage_config = storage_config
         self.snapshotter = snapshotter
+        self.delta_journal_ops = delta_journal_ops
         self.device = device
         self.views: Dict[str, View] = {}
         self.bsi_groups: List[BSIGroup] = []
@@ -225,6 +227,7 @@ class Field:
             epoch=self.epoch,
             storage_config=self.storage_config,
             snapshotter=self.snapshotter,
+            delta_journal_ops=self.delta_journal_ops,
             device=self.device,
         )
 

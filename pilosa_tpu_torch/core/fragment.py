@@ -59,6 +59,16 @@ import hashlib
 # TopN batched intersection-count chunk (rows per device call).
 TOPN_BATCH = 256
 
+# Dirty-word journal bound (total recorded words per fragment). The journal
+# is what makes device-cache refresh cost proportional to the WRITE, not the
+# plane (parallel/engine.py delta path); past this many un-consumed entries
+# it resets and the next refresh of each cached row falls back to a full
+# regather. Env default (same name as the [engine] config section's env
+# override — ONE spelling per knob); per-Fragment override rides the
+# Holder -> Index -> Field -> View chain like StorageConfig.
+DELTA_JOURNAL_OPS = int(
+    os.environ.get("PILOSA_TPU_ENGINE_DELTA_JOURNAL_OPS", "4096"))
+
 # Process-wide incarnation ids for Fragment and WriteEpoch instances.
 # Generations and epochs RESET when an index/fragment is deleted and
 # recreated under the same name, while the engine's caches (keyed by name)
@@ -182,6 +192,7 @@ class Fragment:
         max_op_n: int = MAX_OP_N,
         epoch: Optional[WriteEpoch] = None,
         storage_config: Optional[StorageConfig] = None,
+        delta_journal_ops: Optional[int] = None,
         snapshotter=None,
         device=None,
     ):
@@ -216,10 +227,8 @@ class Fragment:
         # snapshot inline (standalone fragments keep today's synchronous
         # semantics; tests rely on them).
         self._snapshotter = snapshotter
-        # The JAX fragment's CDC hook (`cdc`), dirty-word journal
-        # (`delta_journal_ops`, `dirty_words_since`, `row_words64`) and
-        # tier-demotion read (`row_compressed`) come with the port's CDC,
-        # delta-refresh and tiering slices, which read them.
+        # The JAX fragment's CDC hook (`cdc`) comes with the port's CDC
+        # slice, which reads it.
         self.device = device
         # Bumped by every COMPLETED storage-file rewrite. A background
         # snapshot records it at handoff and aborts its rename if an
@@ -258,6 +267,25 @@ class Fragment:
         # Index-level write epoch (see WriteEpoch), bumped alongside
         # generation so O(1) index staleness reads need no fragment walk.
         self.epoch = epoch
+        # Dirty-word journal. The engine's delta-refresh path asks
+        # dirty_words_since(row, cached_gen) to upload only the changed
+        # words of a stale resident plane instead of re-walking and
+        # re-shipping the whole (S, W) tensor. Bounded by delta_journal_ops
+        # unique dirty words; overflow or a bulk mutation without word info
+        # poisons the affected rows (floor dicts) so stale readers fall
+        # back to a full regather — never to a partial delta.
+        self.delta_journal_ops = (
+            DELTA_JOURNAL_OPS if delta_journal_ops is None else delta_journal_ops
+        )
+        # row -> {w64: generation of its LAST mutation}. A dict, not an
+        # append log: re-writing a hot word updates its generation in
+        # place, so the journal is bounded by UNIQUE dirty words.
+        self._dirty: Dict[int, Dict[int, int]] = {}
+        self._dirty_n = 0
+        # Per-row completeness floor: deltas are answerable only for cached
+        # generations >= max(row floor, fragment floor).
+        self._dirty_floor: Dict[int, int] = {}
+        self._dirty_floor_all = 0
         # Live-migration state (cluster/rebalance.py). _migrating counts
         # open source-side sessions: while nonzero the snapshot policy
         # defers so the WAL positions those sessions hold stay meaningful.
@@ -479,17 +507,96 @@ class Fragment:
 
     # --------------------------------------------------------------- writes
 
-    def _invalidate_row(self, row_id: int) -> None:
+    def _invalidate_row(self, row_id: int, dirty_w64=None) -> None:
         """Invalidate caches for one mutated row. EVERY mutation path must
         come through here (or read_from's whole-fragment equivalent): the
         generation bump is what stale-proofs the engine's device caches and
-        the epoch bump is what stale-proofs the index's write epoch — a
-        path that skips either serves stale results silently."""
+        the epoch bump is what stale-proofs the memo's O(1) probe — a path
+        that skips either serves stale results silently
+        (tests/test_torch_delta.py parametrizes the audit).
+
+        `dirty_w64` is the iterable of changed 64-bit word indices within
+        the row plane; None means the caller can't enumerate them (bulk
+        storage ops), which poisons this row's journal so the next delta
+        probe falls back to a full regather."""
         self._plane_cache.pop(row_id, None)
         self._checksums.pop(row_id // HASH_BLOCK_SIZE, None)
         self.generation += 1
+        if dirty_w64 is None or SHARD_WIDTH % 64:
+            dropped = self._dirty.pop(row_id, None)
+            if dropped:
+                self._dirty_n -= len(dropped)
+            self._dirty_floor[row_id] = self.generation
+            if len(self._dirty_floor) > max(self.delta_journal_ops, 1):
+                self._journal_reset()
+        else:
+            g = self.generation
+            d = self._dirty.setdefault(row_id, {})
+            for w in dirty_w64:
+                w = int(w)
+                if w not in d:
+                    self._dirty_n += 1
+                d[w] = g
+            if self._dirty_n > self.delta_journal_ops:
+                self._journal_reset()
         if self.epoch is not None:
             self.epoch.bump()
+
+    def _journal_reset(self) -> None:
+        """Drop all delta history: any cached generation older than NOW can
+        no longer be delta-refreshed (returns None => full regather)."""
+        self._dirty.clear()
+        self._dirty_n = 0
+        self._dirty_floor.clear()
+        self._dirty_floor_all = self.generation
+
+    def dirty_words_since(self, row_id: int, gen: int):
+        """64-bit word indices (within the row plane) mutated after
+        generation `gen`, or None when the journal can't answer (overflow,
+        bulk mutation, or `gen` from a previous fragment incarnation) and
+        the caller must fall back to a full plane regather. An EMPTY array
+        means the generation churn came from OTHER rows of this fragment —
+        the cached plane for this row is still byte-exact."""
+        with self._mu:
+            if gen > self.generation:
+                # A generation from a prior incarnation of this fragment
+                # (reopen resets the counter): history is unknowable.
+                return None
+            floor = max(self._dirty_floor.get(row_id, 0), self._dirty_floor_all)
+            if gen < floor:
+                return None
+            d = self._dirty.get(row_id)
+            if not d:
+                return np.empty(0, dtype=np.int64)
+            words = [w for w, g in d.items() if g > gen]
+            return np.array(words, dtype=np.int64)
+
+    def row_words64(self, row_id: int, w64: np.ndarray) -> np.ndarray:
+        """Current uint64 word values of the row plane at the given 64-bit
+        word indices — O(touched containers), not O(plane): the host-side
+        read half of a delta refresh."""
+        base = (row_id * SHARD_WIDTH) >> 6
+        return self.storage.words64(np.asarray(w64, dtype=np.int64) + base)
+
+    def row_compressed(self, row_id: int) -> Tuple[bytes, Tuple[int, int]]:
+        """Container-compressed snapshot of one row plane (roaring bytes,
+        containers rebased to key 0) plus the (incarnation, generation)
+        fingerprint it is exact at — the tier manager's demotion read. The
+        container copies happen under the fragment mutex so a racing
+        writer cannot tear a form transition mid-copy; the O(row bytes)
+        serialization itself runs off-lock."""
+        start = row_id * SHARD_WIDTH
+        end = start + SHARD_WIDTH
+        with self._mu:
+            if SHARD_WIDTH % (1 << 16):
+                # Exotic shard widths aren't container-aligned; rebuild
+                # from values (correct, slower — tests only).
+                vals = self.storage.slice_range(start, end)
+                sub = Bitmap(vals - np.uint64(start) if len(vals) else None)
+            else:
+                sub = self.storage.offset_range(0, start, end)
+            fp = (self.incarnation, self.generation)
+        return sub.to_bytes(), fp
 
     def _check_moved(self) -> None:
         """Write gate for migrated-away fragments: raise BEFORE any
@@ -509,7 +616,7 @@ class Fragment:
             if not changed:
                 return False
             self._append_op(OP_ADD, pos)
-            self._invalidate_row(row_id)
+            self._invalidate_row(row_id, ((pos % SHARD_WIDTH) >> 6,))
             self.cache.add(row_id, self.row_count(row_id))
         if self.stats:
             self.stats.count("setBit", 1)
@@ -523,7 +630,7 @@ class Fragment:
             if not changed:
                 return False
             self._append_op(OP_REMOVE, pos)
-            self._invalidate_row(row_id)
+            self._invalidate_row(row_id, ((pos % SHARD_WIDTH) >> 6,))
             self.cache.add(row_id, self.row_count(row_id))
         if self.stats:
             self.stats.count("clearBit", 1)
@@ -1053,7 +1160,10 @@ class Fragment:
         self.storage.remove_many(rem_pos)
         self._append_bulk_op(add_pos, rem_pos)
         allpos = np.concatenate([add_pos, rem_pos])
-        self._invalidate_bulk(allpos // np.uint64(SHARD_WIDTH))
+        # Anti-entropy fold-back stays delta-refreshable: the diff positions
+        # ARE the dirty words (journaled unless the diff alone would blow
+        # the journal bound).
+        self._invalidate_bulk(allpos // np.uint64(SHARD_WIDTH), allpos)
         self._maybe_snapshot()
 
     def apply_hint_positions(self, add_pos, rem_pos) -> None:
@@ -1071,12 +1181,24 @@ class Fragment:
 
     # --------------------------------------------------------------- import
 
-    def _invalidate_bulk(self, row_ids: np.ndarray) -> None:
-        """Cache maintenance for a bulk mutation: every touched row once."""
-        uniq_rows = np.unique(row_ids)
+    def _invalidate_bulk(self, row_ids: np.ndarray, positions: np.ndarray) -> None:
+        """Cache/journal maintenance for a bulk mutation, grouped by row
+        with one argsort + searchsorted pass. Imports small enough to
+        journal keep resident planes delta-refreshable (positions
+        overapproximate: an already-set bit journals a word that didn't
+        change — extra words are re-read, never wrong); big imports poison
+        the touched rows."""
+        journal = len(positions) <= self.delta_journal_ops
+        order = np.argsort(row_ids, kind="stable")
+        rows_sorted = row_ids[order]
+        uniq_rows, starts = np.unique(rows_sorted, return_index=True)
+        bounds = np.append(starts, len(rows_sorted))
+        w64_sorted = ((positions % np.uint64(SHARD_WIDTH)) >> np.uint64(6))[order]
         counts = self.row_counts(uniq_rows)
         for i, row_id in enumerate(uniq_rows):
-            self._invalidate_row(int(row_id))
+            words = (np.unique(w64_sorted[bounds[i]:bounds[i + 1]])
+                     if journal else None)
+            self._invalidate_row(int(row_id), words)
             self.cache.bulk_add(int(row_id), int(counts[i]))
         self.cache.invalidate(force=True)
 
@@ -1095,7 +1217,7 @@ class Fragment:
             self._check_moved()
             self.storage.add_many(positions)
             self._append_bulk_op(positions, None)
-            self._invalidate_bulk(row_ids)
+            self._invalidate_bulk(row_ids, positions)
             self._maybe_snapshot()
 
     def remove_bulk(self, row_ids: np.ndarray, column_ids: np.ndarray) -> None:
@@ -1110,7 +1232,7 @@ class Fragment:
             self._check_moved()
             self.storage.remove_many(positions)
             self._append_bulk_op(None, positions)
-            self._invalidate_bulk(row_ids)
+            self._invalidate_bulk(row_ids, positions)
             self._maybe_snapshot()
 
     def import_value(
@@ -1124,6 +1246,11 @@ class Fragment:
             self._check_moved()
             column_ids = np.asarray(column_ids, dtype=np.uint64) % np.uint64(SHARD_WIDTH)
             values = np.asarray(values, dtype=np.uint64)
+            # Every bit plane's changed words are a subset of the imported
+            # columns' words — one overapproximation journals all planes.
+            w_all = np.unique(column_ids >> np.uint64(6))
+            journal = len(w_all) * (bit_depth + 1) <= self.delta_journal_ops
+            words = w_all if journal else None
             adds, removes = [], []
             for i in range(bit_depth):
                 mask = (values >> np.uint64(i)) & np.uint64(1)
@@ -1134,11 +1261,11 @@ class Fragment:
                 self.storage.remove_many(off + base)
                 adds.append(on + base)
                 removes.append(off + base)
-                self._invalidate_row(i)
+                self._invalidate_row(i, words)
             exists = column_ids + np.uint64(bit_depth * SHARD_WIDTH)
             self.storage.add_many(exists)
             adds.append(exists)
-            self._invalidate_row(bit_depth)
+            self._invalidate_row(bit_depth, words)
             self._append_bulk_op(
                 np.concatenate(adds) if adds else None,
                 np.concatenate(removes) if removes else None,
@@ -1412,6 +1539,9 @@ class Fragment:
             self._checksums.clear()
             self.cache.clear()
             self.generation += 1
+            # Wholesale replacement: no per-word history exists, so every
+            # cached generation older than NOW must full-regather.
+            self._journal_reset()
             if self.epoch is not None:
                 self.epoch.bump()
             for row_id in self.rows():
@@ -1423,11 +1553,13 @@ class Fragment:
     # ------------------------------------------------------- live migration
 
     def _migrate_invalidate(self) -> None:
-        # Must hold _mu. Wholesale storage change: stale-proof every cached
-        # generation (full regather) and the index's write epoch.
+        # Must hold _mu. Wholesale storage change with no per-word
+        # history: poison every cached generation (full regather) and
+        # stale-proof the memo via the epoch.
         self._plane_cache.clear()
         self._checksums.clear()
         self.generation += 1
+        self._journal_reset()
         if self.epoch is not None:
             self.epoch.bump()
 

@@ -42,12 +42,14 @@ def resolve_device(device=None) -> torch.device:
 
 class Holder:
     def __init__(self, path: Optional[str] = None, stats=None, broadcast_shard=None,
-                 storage_config=None, device=None):
+                 storage_config=None, delta_journal_ops=None,
+                 device=None):
         device = resolve_device(device)
         self.path = path
         self.stats = stats
         self.broadcast_shard = broadcast_shard
         self.storage_config = storage_config
+        self.delta_journal_ops = delta_journal_ops
         self.device = device
         self.indexes: Dict[str, Index] = {}
         self._lock = threading.RLock()
@@ -85,6 +87,7 @@ class Holder:
                     broadcast_shard=self.broadcast_shard,
                     storage_config=self.storage_config,
                     snapshotter=self.snapshotter,
+                    delta_journal_ops=self.delta_journal_ops,
                     device=self.device,
                 )
                 index.open()
@@ -136,6 +139,7 @@ class Holder:
             broadcast_shard=self.broadcast_shard,
             storage_config=self.storage_config,
             snapshotter=self.snapshotter,
+            delta_journal_ops=self.delta_journal_ops,
             device=self.device,
         )
         index.open()

@@ -41,6 +41,7 @@ class Index:
         broadcast_shard=None,
         storage_config=None,
         snapshotter=None,
+        delta_journal_ops=None,
         device=None,
     ):
         validate_name(name)
@@ -51,6 +52,7 @@ class Index:
         self.broadcast_shard = broadcast_shard
         self.storage_config = storage_config
         self.snapshotter = snapshotter
+        self.delta_journal_ops = delta_journal_ops
         self.device = device
         # Index-wide write epoch: every fragment mutation in this index
         # bumps it (core/fragment.py WriteEpoch). The query micro-batcher
@@ -90,6 +92,7 @@ class Index:
                     epoch=self.write_epoch,
                     storage_config=self.storage_config,
                     snapshotter=self.snapshotter,
+                    delta_journal_ops=self.delta_journal_ops,
                     device=self.device,
                 )
                 field.open()
@@ -139,6 +142,7 @@ class Index:
             epoch=self.write_epoch,
             storage_config=self.storage_config,
             snapshotter=self.snapshotter,
+            delta_journal_ops=self.delta_journal_ops,
             device=self.device,
         )
         field.open()

@@ -31,6 +31,7 @@ class View:
         epoch=None,
         storage_config=None,
         snapshotter=None,
+        delta_journal_ops=None,
         device=None,
     ):
         self.path = path
@@ -45,6 +46,7 @@ class View:
         self.epoch = epoch
         self.storage_config = storage_config
         self.snapshotter = snapshotter
+        self.delta_journal_ops = delta_journal_ops
         self.device = device
         self.fragments: Dict[int, Fragment] = {}
         self._lock = threading.RLock()
@@ -86,6 +88,7 @@ class View:
             epoch=self.epoch,
             storage_config=self.storage_config,
             snapshotter=self.snapshotter,
+            delta_journal_ops=self.delta_journal_ops,
             device=self.device,
         )
 

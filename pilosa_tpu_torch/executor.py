@@ -14,15 +14,30 @@ Sum on masked_plane_counts, Min/Max on bsi_minmax, TopN filters on
 masked_plane_counts. A tree the engine's compile gate refuses (a time
 Range over a field without a quantum or over no populated views, more
 than 256 views, a missing field) is walked shard by shard, as the JAX
-executor walks it; the walk is never a fallback for a kernel failure.
+executor walks it.
+
+The device-fault ladder (executor.py:1016-1121, 1160-1200 and 1277-1311
+of the JAX package) sits here: the engine's breakers route a quarantined
+signature to the per-shard walk and an open plane to host execution
+before any device work, and a dispatch that fails mid-request
+(DeviceDispatchError) falls one rung down for that query: Counts and
+TopN counts to the host evaluators, bitmaps, BSI and TopNs whose source
+has no host twin to the per-shard walk. Every fallback is logged and
+counted (holder.stats: DeviceLadderFallback, DeviceHostRouted,
+DeviceSigQuarantined). A kernel that cannot be built
+(kernels.KernelBuildError) is not a device fault and is never served
+one rung down: it raises out of execute. Nor is a real fault of a kernel
+on the card: the engine raises it as DeviceKernelFault, which no rung
+here catches; the rungs serve a CPU-device engine and injected faults.
 
 Not ported yet: key translation, cluster fan-out and write forwarding,
-the collective plane, the micro-batcher and the device-fault ladder; keys
-raise a QueryError saying so.
+the collective plane and the micro-batcher; keys raise a QueryError
+saying so.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 from dataclasses import dataclass
@@ -47,10 +62,13 @@ from .errors import (
     TooManyWritesError,
 )
 from .ops.bitplane import compose_bits
+from .parallel.device_health import DeviceDispatchError
 from .parallel.engine import ShardedQueryEngine
 from .pql import parser as pql_parser
 from .pql.ast import BETWEEN, GT, GTE, LT, LTE, NEQ, Call, Condition
 from .timeq import parse_timestamp, views_by_time_range
+
+log = logging.getLogger(__name__)
 
 DEFAULT_FIELD = "general"
 DEFAULT_MIN_THRESHOLD = 1
@@ -98,10 +116,12 @@ class ValCount:
 class Executor:
     def __init__(self, holder: Holder,
                  max_writes_per_request: int = MAX_WRITES_PER_REQUEST,
-                 engine_config=None):
+                 engine_config=None, tier_config=None, resilience_config=None):
         self.holder = holder
         self.max_writes_per_request = max_writes_per_request
-        self.engine = ShardedQueryEngine(holder, config=engine_config)
+        self.engine = ShardedQueryEngine(
+            holder, config=engine_config, tier_config=tier_config,
+            resilience_config=resilience_config)
 
     def close(self) -> None:
         self.engine.close()
@@ -169,27 +189,70 @@ class Executor:
 
     @staticmethod
     def _map_reduce(shards: List[int], map_fn: Callable, reduce_fn: Callable):
-        """The per-shard walk for trees the engine does not compile: one
-        shard at a time, reduced in shard order (None over no shards)."""
+        """The per-shard walk for trees the engine does not compile, and
+        the ladder's rung for device work with no host twin: one shard at
+        a time, reduced in shard order (None over no shards)."""
         result = None
         for shard in shards:
             v = map_fn(shard)
             result = v if result is None else reduce_fn(result, v)
         return result
 
+    def _count_stat(self, name: str) -> None:
+        """holder.stats.count guarded for library use (a holder opened
+        without stats counts nothing)."""
+        if self.holder.stats is not None:
+            self.holder.stats.count(name, 1)
+
+    def _fallback(self, what: str, e: DeviceDispatchError, rung: str) -> None:
+        self._count_stat("DeviceLadderFallback")
+        log.error("device %s dispatch failed (%s), serving it from the %s "
+                  "rung: %s", what, e.kind, rung, e)
+
+    def _batched_or_map_reduce(self, index: str, c: Call, shards: List[int],
+                               kind: str, map_fn: Callable, reduce_fn: Callable,
+                               child: Optional[Call] = None):
+        """One device program over all shards when the tree compiles
+        (kind "count" or "bitmap"), under the device-fault ladder: the
+        breakers route a quarantined signature to the per-shard walk and
+        an open plane to host execution before any device work, and a
+        dispatch that fails mid-request falls one rung down for this
+        query — the breakers make the routing sticky for the next."""
+        target = child if child is not None else c
+        plan = self._supports(index, target, shards)
+        if not plan:
+            return self._map_reduce(shards, map_fn, reduce_fn)
+        eng = self.engine
+        host_ok = kind == "count" and eng.host_supports(target)
+        route = eng.route(plan.sig_tuple)
+        if route == "shard":
+            self._count_stat("DeviceSigQuarantined")
+            return self._map_reduce(shards, map_fn, reduce_fn)
+        if route == "host":
+            self._count_stat("DeviceHostRouted")
+            if host_ok:
+                return eng.host_count(index, target, shards, plan=plan)
+            return self._map_reduce(shards, map_fn, reduce_fn)
+        try:
+            if kind == "count":
+                return eng.count(index, target, shards, plan=plan)
+            return eng.bitmap(index, target, shards, plan=plan)
+        except DeviceDispatchError as e:
+            self._fallback(kind, e, "host" if host_ok else "shard")
+            if host_ok:
+                return eng.host_count(index, target, shards, plan=plan)
+            return self._map_reduce(shards, map_fn, reduce_fn)
+
     # ------------------------------------------------------------- bitmaps
 
     def _execute_bitmap_call(self, index: str, c: Call, shards: List[int]) -> Row:
-        if self._supports(index, c, shards):
-            row = self.engine.bitmap(index, c, shards)
-        else:
-            def merge(prev: Row, v: Row) -> Row:
-                prev.merge(v)
-                return prev
+        def merge(prev: Row, v: Row) -> Row:
+            prev.merge(v)
+            return prev
 
-            row = self._map_reduce(
-                shards, lambda s: self._execute_bitmap_call_shard(index, c, s),
-                merge) or Row()
+        row = self._batched_or_map_reduce(
+            index, c, shards, "bitmap",
+            lambda s: self._execute_bitmap_call_shard(index, c, s), merge) or Row()
         if c.name == "Row":
             fld = self.holder.field(index, c.field_arg())
             if fld is not None:
@@ -308,11 +371,10 @@ class Executor:
         if len(c.children) > 1:
             raise QueryError("Count() only accepts a single bitmap input")
         child = c.children[0]
-        if self._supports(index, child, shards):
-            return self.engine.count(index, child, shards)
-        result = self._map_reduce(
-            shards, lambda s: self._execute_bitmap_call_shard(index, child, s).count(),
-            lambda a, b: a + b)
+        result = self._batched_or_map_reduce(
+            index, c, shards, "count",
+            lambda s: self._execute_bitmap_call_shard(index, child, s).count(),
+            lambda a, b: a + b, child=child)
         return int(result or 0)
 
     # --------------------------------------------------------- sum/min/max
@@ -327,17 +389,31 @@ class Executor:
         fld = self.holder.field(index, field_name)
         bsig = fld.bsi_group(field_name) if fld else None
         filter_call = c.children[0] if c.children else None
-        if bsig is not None and (self._supports(index, filter_call, shards)
-                                 if filter_call is not None else shards):
-            out = self.engine.bsi_val_count(
-                index, field_name, kind, bsig.bit_depth(), shards, filter_call)
-            result = self._compose_bsi_result(bsig, kind, out)
-        else:
-            reduce_fn = {"sum": ValCount.add, "min": ValCount.smaller,
-                         "max": ValCount.larger}[kind]
-            result = self._map_reduce(
+        reduce_fn = {"sum": ValCount.add, "min": ValCount.smaller,
+                     "max": ValCount.larger}[kind]
+
+        def walk() -> ValCount:
+            return self._map_reduce(
                 shards, lambda s: self._execute_val_count_shard(index, c, s, kind),
                 reduce_fn) or ValCount()
+
+        # The BSI scans are device programs with no host twin, so the
+        # per-shard walk is their whole degraded ladder: an open plane
+        # breaker takes it BEFORE any dispatch, and a dispatch failing
+        # mid-request takes it for this query.
+        if (bsig is not None
+                and (self._supports(index, filter_call, shards)
+                     if filter_call is not None else shards)
+                and self.engine.route() == "device"):
+            try:
+                out = self.engine.bsi_val_count(
+                    index, field_name, kind, bsig.bit_depth(), shards, filter_call)
+                result = self._compose_bsi_result(bsig, kind, out)
+            except DeviceDispatchError as e:
+                self._fallback("BSI", e, "shard")
+                result = walk()
+        else:
+            result = walk()
         if result.count == 0:
             return ValCount()
         return result
@@ -402,22 +478,60 @@ class Executor:
         if len(c.children) > 1:
             raise QueryError("TopN() can only have one input bitmap")
         src_call = c.children[0] if c.children else None
-        # Without a filter the host rank caches hold exact counts: the
-        # per-shard walk needs no device work, as in the JAX package.
-        if src_call is None or not self._supports(index, src_call, shards):
+
+        def walk() -> List[Pair]:
             return sort_pairs(self._map_reduce(
                 shards, lambda s: self._execute_topn_shard(index, c, s),
                 add_pairs) or [])
+
+        # Without a filter the host rank caches hold exact counts: the
+        # per-shard walk needs no device work, as in the JAX package.
+        if src_call is None or not self._supports(index, src_call, shards):
+            return walk()
         field_name = c.args.get("_field") or DEFAULT_FIELD
         thr = max(c.uint_arg("threshold")[0], DEFAULT_MIN_THRESHOLD)
         attr_name = c.args.get("attrName", "")
         attr_values = c.args.get("attrValues") or []
-        if ids:
-            return self._topn_candidates(index, field_name, ids, shards, src_call,
-                                         thr, tanimoto, attr_name, attr_values)
-        return self._topn_ranked(index, field_name, shards, src_call, TopOptions(
-            n=c.uint_arg("n")[0], min_threshold=thr, filter_name=attr_name,
-            filter_values=attr_values, tanimoto_threshold=tanimoto))
+        try:
+            if ids:
+                return self._topn_candidates(
+                    index, field_name, ids, shards, src_call, thr, tanimoto,
+                    attr_name, attr_values)
+            return self._topn_ranked(index, field_name, shards, src_call, TopOptions(
+                n=c.uint_arg("n")[0], min_threshold=thr, filter_name=attr_name,
+                filter_values=attr_values, tanimoto_threshold=tanimoto))
+        except DeviceDispatchError as e:
+            # Last rung: neither the device nor the host evaluator could
+            # serve the counts (a degraded plane and a source with no host
+            # twin, such as a BSI Range): the per-shard TopN walk.
+            self._fallback("TopN", e, "shard")
+            return walk()
+
+    def _topn_counts_laddered(self, index: str, field: str, ids, shards,
+                              src_call: Optional[Call], need_rc: bool):
+        """engine.topn_shard_counts under the device-fault ladder: an open
+        plane breaker (or a dispatch failure mid-request) answers the same
+        contract from host planes and numpy popcounts. When the source
+        has no host twin (BSI Range) the DeviceDispatchError propagates to
+        _execute_topn_shards, which takes the per-shard walk."""
+        eng = self.engine
+        host_ok = src_call is None or eng.host_supports(src_call)
+        if eng.route() == "device":
+            try:
+                return eng.topn_shard_counts(
+                    index, field, ids, shards, src_call, need_row_counts=need_rc)
+            except DeviceDispatchError as e:
+                if not host_ok:
+                    raise
+                self._fallback("TopN", e, "host")
+        elif not host_ok:
+            raise DeviceDispatchError(
+                "runtime", None,
+                "device plane degraded and TopN src is not host-executable")
+        else:
+            self._count_stat("DeviceHostRouted")
+        return eng.host_topn_shard_counts(
+            index, field, ids, shards, src_call, need_row_counts=need_rc)
 
     def _topn_candidates(self, index, field_name, ids, shards, src_call, thr,
                          tanimoto, attr_name, attr_values) -> List[Pair]:
@@ -437,8 +551,8 @@ class Executor:
         # Row counts only gate tanimoto and thresholds > 1; at thr <= 1
         # the count > 0 check below subsumes them.
         need_rc = bool(tanimoto) or thr > 1
-        row_counts, inter, src_counts = self.engine.topn_shard_counts(
-            index, field_name, ids, shards, src_call, need_row_counts=need_rc)
+        row_counts, inter, src_counts = self._topn_counts_laddered(
+            index, field_name, ids, shards, src_call, need_rc)
         pairs: Dict[int, int] = {}
         for ri, row_id in enumerate(ids):
             for si in range(len(shards)):
@@ -483,9 +597,8 @@ class Executor:
         chunk_rows = _topn_chunk(len(shard_list))
         for i in range(0, len(union), chunk_rows):
             chunk = union[i:i + chunk_rows]
-            _, inter, src_counts = self.engine.topn_shard_counts(
-                index, field_name, chunk, shard_list, src_call,
-                need_row_counts=False)
+            _, inter, src_counts = self._topn_counts_laddered(
+                index, field_name, chunk, shard_list, src_call, False)
             for si, s in enumerate(shard_list):
                 src_count_by_shard[s] = int(src_counts[si])
             for ri, r in enumerate(chunk):

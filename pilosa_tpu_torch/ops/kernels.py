@@ -132,6 +132,13 @@ _lib = None
 BUILD_LOG = ""
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library could not be built or loaded. Not a device
+    fault: the engine's dispatch guard re-raises it untouched (no
+    classification, no breaker record, no fallback rung), so a broken
+    build stops the caller instead of being answered on the host."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -139,7 +146,7 @@ def _nvcc() -> str:
     cand = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelBuildError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def build(force: bool = False) -> float:
@@ -155,9 +162,12 @@ def build(force: bool = False) -> float:
     tmp = f"{LIBRARY}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise KernelBuildError(f"cannot run nvcc ({cmd[0]}): {e}") from e
     if proc.returncode != 0:
-        raise RuntimeError(
+        raise KernelBuildError(
             f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, LIBRARY)
     BUILD_LOG = proc.stdout + proc.stderr
@@ -165,14 +175,18 @@ def build(force: bool = False) -> float:
 
 
 def load():
-    """The bound library, building it first if needed. Raises when it can
-    neither be built nor loaded — there is no fallback for CUDA tensors."""
+    """The bound library, building it first if needed. Raises
+    KernelBuildError when it can neither be built nor loaded — there is
+    no fallback for CUDA tensors."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
         build()
-        lib = ctypes.CDLL(LIBRARY)
+        try:
+            lib = ctypes.CDLL(LIBRARY)
+        except OSError as e:
+            raise KernelBuildError(f"cannot load {LIBRARY}: {e}") from e
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.pt_k1_streaming.argtypes = [vp, i64, vp, i32, vp, i32, i32, vp, vp]
         lib.pt_k1_streaming.restype = i32

@@ -5,21 +5,49 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 
-# Counterpart of pilosa_tpu/parallel/__init__.py's EngineConfig, holding
-# only the knobs this engine reads. The delta-refresh, memo, tiering,
-# device-fault and collective knobs come with the slices that read them.
+# Counterpart of pilosa_tpu/parallel/__init__.py's EngineConfig, with the
+# same defaults and env spellings (PILOSA_TPU_ENGINE_*, read by the engine
+# when no config is passed), but for gather_workers (below).
+# `mesh_devices` and the collective section come with the multi-GPU slice,
+# `delta_journal_ops` with the server slice that copies it into Holder.
 @dataclass
 class EngineConfig:
-    """Device-cache knobs for ShardedQueryEngine.
+    """Device-cache, memo, refresh and fault knobs for ShardedQueryEngine.
 
-    leaf_cache_bytes, stack_cache_bytes: cache budgets (0 = auto: the
-        PILOSA_LEAF_CACHE_BYTES / PILOSA_STACK_CACHE_BYTES env override if
-        set, else the platform default).
-    plan_cache: 1 caches each Call tree's canonical plan (signature + leaf
-        slots + lowered expression, plan/signature.py) on the Call object,
-        keyed by the index's write epoch. 0 recompiles every time.
+    delta_max_fraction: a stale resident plane/stack is refreshed by a
+        small scattered update (indices + values host -> device) only
+        while the changed 32-bit words stay under this fraction of the
+        tensor; past it the full regather path wins. 0 disables the
+        delta path.
+    gather_workers: threads for the cold-path per-shard host container
+        walks (1 = serial, the default; 0 = auto-size to the CPU count, at
+        most 8). The reference defaults to 0. The port defaults to serial
+        because its container walk holds the GIL: on the pool each plane
+        took 4-5x longer than serially on the H100's host (PERF.md).
+    leaf_cache_bytes, stack_cache_bytes, memo_entries, aux_memo_entries:
+        cache bounds (0 = auto). Auto means: the env override
+        (PILOSA_LEAF_CACHE_BYTES / PILOSA_STACK_CACHE_BYTES /
+        PILOSA_MEMO_ENTRIES / PILOSA_AUX_MEMO_ENTRIES) if set, else the
+        [tier] hbm-bytes split (byte budgets only), else the platform
+        default. A nonzero config value loses only to the env variable.
+    dispatch_watchdog: seconds a device dispatch may block before the
+        watchdog frees the serving thread and the failure is classified
+        `timeout` into the device breakers (0 disables).
+    cold_host_count: 1 answers a one-off Count whose leaves are ALL
+        demoted to the host tier directly from the compressed bytes on
+        the host; the second touch of the same leaf set promotes. 0
+        disables.
+    plan_cache: 1 caches each Call tree's canonical plan (signature +
+        leaf slots + lowered expression, plan/signature.py) on the Call
+        object, keyed by the index's write epoch. 0 recompiles every time.
     """
 
+    delta_max_fraction: float = 0.25
+    gather_workers: int = 1
     leaf_cache_bytes: int = 0
     stack_cache_bytes: int = 0
+    memo_entries: int = 0
+    aux_memo_entries: int = 0
+    dispatch_watchdog: float = 0.0
+    cold_host_count: int = 1
     plan_cache: int = 1

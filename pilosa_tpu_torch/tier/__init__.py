@@ -1,0 +1,85 @@
+"""Tiered plane storage: HBM ↔ host-RAM ↔ disk residency management.
+
+The engine's device caches (parallel/engine.py `_leaf_cache` /
+`_stack_cache`) are the TOP tier of a three-tier hierarchy owned by
+`tier.manager.TierManager`. Eviction from HBM is a *demotion*: the plane
+is kept container-compressed in host RAM (the roaring serialization from
+storage/bitmap.py, 10-100x smaller than the dense words) and, under host
+pressure, spilled to a disk directory with fingerprint-validated
+readback. Promotion materializes dense words from the compressed form and
+folds any per-fragment dirty-word journal deltas accumulated while the
+plane was demoted — a write landing on a demoted plane costs O(changed
+words) at promotion time, never a full regather, as long as the journal
+can answer. See docs/tiered-storage.md.
+
+A jax-free copy of pilosa_tpu/tier/__init__.py: the port's engine
+(parallel/engine.py) owns the device caches above it.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+_ENV = "PILOSA_TPU_TIER_"
+
+
+@dataclass
+class TierConfig:
+    """Residency budgets + prefetch policy for the tier manager.
+
+    hbm_bytes: combined budget for the engine's device caches; when > 0
+        it is split evenly between the leaf and stack caches unless an
+        [engine] budget or legacy env var names one explicitly. 0 keeps
+        the engine's platform default.
+    host_bytes: budget for container-compressed demoted planes held in
+        host RAM. 0 disables the host tier (and with disk_bytes 0, the
+        whole manager: eviction reverts to drop-and-regather).
+    disk_bytes: budget for compressed planes spilled to disk; 0 disables
+        the disk tier.
+    disk_path: spill directory. Empty + disk_bytes > 0 defaults to
+        <data-dir>/tier-spill when a server resolves the config; a
+        library engine with no path disables the disk tier.
+    prefetch_interval: seconds between background prefetch sweeps that
+        re-promote demoted planes of traffic-hot indexes into free HBM
+        headroom. 0 disables the prefetch thread.
+    prefetch_batch: max planes promoted per sweep.
+    """
+
+    hbm_bytes: int = 0
+    host_bytes: int = 1 << 28
+    disk_bytes: int = 0
+    disk_path: str = ""
+    prefetch_interval: float = 0.2
+    prefetch_batch: int = 4
+
+    @classmethod
+    def from_env(cls) -> "TierConfig":
+        """Env-only resolution for library/test/bench engines constructed
+        without a Config (same spellings config.py maps for [tier])."""
+        c = cls()
+        for attr, name, cast in [
+            ("hbm_bytes", "HBM_BYTES", int),
+            ("host_bytes", "HOST_BYTES", int),
+            ("disk_bytes", "DISK_BYTES", int),
+            ("disk_path", "DISK_PATH", str),
+            ("prefetch_interval", "PREFETCH_INTERVAL", float),
+            ("prefetch_batch", "PREFETCH_BATCH", int),
+        ]:
+            v = os.environ.get(_ENV + name)
+            if v is not None:
+                setattr(c, attr, cast(v))
+        return c
+
+    def validate(self) -> "TierConfig":
+        if self.hbm_bytes < 0 or self.host_bytes < 0 or self.disk_bytes < 0:
+            raise ValueError("[tier] byte budgets must be >= 0")
+        if self.prefetch_interval < 0:
+            raise ValueError("[tier] prefetch-interval must be >= 0")
+        if self.prefetch_batch < 1:
+            raise ValueError("[tier] prefetch-batch must be >= 1")
+        return self
+
+    def enabled(self) -> bool:
+        return self.host_bytes > 0 or (
+            self.disk_bytes > 0 and bool(self.disk_path))

@@ -1,0 +1,581 @@
+"""TierManager: plane residency across HBM ↔ compressed host RAM ↔ disk.
+
+The engine's device caches are the top tier; this manager owns the two
+below. Evicting a leaf plane from HBM *demotes* it: the manager snapshots
+the row's containers from the live fragments (Fragment.row_compressed,
+under the fragment mutex so no torn forms) and keeps the roaring bytes in
+host RAM — typically 10-100x smaller than the dense (S, W) words. Under
+host pressure the LRU entry spills to a disk file with a CRC-framed
+header; under disk pressure the oldest spill is dropped (back to
+drop-and-regather for that plane only).
+
+Promotion is the reverse: decode the compressed bytes straight into the
+dense plane buffer (storage/bitmap.decode_plane_words — one streaming
+pass, no container objects) and, when the fragment moved on while the
+plane was demoted, fold the per-fragment dirty-word journal into the
+decoded words (O(changed words)). Only when a journal cannot answer
+(overflow, bulk import, fragment recreated) does a single shard fall back
+to a live container walk; the other shards still decode. A corrupt spill
+file is deleted and counted, and the caller regathers — corruption is
+never a query error.
+
+A background prefetch thread re-promotes demoted planes of traffic-hot
+indexes (the scheduler's per-index query counters) into free HBM
+headroom, so a predicted-hot plane is resident before the query arrives.
+Prefetch never evicts: it stops at the headroom boundary rather than
+thrashing the working set it is trying to serve.
+
+A jax-free copy of pilosa_tpu/tier/manager.py (tracing spans are
+no-ops here).
+
+Locking: one manager lock guards the host/disk maps and counters. It is
+never held while calling into the engine, and fragment mutexes are only
+taken with the manager lock released (demotion snapshots before
+installing), so the engine-lock -> manager-lock order can't invert.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import json
+import os
+import struct
+import threading
+import time as _time
+import zlib
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..constants import WORDS_PER_ROW
+from ..storage.bitmap import decode_plane_words
+from . import TierConfig
+
+# The port has no tracing layer yet: the span call sites stay as they are
+# and record nothing (as in plan/signature.py).
+NOP_SPAN = None
+
+
+@contextlib.contextmanager
+def obs_span(name: str, **tags):
+    yield NOP_SPAN
+
+_SPILL_MAGIC = b"PTSP1\n"
+
+
+class _PlaneEntry:
+    """One demoted plane: per-shard compressed row images + the
+    fingerprints they are exact at (-1 = shard had no fragment)."""
+
+    __slots__ = ("fps", "blobs", "nbytes")
+
+    def __init__(self, fps: List, blobs: List[Optional[bytes]]):
+        self.fps = fps
+        self.blobs = blobs
+        self.nbytes = sum(len(b) for b in blobs if b is not None)
+
+
+class TierManager:
+    def __init__(self, holder, config: Optional[TierConfig] = None,
+                 traffic_fn: Optional[Callable[[], Dict[str, int]]] = None,
+                 logger=None):
+        self.holder = holder
+        self.config = (config or TierConfig()).validate()
+        self._traffic_fn = traffic_fn
+        self.logger = logger
+        self._lock = threading.Lock()
+        # key (index, Leaf, shards) -> _PlaneEntry; dict order is LRU
+        # (oldest first), matching the engine's device caches.
+        self._host: Dict[Tuple, _PlaneEntry] = {}
+        self._host_bytes = 0
+        # key -> (filename, nbytes); dict order is spill LRU.
+        self._disk: Dict[Tuple, Tuple[str, int]] = {}
+        self._disk_bytes = 0
+        self._disk_dir = self.config.disk_path or ""
+        self._disk_on = bool(self._disk_dir) and self.config.disk_bytes > 0
+        # Keys installed into HBM by the prefetcher; the first real query
+        # probe that hits one counts as a prefetch hit.
+        self._prefetched: set = set()
+        self.counters: Dict[str, int] = {
+            "demotions_host": 0, "demotions_disk": 0, "demotions_dropped": 0,
+            "demotions_skipped": 0,
+            "promotions_host": 0, "promotions_disk": 0,
+            "delta_folds": 0, "shard_walks": 0, "corrupt_spills": 0,
+            "disk_evictions": 0,
+            "prefetch_promotions": 0, "prefetch_hits": 0,
+            # Swallowed-by-design failures (pilint R1): each has a correct
+            # fallback (retry later / treat shard as absent / skip the
+            # sweep), so the count is the only externally visible trace.
+            "demote_errors": 0, "capture_errors": 0, "prefetch_errors": 0,
+        }
+        # Engine-bound callables, wired by bind(): promote a key into HBM,
+        # report free HBM bytes, and test HBM residency.
+        self._promote_fn = None
+        self._headroom_fn = None
+        self._resident_fn = None
+        self._stop = threading.Event()
+        self._prefetch_thread: Optional[threading.Thread] = None
+        # Demotion queue: eviction must not make the EVICTING QUERY pay
+        # the O(row bytes) container serialization, so demote() only
+        # enqueues and a background worker does the capture. A re-touch
+        # racing the queue simply misses the tier (one regather — never
+        # wrong, and the snapshot-from-live-fragments design means the
+        # late capture is still exact at its own fingerprint).
+        self._demote_cv = threading.Condition(self._lock)
+        self._demote_queue: List = []
+        self._demote_pending: set = set()
+        self._demote_busy = 0
+        self._demote_thread: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------------ lifecycle
+
+    def bind(self, promote_fn, headroom_fn, resident_fn) -> None:
+        """Wire the owning engine's promotion hooks (engine construction
+        order: the manager exists before the engine finishes __init__)."""
+        self._promote_fn = promote_fn
+        self._headroom_fn = headroom_fn
+        self._resident_fn = resident_fn
+
+    def close(self) -> None:
+        self._stop.set()
+        with self._demote_cv:
+            self._demote_cv.notify_all()
+        for t in (self._prefetch_thread, self._demote_thread):
+            if t is not None and t.is_alive():
+                t.join(timeout=2.0)
+
+    def _ensure_prefetch(self) -> None:
+        """Start the prefetch thread lazily, on the first demotion — an
+        engine that never feels HBM pressure never grows a thread. Daemon:
+        close() stops it, but an unclosed library engine must not pin the
+        interpreter."""
+        if (self.config.prefetch_interval <= 0 or self._promote_fn is None
+                or self._prefetch_thread is not None or self._stop.is_set()):
+            return
+        t = threading.Thread(
+            target=self._prefetch_loop, name="pilosa-tier-prefetch",
+            daemon=True)
+        self._prefetch_thread = t
+        t.start()
+
+    # ------------------------------------------------------------- demotion
+
+    def demote(self, key) -> bool:
+        """Queue `key` for demotion into the host tier. Called by the
+        engine AFTER the HBM eviction, outside the engine lock; O(1) —
+        the background worker does the fragment snapshot + serialization
+        so the evicting query never pays it. Returns False when the
+        manager is closed."""
+        if self._stop.is_set():
+            return False
+        start = None
+        with self._demote_cv:
+            if key not in self._demote_pending:
+                self._demote_pending.add(key)
+                self._demote_queue.append(key)
+                self._demote_cv.notify()
+            if self._demote_thread is None:
+                start = self._demote_thread = threading.Thread(
+                    target=self._demote_loop, name="pilosa-tier-demote",
+                    daemon=True)
+        if start is not None:
+            start.start()
+        return True
+
+    def _demote_loop(self) -> None:
+        while True:
+            with self._demote_cv:
+                while not self._demote_queue and not self._stop.is_set():
+                    self._demote_cv.wait()
+                if self._stop.is_set():
+                    return
+                key = self._demote_queue.pop(0)
+                self._demote_pending.discard(key)
+                self._demote_busy += 1
+            try:
+                self._demote_now(key)
+            except Exception:
+                # The plane stays cold (next read regathers from the
+                # fragments); the worker must survive to drain the queue.
+                with self._lock:
+                    self.counters["demote_errors"] += 1
+            finally:
+                with self._demote_cv:
+                    self._demote_busy -= 1
+                    self._demote_cv.notify_all()
+
+    def drain(self, timeout: float = 10.0) -> bool:
+        """Block until every queued demotion has been captured (tests and
+        the bench use this to make demotion visible deterministically)."""
+        deadline = _time.monotonic() + timeout
+        with self._demote_cv:
+            while self._demote_queue or self._demote_busy:
+                left = deadline - _time.monotonic()
+                if left <= 0 or self._stop.is_set():
+                    return not (self._demote_queue or self._demote_busy)
+                self._demote_cv.wait(timeout=left)
+        return True
+
+    def _demote_now(self, key) -> bool:
+        """Capture `key`'s plane into the host tier from the LIVE
+        fragments (the evicted device array is simply dropped — the
+        fragments are the source of truth and the snapshot picks up any
+        writes the HBM entry hadn't seen).
+
+        The host tier is INCLUSIVE: promotion leaves the compressed image
+        in place (it is 10-100x smaller than the dense plane, so holding
+        both costs little), which makes the read-churn steady state —
+        evict, re-promote, evict again with nothing written in between —
+        demote in O(shards) fingerprint compares instead of re-serializing
+        an identical image every cycle. Only shards whose (incarnation,
+        generation) moved since the held image get recaptured."""
+        if self._stop.is_set():
+            return False
+        index, leaf, shards = key
+        with self._lock:
+            prev = self._host.get(key)
+        fps: List = []
+        blobs: List[Optional[bytes]] = []
+        any_data = False
+        captured = 0
+        for i, s in enumerate(shards):
+            frag = self.holder.fragment(index, leaf.field, leaf.view, s)
+            if frag is None:
+                fps.append(-1)
+                blobs.append(None)
+                continue
+            cur = (frag.incarnation, frag.generation)
+            if (prev is not None and i < len(prev.fps)
+                    and prev.fps[i] == cur and prev.blobs[i] is not None):
+                fps.append(cur)
+                blobs.append(prev.blobs[i])  # bytes are immutable: share
+                any_data = True
+                continue
+            try:
+                data, fp = frag.row_compressed(leaf.row)
+            except Exception:
+                # Fragment racing a delete/close reads as absent — the
+                # tier entry just omits this shard and promotion walks it.
+                with self._lock:
+                    self.counters["capture_errors"] += 1
+                fps.append(-1)
+                blobs.append(None)
+                continue
+            fps.append(fp)
+            blobs.append(data)
+            any_data = True
+            captured += 1
+        if not any_data:
+            return False
+        if not captured and prev is not None and len(prev.fps) == len(shards):
+            with self._lock:
+                if key in self._host:  # still exact: just LRU-touch it
+                    self._host[key] = self._host.pop(key)
+                    self.counters["demotions_skipped"] += 1
+                    return True
+        ent = _PlaneEntry(fps, blobs)
+        spill = []
+        with self._lock:
+            prev = self._host.pop(key, None)
+            if prev is not None:
+                self._host_bytes -= prev.nbytes
+            self._drop_disk_locked(key)  # exclusive: one tier per key
+            if ent.nbytes > self.config.host_bytes:
+                # Oversized for the whole host tier: straight to disk (or
+                # dropped) rather than evicting every other entry.
+                spill.append((key, ent))
+            else:
+                self._host[key] = ent
+                self._host_bytes += ent.nbytes
+                self.counters["demotions_host"] += 1
+                while self._host_bytes > self.config.host_bytes:
+                    old_key, old = next(iter(self._host.items()))
+                    del self._host[old_key]
+                    self._host_bytes -= old.nbytes
+                    spill.append((old_key, old))
+        for skey, sent in spill:
+            self._spill(skey, sent)
+        self._ensure_prefetch()
+        return True
+
+    # ----------------------------------------------------------- disk spill
+
+    def _spill_path(self, key) -> str:
+        index, leaf, shards = key
+        h = hashlib.sha1(repr((index, tuple(leaf), shards)).encode())
+        return os.path.join(self._disk_dir, h.hexdigest() + ".plane")
+
+    def _spill(self, key, ent: _PlaneEntry) -> None:
+        """Write one entry to its spill file and record it in the disk
+        map. Called WITHOUT the manager lock: the file write is the slow
+        part and must never stall concurrent promotes/demotes — only the
+        map update takes the lock."""
+        if not self._disk_on:
+            with self._lock:
+                self.counters["demotions_dropped"] += 1
+            return
+        index, leaf, shards = key
+        header = json.dumps({
+            "index": index, "field": leaf.field, "view": leaf.view,
+            "row": leaf.row, "shards": list(shards),
+            "fps": [list(fp) if fp != -1 else -1 for fp in ent.fps],
+            "lens": [len(b) if b is not None else -1 for b in ent.blobs],
+        }).encode()
+        body = _SPILL_MAGIC + struct.pack("<I", len(header)) + header
+        body += b"".join(b for b in ent.blobs if b is not None)
+        body += struct.pack("<I", zlib.crc32(body))
+        path = self._spill_path(key)
+        try:
+            os.makedirs(self._disk_dir, exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(body)
+            os.replace(tmp, path)
+        except OSError as e:
+            if self.logger:
+                self.logger.debug("tier spill failed: %s", e)
+            with self._lock:
+                self.counters["demotions_dropped"] += 1
+            return
+        with self._lock:
+            prev = self._disk.pop(key, None)
+            if prev is not None:
+                self._disk_bytes -= prev[1]
+            self._disk[key] = (path, len(body))
+            self._disk_bytes += len(body)
+            self.counters["demotions_disk"] += 1
+            while self._disk_bytes > self.config.disk_bytes and self._disk:
+                old_key = next(iter(self._disk))
+                self._drop_disk_locked(old_key)
+                self.counters["disk_evictions"] += 1
+
+    def _drop_disk_locked(self, key) -> None:
+        ent = self._disk.pop(key, None)
+        if ent is None:
+            return
+        self._disk_bytes -= ent[1]
+        try:
+            os.remove(ent[0])
+        except OSError:
+            pass
+
+    def _load_spill(self, key, path: str) -> Optional[_PlaneEntry]:
+        """Read back + validate one spill file; any failure (missing,
+        truncated, CRC mismatch, identity mismatch) deletes the file and
+        returns None — the caller regathers, never errors. Called WITHOUT
+        the manager lock (the caller already claimed the disk-map entry):
+        the read must not stall concurrent tier traffic."""
+        index, leaf, shards = key
+        try:
+            with open(path, "rb") as f:
+                body = f.read()
+            if (len(body) < len(_SPILL_MAGIC) + 8
+                    or not body.startswith(_SPILL_MAGIC)):
+                raise ValueError("bad spill frame")
+            (crc,) = struct.unpack_from("<I", body, len(body) - 4)
+            if crc != zlib.crc32(body[:-4]):
+                raise ValueError("spill crc mismatch")
+            (hlen,) = struct.unpack_from("<I", body, len(_SPILL_MAGIC))
+            hoff = len(_SPILL_MAGIC) + 4
+            hdr = json.loads(body[hoff : hoff + hlen])
+            if (hdr["index"] != index or hdr["field"] != leaf.field
+                    or hdr["view"] != leaf.view or hdr["row"] != leaf.row
+                    or tuple(hdr["shards"]) != tuple(shards)):
+                raise ValueError("spill identity mismatch")
+            fps = [tuple(fp) if fp != -1 else -1 for fp in hdr["fps"]]
+            blobs: List[Optional[bytes]] = []
+            pos = hoff + hlen
+            for ln in hdr["lens"]:
+                if ln < 0:
+                    blobs.append(None)
+                    continue
+                blobs.append(body[pos : pos + ln])
+                pos += ln
+            if pos != len(body) - 4 or len(fps) != len(shards):
+                raise ValueError("spill payload length mismatch")
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            with self._lock:
+                self.counters["corrupt_spills"] += 1
+            if self.logger:
+                self.logger.error("corrupt tier spill for %s: %s", key, e)
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            return None
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+        return _PlaneEntry(fps, blobs)
+
+    # ------------------------------------------------------------ promotion
+
+    def promote(self, key, frags, fingerprint, s_padded: int,
+                ) -> Optional[np.ndarray]:
+        """Materialize `key`'s plane as an (s_padded, WORDS_PER_ROW)
+        uint32 buffer from the host or disk tier, folding journal deltas
+        up to `fingerprint` (the CURRENT per-shard fps the caller just
+        read). None = not demoted here (or unusable): caller regathers.
+        The host tier is inclusive: the compressed image STAYS (so the
+        next eviction of an unwritten plane demotes without serializing);
+        a disk promotion moves the image up into the host tier."""
+        disk_ref = None
+        with self._lock:
+            ent = self._host.get(key)
+            if ent is not None:
+                self._host[key] = self._host.pop(key)  # LRU touch
+                self.counters["promotions_host"] += 1
+            else:
+                # Claim the disk-map entry under the lock; the file read
+                # happens OUTSIDE it (a slow disk must not stall every
+                # concurrent tier probe behind one cold promotion).
+                disk_ref = self._disk.pop(key, None)
+                if disk_ref is not None:
+                    self._disk_bytes -= disk_ref[1]
+        if ent is None and disk_ref is not None:
+            ent = self._load_spill(key, disk_ref[0])
+            if ent is not None:
+                spill = []
+                with self._lock:
+                    self.counters["promotions_disk"] += 1
+                    # Inclusive move up into the host tier.
+                    if ent.nbytes <= self.config.host_bytes:
+                        self._host[key] = ent
+                        self._host_bytes += ent.nbytes
+                        while self._host_bytes > self.config.host_bytes:
+                            old_key, old = next(iter(self._host.items()))
+                            del self._host[old_key]
+                            self._host_bytes -= old.nbytes
+                            spill.append((old_key, old))
+                for skey, sent in spill:
+                    self._spill(skey, sent)
+        if ent is None or len(ent.fps) != len(frags):
+            return None
+        # Traced from here (not the quick miss-probe above): the span
+        # measures the decode + journal-fold cost a promotion actually
+        # paid, which is the number a slow-query breakdown needs.
+        with obs_span("tier.promote", shards=len(frags)) as sp:
+            buf = self._decode_promoted(key, ent, frags, fingerprint,
+                                        s_padded, sp)
+        return buf
+
+    def _decode_promoted(self, key, ent, frags, fingerprint, s_padded, sp):
+        index, leaf, shards = key
+        buf = np.zeros((s_padded, WORDS_PER_ROW), dtype=np.uint32)
+        walks = folds = 0
+        for i, frag in enumerate(frags):
+            new_fp = fingerprint[i]
+            if new_fp == -1:
+                continue  # fragment gone: reads as zero, like a cold gather
+            old_fp, blob = ent.fps[i], ent.blobs[i]
+            if old_fp == -1 or blob is None or old_fp[0] != new_fp[0]:
+                # Shard appeared, or the fragment was recreated since the
+                # demotion: this one shard walks its live containers.
+                buf[i] = frag.plane_np(leaf.row)
+                walks += 1
+                continue
+            try:
+                words = decode_plane_words(blob, WORDS_PER_ROW // 2)
+            except Exception:
+                with self._lock:
+                    self.counters["corrupt_spills"] += 1
+                buf[i] = frag.plane_np(leaf.row)
+                walks += 1
+                continue
+            if old_fp[1] != new_fp[1]:
+                w = frag.dirty_words_since(leaf.row, old_fp[1])
+                if w is None:
+                    buf[i] = frag.plane_np(leaf.row)
+                    walks += 1
+                    continue
+                if len(w):
+                    words[w] = frag.row_words64(leaf.row, w)
+                folds += 1
+            buf[i] = words.view(np.uint32)
+        if walks or folds:
+            with self._lock:
+                self.counters["shard_walks"] += walks
+                self.counters["delta_folds"] += folds
+        if sp is not NOP_SPAN and (walks or folds):
+            sp.tag(walks=walks, folds=folds)
+        return buf
+
+    def has(self, key) -> bool:
+        """True when `key`'s plane is held in the host or disk tier — the
+        engine's compressed-domain cold path (host_cold_counts) asks this
+        before deciding a Count can skip decode + device_put entirely."""
+        with self._lock:
+            return key in self._host or key in self._disk
+
+    def note_hbm_hit(self, key) -> None:
+        """Called by the engine on a leaf-cache probe hit: the first hit
+        on a prefetched key is the prefetch paying off."""
+        with self._lock:
+            if key in self._prefetched:
+                self._prefetched.discard(key)
+                self.counters["prefetch_hits"] += 1
+
+    def has_prefetched(self) -> bool:
+        return bool(self._prefetched)
+
+    # ------------------------------------------------------------- prefetch
+
+    def _prefetch_loop(self) -> None:
+        prev_traffic: Dict[str, int] = {}
+        while not self._stop.wait(self.config.prefetch_interval):
+            traffic = None
+            if self._traffic_fn is not None:
+                try:
+                    traffic = self._traffic_fn()
+                except Exception:
+                    # Traffic is advisory: the sweep falls back to the
+                    # untargeted MRU order.
+                    with self._lock:
+                        self.counters["prefetch_errors"] += 1
+                    traffic = None
+            with self._lock:
+                # MRU-first host keys, then disk: the most recently used
+                # demoted planes of hot indexes promote first.
+                cands = list(reversed(list(self._host))) + list(self._disk)
+            if traffic is not None:
+                hot = {i for i, n in traffic.items()
+                       if n > prev_traffic.get(i, 0)}
+                prev_traffic = traffic
+                cands = [k for k in cands if k[0] in hot]
+            promoted = 0
+            for key in cands:
+                if self._stop.is_set() or promoted >= self.config.prefetch_batch:
+                    break
+                if self._resident_fn is not None and self._resident_fn(key):
+                    continue
+                plane_bytes = len(key[2]) * WORDS_PER_ROW * 4
+                if (self._headroom_fn is not None
+                        and self._headroom_fn() < plane_bytes):
+                    break  # never evict to prefetch
+                try:
+                    ok = self._promote_fn(key)
+                except Exception:
+                    with self._lock:
+                        self.counters["prefetch_errors"] += 1
+                    ok = False
+                if ok:
+                    with self._lock:
+                        self._prefetched.add(key)
+                        self.counters["prefetch_promotions"] += 1
+                    promoted += 1
+
+    # ---------------------------------------------------------------- stats
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = dict(self.counters)
+            out["host_bytes"] = self._host_bytes
+            out["host_entries"] = len(self._host)
+            out["disk_bytes"] = self._disk_bytes
+            out["disk_entries"] = len(self._disk)
+        out["host_budget"] = self.config.host_bytes
+        out["disk_budget"] = self.config.disk_bytes
+        out["prefetch_interval"] = self.config.prefetch_interval
+        return out

@@ -23,6 +23,7 @@ from pilosa_tpu.core.field import FieldOptions
 from pilosa_tpu.parallel import EngineConfig
 from pilosa_tpu.pql.parser import parse as jax_parse
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.parallel import EngineConfig as TorchEngineConfig
 from pilosa_tpu_torch.pql.parser import parse as torch_parse
 
 N_SHARDS = 3
@@ -87,7 +88,10 @@ def open_pair(data_dir, dst):
     th.open()
     jex = pilosa_tpu.Executor(
         jh, workers=0, engine_config=EngineConfig(gather_workers=1))
-    tex = pilosa_tpu_torch.Executor(th)
+    # One gather thread on both sides, as on the JAX side: a module-scoped
+    # pair must not start the engine's gather pool inside a test.
+    tex = pilosa_tpu_torch.Executor(
+        th, engine_config=TorchEngineConfig(gather_workers=1))
     return jh, th, jex, tex
 
 

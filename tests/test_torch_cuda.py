@@ -378,3 +378,152 @@ def test_bsi_executor_on_card_matches_cpu(cuda_device):
     for ex, h in zip(exs, holders):
         ex.close()
         h.close()
+
+
+# ------------------------- delta refresh, OOM and build failures on the card
+
+
+def _planted_card_holder(n_rows=6, n_shards=3):
+    h = pilosa_tpu_torch.Holder(None)
+    h.open()
+    fld = h.create_index("i").create_field("f")
+    r = np.random.default_rng(403)
+    for row in range(n_rows):
+        cols = r.choice(n_shards * SHARD_WIDTH, 4000, replace=False)
+        fld.import_bits([row] * len(cols), [int(c) for c in cols])
+    return h, fld
+
+
+def test_delta_scatter_on_card_equals_rebuilt_stack(cuda_device):
+    """A one-bit Set and a cleared bit on resident leaves refresh the CUDA
+    stack by a scatter into a clone; it equals a stack rebuilt from the
+    host planes by a fresh engine, and no full refresh ran."""
+    from pilosa_tpu_torch.parallel.engine import Leaf, ShardedQueryEngine
+
+    h, fld = _planted_card_holder()
+    shards = (0, 1, 2)
+    leaves = [Leaf("f", "standard", r) for r in range(6)]
+    eng = ShardedQueryEngine(h)
+    fresh = None
+    try:
+        old = eng._stacked_leaf_tensor("i", leaves, shards)
+        assert old.is_cuda
+        kept = old.clone()
+        base = eng.snapshot()
+        assert fld.set_bit(2, SHARD_WIDTH + 12345)
+        plane = h.fragment("i", "f", "standard", 2).plane_np(4)
+        first = int(np.flatnonzero(np.unpackbits(plane.view(np.uint8),
+                                                 bitorder="little"))[0])
+        assert fld.clear_bit(4, 2 * SHARD_WIDTH + first)
+        new = eng._stacked_leaf_tensor("i", leaves, shards)
+        snap = eng.snapshot()
+        assert snap["stack_delta_hits"] == base["stack_delta_hits"] + 1
+        assert snap["full_refresh_bytes"] == base["full_refresh_bytes"]
+        assert 0 < snap["delta_bytes"] - base["delta_bytes"] <= 1024
+        # Functional: a reader holding the old tensor still reads it.
+        assert torch.equal(old, kept) and not torch.equal(old, new)
+        fresh = ShardedQueryEngine(h)
+        rebuilt = fresh._stacked_leaf_tensor("i", leaves, shards)
+        torch.cuda.synchronize()
+        assert torch.equal(new, rebuilt)
+        host = np.stack([[h.fragment("i", "f", "standard", s).plane_np(leaf.row)
+                          for s in shards] for leaf in leaves])
+        assert torch.equal(new.cpu(), t32(host))
+    finally:
+        eng.close()
+        if fresh is not None:
+            fresh.close()
+        h.close()
+
+
+def test_cuda_oom_classifies_oom(cuda_device):
+    """A real allocation past the card's memory raises
+    torch.cuda.OutOfMemoryError, which classifies as `oom`; through the
+    engine's dispatch guard it gets backpressure and one retry, then
+    escapes as DeviceKernelFault, which no rung of the ladder catches."""
+    from pilosa_tpu_torch.parallel.device_health import (DeviceDispatchError,
+                                                          DeviceKernelFault,
+                                                          classify_device_error)
+    from pilosa_tpu_torch.parallel.engine import ShardedQueryEngine
+
+    total = torch.cuda.mem_get_info()[1]
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device=cuda_device)
+    assert classify_device_error(ei.value) == "oom"
+    h, _ = _planted_card_holder(n_rows=1, n_shards=1)
+    eng = ShardedQueryEngine(h)
+    try:
+        with pytest.raises(DeviceKernelFault) as de:
+            eng._device_call(None, lambda: torch.empty(
+                total + (1 << 30), dtype=torch.uint8, device=cuda_device))
+        assert de.value.kind == "oom"
+        assert not isinstance(de.value, DeviceDispatchError)
+        snap = eng.snapshot()
+        assert snap["oom_backpressure"] == 1 and snap["oom_retries"] == 0
+        assert snap["kernel_faults"] == 1
+        assert eng.device_health.snapshot()["failures_oom"] == 1
+    finally:
+        eng.close()
+        h.close()
+        torch.cuda.empty_cache()
+
+
+def test_build_failure_raises_through_engine(cuda_device, monkeypatch, tmp_path):
+    """nvcc missing and no library built: the first launch raises
+    KernelBuildError out of Executor.execute; it is not answered on the
+    host or by the per-shard walk, and device_dispatch_errors stays 0."""
+    h, _ = _planted_card_holder(n_rows=2, n_shards=2)
+    ex = pilosa_tpu_torch.Executor(h)
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "LIBRARY", str(tmp_path / "build" / "lib.so"))
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(tmp_path / "no-such-nvcc"))
+    monkeypatch.setattr(kernels, "_lib", None)
+    try:
+        for q in ("Count(Intersect(Row(f=0), Row(f=1)))", "TopN(f, Row(f=0), n=2)"):
+            with pytest.raises(kernels.KernelBuildError):
+                ex.execute("i", q)
+        snap = ex.engine.snapshot()
+        assert snap["device_dispatch_errors"] == 0
+        assert snap["host_counts"] == snap["host_topn"] == 0
+        assert ex.engine.device_health.plane_state() == "closed"
+        assert ex.engine.device_health.snapshot()["dispatch_failures"] == 0
+    finally:
+        ex.close()
+        h.close()
+
+
+@pytest.mark.parametrize("q", [
+    "Count(Intersect(Row(f=0), Row(f=1)))", "TopN(f, Row(f=0), n=2)"],
+    ids=["count", "topn"])
+def test_kernel_launch_fault_raises_out_of_execute(cuda_device, monkeypatch, q):
+    """A kernel of the port that fails on the card (a planted launch
+    error) is classified and recorded into the breakers, then raised out
+    of Executor.execute: never answered by the host rung. Once the plane
+    breaker is open, the next query raises too instead of going to the
+    host."""
+    from pilosa_tpu_torch.parallel.device_health import (DeviceKernelFault,
+                                                          ResilienceConfig)
+
+    h, _ = _planted_card_holder(n_rows=2, n_shards=2)
+    ex = pilosa_tpu_torch.Executor(
+        h, resilience_config=ResilienceConfig(device_breaker_failures=1))
+    kernels.load()
+
+    def planted(name, err):
+        raise RuntimeError(f"{name} kernel launch failed: cudaError 700")
+
+    monkeypatch.setattr(kernels, "_check_launch", planted)
+    try:
+        with pytest.raises(DeviceKernelFault) as fe:
+            ex.execute("i", q)
+        assert fe.value.kind == "runtime"
+        assert ex.engine.device_health.plane_state() == "open"
+        with pytest.raises(DeviceKernelFault):
+            ex.execute("i", "Count(Union(Row(f=0), Row(f=1)))")
+        snap = ex.engine.snapshot()
+        assert snap["host_counts"] == snap["host_topn"] == 0
+        assert snap["kernel_faults"] == 1 and snap["device_dispatch_errors"] == 1
+        assert ex.engine.device_health.snapshot()["failures_runtime"] == 1
+    finally:
+        ex.close()
+        h.close()

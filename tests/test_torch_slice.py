@@ -22,6 +22,7 @@ from pilosa_tpu.constants import SHARD_WIDTH
 from pilosa_tpu.parallel import EngineConfig
 from pilosa_tpu.pql.parser import parse as jax_parse
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.parallel import EngineConfig as TorchEngineConfig
 from pilosa_tpu_torch.pql.parser import parse as torch_parse
 
 N_SHARDS = 3
@@ -64,7 +65,10 @@ def open_pair(data_dir, tmp_path):
     th.open()
     jex = pilosa_tpu.Executor(
         jh, workers=0, engine_config=EngineConfig(gather_workers=1))
-    tex = pilosa_tpu_torch.Executor(th)
+    # One gather thread on both sides, as on the JAX side: a module-scoped
+    # pair must not start the engine's gather pool inside a test.
+    tex = pilosa_tpu_torch.Executor(
+        th, engine_config=TorchEngineConfig(gather_workers=1))
     return jh, th, jex, tex
 
 
