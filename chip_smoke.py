@@ -75,9 +75,30 @@ Phases, each of which fails the run if it fails:
              classified `oom`, and a forced nvcc failure in a fresh
              process raising out of Executor.execute. Memo-hit times sit
              beside the kernel-path times: the warm loops of (a), (c) and
-             (e) run inside engine.memos_off(). Every answer is checked
-             against numpy on the fragments' host planes (TopN against a
-             numpy replay of the two-phase ranking).
+             (e) run inside engine.memos_off(). (g) one node over HTTP:
+             (g1) an in-process Server on the card handed the same
+             holder; (g2) 512 distinct Count(Intersect(Row, Row)) per
+             client from C = 1, 8 and 32 keep-alive clients (a process
+             of their own), memos off, at the scheduler's defaults:
+             queries/s, p50/p99, the micro-batcher's groups, K1 launches
+             by variant, stack misses, the device idle share (1 - the
+             profiler's device time / wall time), the p50 of each stage
+             in the server's trace recorder; at C >= 8 the batcher
+             coalesces and K1 launches fewer times than there are
+             queries; then 512 Counts at C = 8 under cProfile (the
+             server's top functions by own host time); (g3) one client's 64 Counts over HTTP beside
+             Executor.execute; (g4) TopN with and without a filter,
+             Sum/Min/Max of v with a filter, and 8 concurrent keyed Rows
+             coalesced into bitmap_batch (equal to per-call bitmaps);
+             (g5) a keyed index of 64 row keys and 1,048,576 column keys
+             imported over HTTP, a Count per row key, TopN with keys and
+             one Row's column keys against a dict; (g6) `python -m
+             pilosa_tpu_torch.cli server` in a subprocess on the card:
+             the getting-started flow, /schema, /status, /debug/vars,
+             SIGTERM, a relaunch on the same directory (counts and key
+             ids kept) and a /debug/profile trace. Every answer is
+             checked against numpy on the fragments' host planes (TopN
+             against a numpy replay of the two-phase ranking).
 5. kernel line — launch counters set to 0 just before each path of
              phase 4 and read just after it: K1 above 0 in (a), (b), (d)
              and the Range Counts of (e) — its streaming variant only in
@@ -85,7 +106,9 @@ Phases, each of which fails the run if it fails:
              above 0 in the filtered TopNs and in Sum, K3 above 0 in
              Min/Max, none of the three in the memo hits of (f1), the
              plain twins at 0 in every path and the compile gate's
-             refusals at 0; outside (f4) the fault-ladder and host
+             refusals at 0 (in (g): K1 above 0 in every Count level and
+             in (g5), K2 in (g4)'s TopNs, K3 in its Min/Max); outside
+             (f4) the fault-ladder and host
              counters (host_counts, host_topn, device_dispatch_errors,
              oom_*, watchdog_timeouts, kernel_faults; host_cold_counts
              outside (f3)) are
@@ -106,6 +129,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -969,15 +993,15 @@ def main_path(torch, pt, kernels, args, rng, report):
     main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, dict(
         pairs_a=pairs_a, nest_q=nest_q, calls=calls, pairs=pairs, wants=wants, fa=fa,
         slots=slots))
+    out["engine"] = eng.snapshot()
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ex.close()  # (g)'s server serves the same holder and closes it
+    main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out)
     launches = {k: sum(p["launches"][k] for p in phases.values())
                 for k in kernels.LAUNCHES}
-    out["engine"] = eng.snapshot()
     out["phases"] = phases
     out["launches"] = launches
-    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     report["main"] = out
-    ex.close()
-    holder.close()
     return launches
 
 
@@ -1583,6 +1607,521 @@ def main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, ctx):
         f"{build_fail['raised']} out of Executor.execute with no dispatch error, no host "
         f"answer and the plane breaker closed")
     out["f"] = f
+
+
+# ------------------------------------------------------------ path (g)
+
+# Path (g)'s HTTP clients run in a process of their own (stdlib only), so
+# their JSON and socket work does not share the server's GIL. stdin: {"port",
+# "index", "work": [[pql, ...] per client]}; each client holds one
+# keep-alive connection and sends its queries in order; all start at one
+# barrier. stdout: {"wall_s", "clients": [[[latency_s, status, body], ...]]}.
+HTTP_CLIENTS_SCRIPT = r"""
+import http.client, json, sys, threading, time
+cfg = json.load(sys.stdin)
+work = cfg["work"]
+t = {}
+barrier = threading.Barrier(len(work), action=lambda: t.setdefault("start", time.perf_counter()))
+out = [None] * len(work)
+
+def run(i):
+    conn = http.client.HTTPConnection("localhost", cfg["port"], timeout=600)
+    res = []
+    barrier.wait()
+    for q in work[i]:
+        t0 = time.perf_counter()
+        conn.request("POST", "/index/%s/query" % cfg["index"], body=q.encode())
+        r = conn.getresponse()
+        body = r.read().decode()
+        res.append([time.perf_counter() - t0, r.status, body])
+    conn.close()
+    out[i] = res
+
+threads = [threading.Thread(target=run, args=(i,)) for i in range(len(work))]
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+print(json.dumps({"wall_s": time.perf_counter() - t["start"], "clients": out}))
+"""
+
+
+def http_clients(port: int, index: str, work):
+    """Drive `work` (one list of PQL strings per client) from the client
+    process; returns (wall_s, [[(latency_s, results)]]), failing on any
+    answer that is not a 200."""
+    proc = subprocess.run([sys.executable, "-c", HTTP_CLIENTS_SCRIPT],
+                          input=json.dumps({"port": port, "index": index, "work": work}),
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout)
+    clients = []
+    for res in got["clients"]:
+        for lat, status, body in res:
+            assert status == 200, (status, body[:500])
+        clients.append([(lat, json.loads(body)["results"]) for lat, _, body in res])
+    return got["wall_s"], clients
+
+
+def http(port: int, method: str, path: str, body=None):
+    """One request on a fresh connection; (status, parsed JSON or text)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=300)
+    try:
+        data = body if body is None or isinstance(body, bytes) else (
+            body.encode() if isinstance(body, str) else json.dumps(body).encode())
+        conn.request(method, path, body=data)
+        r = conn.getresponse()
+        raw = r.read().decode()
+    finally:
+        conn.close()
+    try:
+        return r.status, json.loads(raw)
+    except ValueError:
+        return r.status, raw
+
+
+def query(port: int, index: str, pql: str):
+    status, got = http(port, "POST", f"/index/{index}/query", pql)
+    assert status == 200, (pql, status, got)
+    return got["results"]
+
+
+def profiled_wall(torch, fn):
+    """(fn()'s value, device ms of every kernel and copy torch.profiler
+    recorded while fn ran, or None where it recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        val = fn()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages())
+    return val, (dev_us / 1e3 if dev_us else None)
+
+
+def host_profile(fn, top: int = 15):
+    """(fn()'s value, the `top` functions by own host time while fn ran,
+    over every thread of this process: cProfile sees the server's
+    threads too on Python 3.12)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    try:
+        val = fn()
+    finally:
+        prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return val, [dict(fn=f"{os.path.basename(f)}:{line}({name})", calls=nc,
+                      own_ms=tt * 1e3, cum_ms=ct * 1e3)
+                 for (f, line, name), (_, nc, tt, ct, _) in rows]
+
+
+class GcPauses:
+    """Python's gen-2 collections while a block runs, and their host ms
+    (the server's threads stop for them)."""
+
+    def __enter__(self):
+        import gc
+
+        self.n, self.ms, self._t0 = 0, 0.0, None
+        self._cb = self._note
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _note(self, phase, info):
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.n += 1
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+
+def pct(xs, p):
+    return float(np.percentile(np.asarray(xs) * 1e3, p))
+
+
+def trace_stages(srv, index: str, n: int) -> dict:
+    """p50 over the server's newest n traces of `index` (the recorder
+    samples every query by default, its ring holds 256): the handler's
+    whole span (`server`) and each stage's time per query, the durations
+    of a stage's spans in one trace summed."""
+    traces = srv.trace_recorder.traces(index=index, limit=n)
+    per = {"server": [t["duration_ms"] for t in traces]}
+    for t in traces:
+        stage = {}
+        for s in t["spans"]:
+            stage[s["name"]] = stage.get(s["name"], 0.0) + s["dur_ms"]
+        for name, ms in stage.items():
+            per.setdefault(name, []).append(ms)
+    out = {name: float(np.median(v)) for name, v in per.items()}
+    out["traces"] = len(traces)
+    return out
+
+
+def unordered_pairs(rng, n_rows: int) -> np.ndarray:
+    """Every unordered pair (a < b) of n_rows rows, shuffled: Intersect
+    is commutative, so (a, b) and (b, a) share one canonical plan."""
+    a, b = np.triu_indices(n_rows, k=1)
+    every = np.stack([a, b], axis=1)
+    return every[rng.permutation(len(every))]
+
+
+def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
+                per_client=512, n_keys=1 << 20, device=None):
+    """Path (g): one pilosa node over HTTP on the card. (g1) an in-process
+    Server handed the 256-shard holder of (a)-(f); (g2) concurrent distinct
+    Counts from C = 1, 8, 32 keep-alive clients through the scheduler and
+    the micro-batcher; (g3) one client's HTTP overhead beside
+    Executor.execute; (g4) TopN, Sum/Min/Max and coalesced Rows over HTTP;
+    (g5) a keyed index of 1,048,576 column keys imported over HTTP; (g6)
+    `python -m pilosa_tpu_torch.cli server` in a subprocess, restarted on
+    its data directory, and a /debug/profile capture."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.server.server import Server
+
+    n_rows, n_shards, n_words = H.shape
+    g = {}
+    # ---- (g1) the server, handed (a)-(f)'s holder
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = Server(data_dir=None, port=0, cache_flush_interval=0, device=device)
+    own_holder = srv.holder
+    srv.open()
+    own_holder.close()
+    srv.holder = srv.executor.holder = holder
+    port = srv.port
+    eng = srv.executor.engine
+    sched = srv.scheduler.config
+    g["scheduler"] = dict(interactive_concurrency=sched.interactive_concurrency,
+                          batch_window=sched.batch_window,
+                          batch_window_max=sched.batch_window_max, batch_max=sched.batch_max)
+    # A serving node holds its index in HBM: make every row of f resident
+    # before the traffic, so (g2)-(g3) time serving, not cold gathers.
+    from pilosa_tpu_torch.plan.signature import Leaf
+
+    t0 = time.perf_counter()
+    eng._leaf_tensor("big", [Leaf("f", "standard", r) for r in range(n_rows)],
+                     tuple(range(n_shards)))
+    torch.cuda.synchronize()
+    g["resident_s"] = time.perf_counter() - t0
+    log(f"main (g1): Server on {torch.cuda.get_device_name(0)} at localhost:{port}, "
+        f"holder of (a)-(f) ({n_shards} shards x {n_rows} rows, made resident in "
+        f"{g['resident_s']:.1f} s); scheduler {g['scheduler']}")
+
+    bufs = threading.local()
+
+    def want_pair(a, b):
+        # popcount(H[a] & H[b]) into this thread's reused buffers: a fresh
+        # 33.5 MB temporary per pair costs more than the AND itself.
+        x, y = H[a].reshape(-1).view(np.uint64), H[b].reshape(-1).view(np.uint64)
+        if getattr(bufs, "w", None) is None:
+            bufs.w, bufs.c = np.empty_like(x), np.empty(x.shape, np.uint8)
+        np.bitwise_and(x, y, out=bufs.w)
+        np.bitwise_count(bufs.w, out=bufs.c)
+        return int(bufs.c.sum(dtype=np.int64))
+
+    def batcher_delta(b0):
+        b1 = srv.batcher.snapshot()
+        return {k: b1[k] - b0[k] for k in b1}
+
+    try:
+        # ---- (g2) concurrent distinct Counts over HTTP
+        every = unordered_pairs(rng, n_rows)
+        levels = {}
+        want = {}  # numpy's count per pair, shared by the levels
+        for c in (1, 8, 32):
+            per = per_client
+            n = c * per
+            # Pairs cycle through every unordered pair; within a client
+            # they are distinct, and the level runs with the memos off, so
+            # no answer comes from the memo.
+            sel = every[np.arange(n) % len(every)]
+            work = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in
+                     sel[i * per:(i + 1) * per]] for i in range(c)]
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                new = sorted({(int(a), int(b)) for a, b in sel} - want.keys())
+                want.update(zip(new, pool.map(lambda p: want_pair(*p), new)))
+            b0, e0 = srv.batcher.snapshot(), eng.snapshot()
+            ph = start(f"g2_http_count_c{c}")
+            with eng.memos_off(), GcPauses() as gcp:
+                (wall_s, clients), dev_ms = profiled_wall(
+                    torch, lambda: http_clients(port, "big", work))
+            lat = []
+            for i, res in enumerate(clients):
+                for (a, b), (dt, results) in zip(sel[i * per:(i + 1) * per], res):
+                    assert results == [want[(int(a), int(b))]], (a, b, results)
+                    lat.append(dt)
+            bd = batcher_delta(b0)
+            e1 = eng.snapshot()
+            k1 = {k: kernels.LAUNCHES[k] for k in ("gather_expr_count", "gather_expr_count_staged",
+                                                    "gather_expr_count_streaming")}
+            lv = dict(clients=c, queries=n, wall_s=wall_s, qps=n / wall_s,
+                      p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), max_ms=max(lat) * 1e3,
+                      first_ms=clients[0][0][0] * 1e3, batcher=bd,
+                      mean_group=(bd["enqueued"] / bd["launches"]) if bd["launches"] else None,
+                      k1_launches=k1,
+                      stack_misses=e1["stack_misses"] - e0["stack_misses"],
+                      stack_hits=e1["stack_hits"] - e0["stack_hits"],
+                      memo_hits=e1["memo_hits"] - e0["memo_hits"],
+                      gc_gen2=gcp.n, gc_gen2_ms=gcp.ms, device_ms=dev_ms,
+                      idle_share=(1.0 - dev_ms / (wall_s * 1e3)) if dev_ms else None,
+                      stages_p50_ms=trace_stages(srv, "big", min(n, 256)))
+            assert lv["memo_hits"] == 0, lv
+            if c >= 8:
+                assert bd["coalesced"] > 0, lv
+                assert k1["gather_expr_count"] < n, lv
+            end(ph, "gather_expr_count", quiet=(eng,))
+            levels[c] = lv
+            log(f"main (g2) C={c}: {n} distinct Counts over HTTP equal numpy; "
+                f"{lv['qps']:.1f} queries/s, p50 {lv['p50_ms']:.3f} ms, p99 "
+                f"{lv['p99_ms']:.3f} ms, max {lv['max_ms']:.3f} ms (first "
+                f"{lv['first_ms']:.3f} ms); gen-2 GCs {gcp.n} ({gcp.ms:.1f} ms); "
+                f"batcher {bd} (mean group "
+                f"{lv['mean_group']}); K1 {k1}; stack misses {lv['stack_misses']}; "
+                f"device {dev_ms} ms of {wall_s * 1e3:.1f} ms wall, idle share "
+                f"{lv['idle_share']}; p50 per stage of the last traces (ms) "
+                f"{lv['stages_p50_ms']}")
+        g["g2"] = levels
+        # The same traffic at C = 8 under cProfile (slower, so not a level
+        # of its own): where the server's host time goes.
+        sel = every[np.arange(8 * 64) % len(every)][::-1]
+        work = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in sel[i::8]]
+                for i in range(8)]
+        ph = start("g2_host_profile")
+        with eng.memos_off():
+            (wall_s, clients), top = host_profile(lambda: http_clients(port, "big", work))
+        for i, res in enumerate(clients):
+            for (a, b), (_, results) in zip(sel[i::8], res):
+                assert results == [want[(int(a), int(b))]], (a, b, results)
+        end(ph, "gather_expr_count", quiet=(eng,))
+        g["g2_host_profile"] = dict(queries=len(sel), wall_s=wall_s, top=top)
+        log(f"main (g2) host profile, C=8, {len(sel)} Counts in {wall_s:.2f} s under "
+            f"cProfile, top functions by own time (ms): " + "; ".join(
+                f"{t['fn']} {t['own_ms']:.0f} ({t['calls']} calls)" for t in top))
+
+        # ---- (g3) one client: HTTP + admission beside Executor.execute
+        sel = every[-min(64, len(every)):]
+        qs = [f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in sel]
+        ph = start("g3_http_overhead")
+        with eng.memos_off():
+            _, (res,) = http_clients(port, "big", [qs])
+            direct = []
+            for q in qs:
+                t0 = time.perf_counter()
+                srv.executor.execute("big", q)
+                direct.append(time.perf_counter() - t0)
+        for (a, b), (_, results) in zip(sel, res):
+            assert results == [want_pair(int(a), int(b))], (a, b, results)
+        end(ph, "gather_expr_count", quiet=(eng,))
+        g["g3"] = dict(http_p50_ms=pct([r[0] for r in res], 50),
+                       execute_p50_ms=pct(direct, 50),
+                       stages_p50_ms=trace_stages(srv, "big", len(qs)))
+        g["g3"]["http_share_ms"] = g["g3"]["http_p50_ms"] - g["g3"]["execute_p50_ms"]
+        log(f"main (g3): 64 Counts, one client: HTTP p50 {g['g3']['http_p50_ms']:.3f} ms, "
+            f"Executor.execute p50 {g['g3']['execute_p50_ms']:.3f} ms (memos off); HTTP, "
+            f"JSON and admission {g['g3']['http_share_ms']:.3f} ms; p50 per stage of the "
+            f"HTTP queries' traces (ms) {g['g3']['stages_p50_ms']}")
+
+        # ---- (g4) the other query families over HTTP
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            cache = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r]).sum(axis=1, dtype=np.int64), range(n_rows))))
+        fa = int(rng.integers(n_rows))
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            inter = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r] & H[fa]).sum(axis=1, dtype=np.int64),
+                range(n_rows))))
+        ph = start("g4_topn")
+        t0 = time.perf_counter()
+        got = query(port, "big", "TopN(f, n=10)")[0]
+        g["topn_ms"] = (time.perf_counter() - t0) * 1e3
+        assert [(p["id"], p["count"]) for p in got] == replay_topn(cache, cache, 10), got
+        t0 = time.perf_counter()
+        got = query(port, "big", f"TopN(f, Row(f={fa}), n=10)")[0]
+        g["topn_filter_ms"] = (time.perf_counter() - t0) * 1e3
+        assert [(p["id"], p["count"]) for p in got] == replay_topn(inter, cache, 10), got
+        end(ph, "masked_plane_counts", quiet=(eng,))
+        vals, nn, want_vc = bsi["vals"], bsi["nn"], bsi["want_vc"]
+        fbits = np.unpackbits(H[fa].view(np.uint8), axis=1, bitorder="little").view(bool)
+        ph = start("g4_bsi")
+        for kind in ("sum", "min", "max"):
+            got = query(port, "big", f"{kind.title()}(Row(f={fa}), field=v)")[0]
+            assert (got["value"], got["count"]) == want_vc(kind, nn & fbits), (kind, got)
+        end(ph, "masked_plane_counts", "bsi_minmax", quiet=(eng,))
+        log(f"main (g4): TopN(f, n=10) {g['topn_ms']:.1f} ms and TopN(f, Row(f={fa}), n=10) "
+            f"{g['topn_filter_ms']:.1f} ms over HTTP equal the numpy replay; Sum/Min/Max of v "
+            f"with Row(f={fa}) equal numpy")
+
+        # ---- (g5) key translation at scale: a keyed index over HTTP
+        n_row_keys, chunk = 64, 1 << 16
+        assert http(port, "POST", "/index/k", {"options": {"keys": True}})[0] == 200
+        assert http(port, "POST", "/index/k/field/seg",
+                    {"options": {"type": "set", "keys": True}})[0] == 200
+        row_of = rng.integers(0, n_row_keys, n_keys)
+        col_keys = [f"u{i}" for i in range(n_keys)]
+        row_keys = [f"k{r}" for r in range(n_row_keys)]
+        ph = start("g5_keys")
+        t0 = time.perf_counter()
+        for i in range(0, n_keys, chunk):
+            status, body = http(port, "POST", "/index/k/field/seg/import", {
+                "rowKeys": [row_keys[r] for r in row_of[i:i + chunk]],
+                "columnKeys": col_keys[i:i + chunk]})
+            assert status == 200, (status, body)
+        import_s = time.perf_counter() - t0
+        members = {k: [] for k in row_keys}
+        for i, r in enumerate(row_of):
+            members[row_keys[r]].append(col_keys[i])
+        lat = []
+        for k in row_keys:
+            t0 = time.perf_counter()
+            got = query(port, "k", f'Count(Row(seg="{k}"))')
+            lat.append(time.perf_counter() - t0)
+            assert got == [len(members[k])], (k, got)
+        top = query(port, "k", "TopN(seg, n=5)")[0]
+        want_top = sorted(((k, len(v)) for k, v in members.items()), key=lambda t: (-t[1], t[0]))
+        assert [p["count"] for p in top] == [c for _, c in want_top[:5]], top
+        assert all(len(members[p["key"]]) == p["count"] for p in top), top
+        k0 = row_keys[int(rng.integers(n_row_keys))]
+        row = query(port, "k", f'Row(seg="{k0}")')[0]
+        assert sorted(row["keys"]) == sorted(members[k0]), k0
+        end(ph, "gather_expr_count", quiet=(eng,))
+        g["g5"] = dict(keys=n_keys, import_s=import_s, import_keys_per_s=n_keys / import_s,
+                       count_p50_ms=pct(lat, 50), count_p99_ms=pct(lat, 99))
+        log(f"main (g5): {n_keys} column keys over {n_row_keys} row keys imported over HTTP "
+            f"in {import_s:.2f} s ({g['g5']['import_keys_per_s']:.0f} keys/s); Count per row "
+            f"key p50 {g['g5']['count_p50_ms']:.3f} ms, p99 {g['g5']['count_p99_ms']:.3f} ms; "
+            f"TopN(seg, n=5) keys and Row(seg=\"{k0}\")'s column keys equal the script's dict")
+
+        # ---- (g4, last part) 8 concurrent Rows on the keyed index: the
+        # micro-batcher coalesces them into bitmap_batch
+        ph = start("g4_bitmap_batch")
+        ks = row_keys[:8]
+        coalesced = 0
+        rounds = 0
+        while not coalesced and rounds < 20:
+            rounds += 1
+            b0, d0 = srv.batcher.snapshot(), eng.snapshot()["bitmap_dispatches"]
+            _, clients = http_clients(port, "k", [[f'Row(seg="{k}")'] for k in ks])
+            for k, ((_, results),) in zip(ks, clients):
+                assert sorted(results[0]["keys"]) == sorted(members[k]), k
+            dispatches = eng.snapshot()["bitmap_dispatches"] - d0
+            coalesced = batcher_delta(b0)["coalesced"] if dispatches < len(ks) else 0
+        assert coalesced, f"no bitmap_batch in {rounds} rounds of 8 concurrent Rows"
+        from pilosa_tpu_torch.pql.parser import parse
+
+        ids = srv.translate_store.translate_rows_to_uint64("k", "seg", ks)
+        calls = [parse(f"Row(seg={i})").calls[0] for i in ids]
+        kshards = list(range(holder.index("k").max_shard() + 1))
+        batch = eng.bitmap_batch("k", calls, kshards)
+        for c_, r in zip(calls, batch):
+            assert np.array_equal(r.columns(), eng.bitmap("k", c_, kshards).columns())
+        end(ph, quiet=(eng,))
+        g["g4_bitmap_batch"] = dict(rounds=rounds, coalesced=coalesced)
+        log(f"main (g4): 8 concurrent Row(seg=k) over HTTP coalesced ({coalesced} joined a "
+            f"group, round {rounds}); their keys equal the dict; bitmap_batch planes equal "
+            f"per-call engine.bitmap")
+        g["engine"] = eng.snapshot()
+        g["batcher"] = srv.batcher.snapshot()
+        g["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"main (g1): peak device memory over (g1)-(g5) "
+            f"{g['max_memory_allocated_gib']:.2f} GiB")
+    finally:
+        srv.close()
+    g["g6"] = cli_server_flow(device)
+    out["g"] = g
+
+
+def cli_server_flow(device=None):
+    """(g6): `python -m pilosa_tpu_torch.cli server` on the card in a
+    subprocess: the README's getting-started flow, a keyed Set, SIGTERM,
+    a relaunch on the same data directory, the re-query, and a
+    /debug/profile capture."""
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    data = tempfile.mkdtemp(prefix="pilosa-torch-cli-")
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    res = {}
+
+    def launch():
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir", data,
+             "--bind", f"localhost:{port}"] + (["--device", device] if device else []),
+            cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if "listening on" in line:
+                return proc, line.strip(), time.perf_counter() - t0
+        proc.wait(timeout=60)
+        raise AssertionError("cli server did not start: " + "".join(lines)[-3000:])
+
+    def stop(proc):
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+        return proc.returncode
+
+    proc = None
+    try:
+        proc, banner, res["start_s"] = launch()
+        assert banner.startswith("pilosa-tpu server listening on"), banner
+        assert http(port, "POST", "/index/repository", {})[0] == 200
+        assert http(port, "POST", "/index/repository/field/stargazer", {})[0] == 200
+        for col in (1, 2, 3, 1 << 20):
+            assert query(port, "repository", f"Set({col}, stargazer=10)") == [True]
+        assert query(port, "repository", "Count(Row(stargazer=10))") == [4]
+        assert query(port, "repository", "TopN(stargazer, n=5)") == [[{"id": 10, "count": 4}]]
+        assert http(port, "POST", "/index/users", {"options": {"keys": True}})[0] == 200
+        assert http(port, "POST", "/index/users/field/seg",
+                    {"options": {"type": "set", "keys": True}})[0] == 200
+        for u in ("alice", "bob", "carol"):
+            assert query(port, "users", f'Set("{u}", seg="fans")') == [True]
+        before = query(port, "users", 'Row(seg="fans")')[0]
+        status, schema = http(port, "GET", "/schema")
+        assert status == 200 and {i["name"] for i in schema["indexes"]} == {"repository", "users"}
+        status, st = http(port, "GET", "/status")
+        assert status == 200 and st["state"] == "NORMAL", st
+        status, dv = http(port, "GET", "/debug/vars")
+        assert status == 200 and dv["engine_cache"]["count_dispatches"] > 0, dv.get("engine_cache")
+        res["exit_first"] = stop(proc)
+        proc, _, res["restart_s"] = launch()
+        assert query(port, "repository", "Count(Row(stargazer=10))") == [4]
+        after = query(port, "users", 'Row(seg="fans")')[0]
+        assert after == before and sorted(after["keys"]) == ["alice", "bob", "carol"], after
+        status, prof = http(port, "POST", "/debug/profile?seconds=1")
+        assert status == 200 and os.path.exists(os.path.join(prof["path"], "trace.json")), prof
+        res["exit_second"] = stop(proc)
+        proc = None
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(data, ignore_errors=True)
+    log(f"main (g6): `python -m pilosa_tpu_torch.cli server` on the card: getting-started "
+        f"flow, /schema, /status, /debug/vars count_dispatches > 0; SIGTERM (exit "
+        f"{res['exit_first']}), relaunch on the same directory: counts and key ids kept; "
+        f"/debug/profile wrote a trace; start {res['start_s']:.1f} s, restart "
+        f"{res['restart_s']:.1f} s")
+    return res
 
 
 def main() -> int:

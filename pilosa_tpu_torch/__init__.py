@@ -18,7 +18,7 @@ from .core.holder import Holder
 from .core.index import IndexOptions
 from .core.field import FieldOptions
 from .core.row import Row
-from .executor import Executor
+from .executor import ExecOptions, Executor, ValCount
 from .pql.parser import parse as parse_pql
 
 __all__ = [
@@ -26,7 +26,9 @@ __all__ = [
     "IndexOptions",
     "FieldOptions",
     "Row",
+    "ExecOptions",
     "Executor",
+    "ValCount",
     "parse_pql",
     "__version__",
 ]

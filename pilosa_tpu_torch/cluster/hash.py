@@ -1,0 +1,51 @@
+"""Shard placement math (port of reference cluster.go:776-857).
+
+Kept byte-identical to the reference: shard -> partition via FNV-1a 64 over
+(index name + big-endian shard), partition -> node via jump consistent
+hashing, replicas on consecutive ring nodes. The same math places shards on
+TPU mesh devices (parallel/mesh.py) so single-host and multi-host layouts
+agree.
+"""
+
+from __future__ import annotations
+
+import struct
+
+from ..constants import DEFAULT_PARTITION_N
+
+_MASK64 = (1 << 64) - 1
+
+
+def fnv64a(data: bytes) -> int:
+    h = 14695981039346656037
+    for b in data:
+        h ^= b
+        h = (h * 1099511628211) & _MASK64
+    return h
+
+
+def partition(index: str, shard: int, partition_n: int = DEFAULT_PARTITION_N) -> int:
+    data = index.encode() + struct.pack(">Q", shard)
+    return fnv64a(data) % partition_n
+
+
+def jump_hash(key: int, n: int) -> int:
+    """Jump consistent hash (cluster.go:846-857 jmphasher)."""
+    b, j = -1, 0
+    while j < n:
+        b = j
+        key = (key * 2862933555777941757 + 1) & _MASK64
+        j = int(float(b + 1) * (float(1 << 31) / float((key >> 33) + 1)))
+    return b
+
+
+class JmpHasher:
+    def hash(self, key: int, n: int) -> int:
+        return jump_hash(key, n)
+
+
+class ModHasher:
+    """Deterministic placement for tests (reference test/cluster.go:18)."""
+
+    def hash(self, key: int, n: int) -> int:
+        return key % n if n else 0

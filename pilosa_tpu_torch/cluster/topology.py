@@ -1,0 +1,97 @@
+"""Topology persistence + post-resize holder cleanup.
+
+Port of the reference's `.topology` checkpoint (cluster.go:1442-1580) and
+holderCleaner (holder.go:777-835): the node set survives restarts, and
+after a resize each node garbage-collects fragments for shards it no
+longer owns.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Optional
+
+from .node import Node
+
+
+class Topology:
+    def __init__(self, path: Optional[str]):
+        self.path = path
+        self.node_ids: List[str] = []
+        # Full node records (id + uri) so a restarting coordinator can dial
+        # prior members to solicit rejoins instead of wedging in STARTING
+        # (the reference recovers via memberlist re-join events,
+        # cluster.go:1615 nodeJoin; without gossip we must dial out).
+        self.nodes: List[Node] = []
+
+    @classmethod
+    def load(cls, path: Optional[str]) -> "Topology":
+        t = cls(path)
+        if path and os.path.exists(path):
+            with open(path) as f:
+                data = json.load(f)
+            t.node_ids = data.get("nodeIDs", [])
+            t.nodes = [Node.from_dict(n) for n in data.get("nodes", [])]
+            if t.node_ids and not t.nodes:
+                # Legacy topology format persisted only nodeIDs. In static
+                # mode node id == URI (server._join_cluster), so the ids are
+                # dialable and STARTING recovery (_solicit_topology_members)
+                # keeps working for clusters whose checkpoint predates the
+                # full-record format.
+                t.nodes = [Node(id=nid, uri=nid) for nid in t.node_ids]
+        return t
+
+    def save(self, nodes: List[Node]) -> None:
+        self.node_ids = [n.id for n in nodes]
+        self.nodes = list(nodes)
+        if not self.path:
+            return
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(
+                {
+                    "nodeIDs": self.node_ids,
+                    "nodes": [n.to_dict() for n in nodes],
+                },
+                f,
+            )
+        os.replace(tmp, self.path)
+
+    def contains_id(self, node_id: str) -> bool:
+        return node_id in self.node_ids
+
+
+class HolderCleaner:
+    """Removes fragments this node no longer owns (holder.go:777-835)."""
+
+    def __init__(self, server):
+        self.server = server
+
+    def clean_holder(self) -> List[str]:
+        cluster = self.server.cluster
+        holder = self.server.holder
+        removed: List[str] = []
+        for index_name in holder.index_names():
+            idx = holder.index(index_name)
+            # Pin the shard-space width BEFORE dropping fragments: the
+            # index's max shard is derived from local fragments, so GC'ing
+            # a handed-off tail shard would silently shrink this node's
+            # view of the index and full-index queries would stop fanning
+            # out to it (a hole served with no error).
+            idx.set_remote_max_shard(idx.max_shard())
+            for field in idx.fields.values():
+                for view in field.views.values():
+                    for shard in list(view.fragments):
+                        if cluster.owns_shard(cluster.node.id, index_name, shard):
+                            continue
+                        frag = view.fragments.pop(shard)
+                        frag.close()
+                        if frag.path and os.path.exists(frag.path):
+                            os.remove(frag.path)
+                        cache = frag.cache_path()
+                        if cache and os.path.exists(cache):
+                            os.remove(cache)
+                        removed.append(f"{index_name}/{field.name}/{view.name}/{shard}")
+        return removed

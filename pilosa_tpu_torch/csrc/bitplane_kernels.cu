@@ -597,12 +597,21 @@ static int launch_staged(const void* stacked, long long plane_vec, const void* t
                          cudaStream_t stream) {
   const size_t smem = (size_t)NS * nu_max * RING_CHUNK * sizeof(uint4);
   auto kern = k1_staged_kernel<NS, BSI>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0, per_sm = 0, optin = 0;
+  cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  // The limit is a property of the kernel for the whole process: threads
+  // launching rings of different sizes must not lower it under each
+  // other's launches, so it is always the device's opt-in maximum (each
+  // launch still asks for its own `smem`).
+  if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+      cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, ST_THREADS, smem)) !=
       cudaSuccess)

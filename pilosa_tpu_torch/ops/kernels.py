@@ -112,10 +112,21 @@ PLAIN_CALLS: Dict[str, int] = {"gather_expr_count": 0, "masked_plane_counts": 0,
                                "bsi_minmax": 0}
 
 
+# The server launches from many threads: a count is one locked add.
+_count_lock = threading.Lock()
+
+
+def _count(counters: Dict[str, int], *names: str) -> None:
+    with _count_lock:
+        for name in names:
+            counters[name] += 1
+
+
 def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
+    with _count_lock:
+        for d in (LAUNCHES, PLAIN_CALLS):
+            for k in d:
+                d[k] = 0
 
 
 # ----------------------------------------------------------------- build
@@ -376,7 +387,7 @@ def gather_expr_count_plain(stacked: torch.Tensor, idxs: torch.Tensor,
                             tape: Sequence[int]) -> torch.Tensor:
     """Plain PyTorch twin of K1: one query at a time, so the (Q, S, W)
     gather is never materialized here either."""
-    PLAIN_CALLS["gather_expr_count"] += 1
+    _count(PLAIN_CALLS, "gather_expr_count")
     out = torch.empty(idxs.shape[1], dtype=torch.int64, device=stacked.device)
     for q in range(idxs.shape[1]):
         plane = _eval_tape(tape, lambda slot: stacked[int(idxs[slot, q])])
@@ -466,8 +477,7 @@ def gather_expr_count(stacked: torch.Tensor, idxs: torch.Tensor,
             stacked.data_ptr(), s * w, buf.data_ptr(), len(tape),
             buf.data_ptr() + 4 * len(tape), q, int(bsi), out.data_ptr(), stream)
     _check_launch(f"gather_expr_count ({variant})", err)
-    LAUNCHES["gather_expr_count"] += 1
-    LAUNCHES[f"gather_expr_count_{variant}"] += 1
+    _count(LAUNCHES, "gather_expr_count", f"gather_expr_count_{variant}")
     return out
 
 
@@ -491,7 +501,7 @@ def _check_k2(stack, mask) -> None:
 def masked_plane_counts_plain(stack: torch.Tensor,
                               mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch twin of K2, one row at a time (bounded temporaries)."""
-    PLAIN_CALLS["masked_plane_counts"] += 1
+    _count(PLAIN_CALLS, "masked_plane_counts")
     out = torch.empty(stack.shape[:2], dtype=torch.int32, device=stack.device)
     for r in range(stack.shape[0]):
         plane = stack[r] if mask is None else torch.bitwise_and(stack[r], mask)
@@ -517,7 +527,7 @@ def masked_plane_counts(stack: torch.Tensor,
         stack.data_ptr(), None if mask is None else mask.data_ptr(), r, s, w,
         out.data_ptr(), _stream(stack))
     _check_launch("masked_plane_counts", err)
-    LAUNCHES["masked_plane_counts"] += 1
+    _count(LAUNCHES, "masked_plane_counts")
     return out
 
 
@@ -536,7 +546,7 @@ def bsi_minmax_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],
     """Plain PyTorch twin of K3: ops/bitplane.py's bsi_max / bsi_min over
     the stack flattened to (D+1, S*W), so every step's "popcount > 0" is
     global across the shards."""
-    PLAIN_CALLS["bsi_minmax"] += 1
+    _count(PLAIN_CALLS, "bsi_minmax")
     depth = planes.shape[0] - 1
     flat = planes.reshape(depth + 1, -1)
     flt = None if mask is None else mask.reshape(-1)
@@ -572,5 +582,5 @@ def bsi_minmax(planes: torch.Tensor, mask: Optional[torch.Tensor] = None,
         int(maximize), part.data_ptr(), n_blocks, bits.data_ptr(), count.data_ptr(),
         _stream(planes))
     _check_launch("bsi_minmax", err)
-    LAUNCHES["bsi_minmax"] += 1
+    _count(LAUNCHES, "bsi_minmax")
     return bits, count

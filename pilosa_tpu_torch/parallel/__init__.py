@@ -6,10 +6,8 @@ from dataclasses import dataclass
 
 
 # Counterpart of pilosa_tpu/parallel/__init__.py's EngineConfig, with the
-# same defaults and env spellings (PILOSA_TPU_ENGINE_*, read by the engine
-# when no config is passed), but for gather_workers (below).
-# `mesh_devices` and the collective section come with the multi-GPU slice,
-# `delta_journal_ops` with the server slice that copies it into Holder.
+# same fields, defaults and env spellings (PILOSA_TPU_ENGINE_*, read by the
+# engine when no config is passed), but for gather_workers (below).
 @dataclass
 class EngineConfig:
     """Device-cache, memo, refresh and fault knobs for ShardedQueryEngine.
@@ -19,11 +17,18 @@ class EngineConfig:
         while the changed 32-bit words stay under this fraction of the
         tensor; past it the full regather path wins. 0 disables the
         delta path.
+    delta_journal_ops: per-fragment dirty-word journal bound
+        (core/fragment.py); overflow falls back to full regather. The
+        engine does not read it: the server copies it into
+        ``Holder(delta_journal_ops=...)``.
     gather_workers: threads for the cold-path per-shard host container
         walks (1 = serial, the default; 0 = auto-size to the CPU count, at
         most 8). The reference defaults to 0. The port defaults to serial
         because its container walk holds the GIL: on the pool each plane
         took 4-5x longer than serially on the H100's host (PERF.md).
+    mesh_devices: the reference's engine mesh width. The port's engine
+        runs on one device; a server refuses a value above 1 until the
+        multi-GPU engine exists.
     leaf_cache_bytes, stack_cache_bytes, memo_entries, aux_memo_entries:
         cache bounds (0 = auto). Auto means: the env override
         (PILOSA_LEAF_CACHE_BYTES / PILOSA_STACK_CACHE_BYTES /
@@ -43,7 +48,9 @@ class EngineConfig:
     """
 
     delta_max_fraction: float = 0.25
+    delta_journal_ops: int = 4096
     gather_workers: int = 1
+    mesh_devices: int = 0
     leaf_cache_bytes: int = 0
     stack_cache_bytes: int = 0
     memo_entries: int = 0
@@ -51,3 +58,19 @@ class EngineConfig:
     dispatch_watchdog: float = 0.0
     cold_host_count: int = 1
     plan_cache: int = 1
+
+
+# The [collective] config section: the same fields and defaults as the
+# reference's, so one TOML file loads in both packages. The port has no
+# collective plane yet; the server keeps the section and builds nothing
+# from it.
+@dataclass
+class CollectiveConfig:
+    """Multi-host collective serving plane knobs (the reference's
+    parallel/collective.py)."""
+
+    enabled: int = 1
+    single_process: int = 0
+    timeout_ms: int = 10000
+    leaf_budget_bytes: int = 1 << 28
+    delta_max_fraction: float = 0.25

@@ -48,9 +48,9 @@ from __future__ import annotations
 
 import re
 import threading
-from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
+from ..cluster.health import ResilienceConfig
 from ..errors import PilosaError
 
 # Breaker states (the reference's peer-breaker vocabulary; the strings
@@ -69,41 +69,6 @@ TIMEOUT = "timeout"
 # shapes must not grow breaker state without bound; CLOSED entries are
 # dropped oldest-first past this.
 _MAX_SIGS = 1024
-
-
-@dataclass
-class ResilienceConfig:
-    """The device knobs of the reference's `[resilience]` section
-    (pilosa_tpu/cluster/health.py ResilienceConfig), same names and
-    defaults; the peer-breaker and collective knobs come with the cluster
-    and multi-GPU slices."""
-
-    # A claimed half-open probe that never reports expires as failed
-    # after this long.
-    probe_ttl: float = 60.0
-    # Consecutive dispatch failures (any signature) before the PLANE
-    # breaker opens and the engine demotes to host execution; the OPEN ->
-    # HALF_OPEN backoff doubles per failed probe, capped at the max.
-    device_breaker_failures: int = 3
-    device_breaker_backoff: float = 2.0
-    device_breaker_backoff_max: float = 60.0
-    # Consecutive failures of ONE query signature before that signature
-    # alone is quarantined to the per-shard walk.
-    device_sig_failures: int = 2
-    device_sig_backoff: float = 10.0
-
-    def validate(self) -> "ResilienceConfig":
-        if self.device_breaker_failures < 1 or self.device_sig_failures < 1:
-            raise ValueError(
-                "resilience.device-breaker-failures / device-sig-failures "
-                "must be >= 1")
-        if self.device_breaker_backoff <= 0 or self.device_sig_backoff <= 0:
-            raise ValueError("resilience device backoffs must be > 0")
-        if self.device_breaker_backoff_max < self.device_breaker_backoff:
-            raise ValueError(
-                "resilience.device-breaker-backoff-max must be >= "
-                "device-breaker-backoff")
-        return self
 
 
 class DeviceDispatchError(PilosaError):
@@ -200,7 +165,8 @@ class _Breaker:
 class DevicePlaneHealth:
     """Thread-safe device-plane breaker state for one engine.
 
-    `config` is a ResilienceConfig (above); `clock` is injectable for
+    `config` is a ``cluster.health.ResilienceConfig`` (the device knobs
+    of the `[resilience]` section); `clock` is injectable for
     deterministic tests."""
 
     def __init__(self, config=None, clock: Optional[Callable[[], float]] = None):

@@ -14,7 +14,9 @@ keyed on the fragments' (incarnation, generation) fingerprints.
   unroll into per-plane codes). A single Count is the batch of one: Q=1,
   idxs = arange(L).
 - ``bitmap`` evaluates the tree with elementwise torch ops (``_lower_ir``)
-  and returns a Row whose segments stay on the device.
+  and returns a Row whose segments stay on the device; ``bitmap_batch``
+  evaluates Q same-signature set-op trees over one stack of the batch's
+  distinct leaves (``_batch_eval``), for the micro-batcher.
 - ``topn_shard_counts`` / ``topn_counts`` run K2 (``masked_plane_counts``)
   over the stacked candidate rows, with the src tree's plane as the mask.
 - ``bsi_val_count`` runs BSI Sum on K2 over the (D+1, S, W) plane stack
@@ -40,8 +42,7 @@ defaults:
   DeviceKernelFault out of the query; only a CPU-device engine or an
   injected fault is served one rung down.
 
-Not in this engine (yet): ``bitmap_batch`` (with the micro-batcher) and
-multi-device meshes.
+Not in this engine (yet): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -154,6 +155,35 @@ def _lower_ir(ir: tuple) -> Callable:
 
         return fn
     raise QueryError(f"unknown plan IR node: {kind!r}")
+
+
+_INPLACE_OPS = {
+    "Intersect": torch.Tensor.bitwise_and_,
+    "Union": torch.Tensor.bitwise_or_,
+    "Xor": torch.Tensor.bitwise_xor_,
+}
+
+
+def _batch_eval(ir: tuple, gather: Callable[[int], torch.Tensor]) -> torch.Tensor:
+    """Set-op IR -> one (Q, S, W) tensor for a batch of Q queries.
+    ``gather(i)`` returns a new (Q, S, W) tensor holding every query's
+    plane at leaf position i. Each node folds its operands into the first
+    operand's tensor in place, so a flat tree holds one output and one
+    gathered leaf at a time (a nested tree, one more per level), never
+    all L gathered leaves."""
+    kind = ir[0]
+    if kind == "leaf":
+        return gather(ir[1])
+    if kind == "Difference":
+        out = _batch_eval(ir[1], gather)
+        for ch in ir[2]:
+            out.bitwise_and_(_batch_eval(ch, gather).bitwise_not_())
+        return out
+    op = _INPLACE_OPS[kind]
+    out = _batch_eval(ir[1][0], gather)
+    for ch in ir[1][1:]:
+        op(out, _batch_eval(ch, gather))
+    return out
 
 
 def _fold(first: Tuple[List[int], int],
@@ -1561,6 +1591,43 @@ class ShardedQueryEngine:
         planes = self._device_call(plan.sig_tuple, lambda: _settled(
             _lowered(plan).bitmap(leaves)))  # (S, W)
         return Row({shard: planes[i] for i, shard in enumerate(shards)})
+
+    def bitmap_batch(self, index: str, calls: Sequence[Call],
+                     shards: Sequence[int], plans=None) -> List[Row]:
+        """Evaluate Q same-signature bitmap trees in one device pass, the
+        micro-batcher's launch for bitmap dispatches (engine.py:1781-1840
+        of the JAX package). The batch's distinct leaves form one
+        resident (U, S, W) stack, each leaf position gathers every query's
+        plane with a (Q,) slot vector, and the tree folds into one
+        (Q, S, W) output (``_batch_eval``); identical queries compute once
+        and their Rows share the plane. Trees outside the slot-gather
+        shapes (BSI, time ranges) and a batch of one run per call, as
+        ``bitmap``. `plans` (aligned 1:1 with `calls`) skips re-planning."""
+        shards = tuple(shards)
+        if plans is None:
+            fcache: Dict = {}
+            plans = [self.plan(index, c, field_cache=fcache) for c in calls]
+        plan0 = plans[0]
+        if len(calls) == 1 or not plan0.setops_only:
+            return [self.bitmap(index, c, shards, plan=p)
+                    for c, p in zip(calls, plans)]
+        for p in plans[1:]:
+            if p.signature != plan0.signature:
+                raise QueryError(
+                    "bitmap_batch requires structurally identical queries")
+        n_calls = len(calls)
+        slots, idxs, inverse, _ = self._batch_slot_gather(plans, n_calls)
+        stacked = self._stacked_leaf_tensor(index, list(slots), shards)
+        idx_t = [torch.from_numpy(ix.astype(np.int64)).to(self.device)
+                 for ix in idxs]
+        self._bump("bitmap_dispatches")
+        planes = self._device_call(plan0.sig_tuple, lambda: _settled(_batch_eval(
+            plan0.ir, lambda i: stacked.index_select(0, idx_t[i]))))  # (Qd, S, W)
+        return [
+            Row({shard: planes[qi if inverse is None else int(inverse[qi]), i]
+                 for i, shard in enumerate(shards)})
+            for qi in range(n_calls)
+        ]
 
     def _src_plane(self, index: str, src_call: Call,
                    shards: Tuple[int, ...]) -> torch.Tensor:

@@ -47,21 +47,14 @@ gather-count kernel (ops/kernels.py) executes for counts.
 
 from __future__ import annotations
 
-import contextlib
 import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from .. import failpoints
 from ..constants import VIEW_BSI_GROUP_PREFIX, VIEW_STANDARD
 from ..errors import BSIGroupNotFoundError, FieldNotFoundError, QueryError
+from ..obs import span as obs_span
 from ..pql.ast import BETWEEN, Call, GT, GTE, LT, LTE, NEQ
-
-
-@contextlib.contextmanager
-def obs_span(name: str, **tags):
-    """No-op stand-in for the tracing span of the same name: the port has
-    no tracing layer yet, and the call sites stay as they are."""
-    yield None
 
 
 class Leaf(NamedTuple):

@@ -1,0 +1,298 @@
+"""Per-tenant QoS: trace-charged token buckets + SLO-classed shedding.
+
+Static per-query cost guessing cannot work for bitmap indexes — the
+container mix (array/bitmap/run) swings per-query device cost by orders
+of magnitude — so a tenant is charged the query's MEASURED cost: the
+device.dispatch + gather + tier.promote span durations the obs recorder
+captured for that query. A conservative static estimate is charged up
+front at admission (so an in-flight flood drains the bucket before its
+traces close) and reconciled to the measured cost when the query's spans
+are final. An untraced query (sampling) is charged the tenant's rolling
+mean, so a low sample rate cannot starve the ledger.
+
+Shed ordering contract (docs/scheduler.md):
+  1. a dry tenant's BATCH traffic sheds first (typed 429 + per-tenant
+     Retry-After derived from the bucket deficit);
+  2. its INTERACTIVE traffic keeps admitting — queued behind in-budget
+     tenants (the scheduler's per-(class, over-budget) queues) — and
+     sheds only past the hard cap (`interactive-cap` x burst of debt);
+  3. other tenants are never charged or shed for it: buckets are fully
+     independent, and over-budget waiters cannot occupy slots ahead of
+     in-budget tenants.
+
+Tenant identity is the X-Pilosa-Tenant header, defaulting to the index
+name, threaded handler -> api -> scheduler -> executor -> trace tags.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+from .. import failpoints
+from ..obs import current as obs_current
+from ..obs import record as obs_record
+from .scheduler import QueueFullError
+
+# Span names whose durations ARE the query's chargeable cost: device
+# work, host gathers, and tier promotions the query forced. Admission
+# wait is deliberately excluded — queueing is the penalty, not the crime.
+CHARGED_SPANS = ("device.dispatch", "gather", "tier.promote")
+
+
+class TenantBudgetError(QueueFullError):
+    """A tenant's budget bucket is dry: typed 429 whose Retry-After is
+    derived from THAT tenant's deficit (not a global constant), so a
+    throttled tenant backs off exactly as long as its refill needs."""
+
+    def __init__(self, message: str, retry_after: float, tenant: str):
+        super().__init__(message, retry_after=retry_after)
+        self.tenant = tenant
+
+
+@dataclass
+class QosConfig:
+    # Budget refill: ms of measured query cost per wall-clock second per
+    # unit of tenant share. 0 disables per-tenant budgets entirely.
+    rate: float = 0.0
+    # Bucket capacity (ms of measured cost) at share 1.0: how much a
+    # tenant may burst above its sustained rate.
+    burst: float = 500.0
+    # Share multiplier for tenants with no explicit set_share() override:
+    # a tenant's effective rate/burst are rate*share and burst*share.
+    default_tenant_share: float = 1.0
+    # Interactive traffic sheds only past this hard cap: a dry tenant's
+    # interactive queries keep admitting (queued behind in-budget
+    # tenants) until its debt exceeds interactive-cap x burst.
+    interactive_cap: float = 4.0
+    # Conservative static cost (ms) charged up front at admission and
+    # reconciled to the measured cost when the trace's spans are final.
+    estimate_ms: float = 5.0
+
+    def validate(self) -> "QosConfig":
+        if self.rate < 0:
+            raise ValueError("[qos] rate must be >= 0")
+        if self.burst <= 0:
+            raise ValueError("[qos] burst must be > 0")
+        if self.default_tenant_share <= 0:
+            raise ValueError("[qos] default-tenant-share must be > 0")
+        if self.interactive_cap < 1.0:
+            raise ValueError("[qos] interactive-cap must be >= 1")
+        if self.estimate_ms < 0:
+            raise ValueError("[qos] estimate-ms must be >= 0")
+        return self
+
+
+class _Bucket:
+    __slots__ = ("balance", "last", "mean_ms", "samples", "share",
+                 "charged_ms", "queries", "shed")
+
+    def __init__(self, balance: float, now: float, share: float):
+        self.balance = balance
+        self.last = now
+        self.mean_ms = 0.0  # EWMA of measured cost; 0 until first sample
+        self.samples = 0
+        self.share = share
+        self.charged_ms = 0.0
+        self.queries = 0
+        self.shed = 0
+
+
+def measured_cost_ms(trace=None) -> Optional[float]:
+    """The chargeable cost of the active (or given) trace: the summed
+    durations of its CHARGED_SPANS. None when the query is untraced —
+    the caller falls back to the tenant's rolling mean."""
+    t = trace if trace is not None else obs_current()
+    if t is None:
+        return None
+    with t._lock:
+        spans = list(t.spans)
+    return sum(s.dur_ms for s in spans if s.name in CHARGED_SPANS)
+
+
+class TenantLedger:
+    """Per-tenant token buckets, refilled on wall time and charged
+    measured cost. One per server process; the scheduler consults it at
+    admission and settles the charge when the query's spans are final.
+    The tenant table is bounded by recency (same discipline as the
+    scheduler's index_traffic): a tenant-churning client only forgets
+    history, never breaks correctness."""
+
+    TENANTS_MAX = 1024
+    # Retry-After bounds: never tell a client "0" (stampede) and never
+    # park it for minutes on a transiently dry bucket.
+    RETRY_MIN = 0.05
+    RETRY_MAX = 60.0
+
+    def __init__(self, config: Optional[QosConfig] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 rng: Optional[random.Random] = None):
+        self.config = (config or QosConfig()).validate()
+        self.clock = clock
+        self._rng = rng or random.Random()
+        self._lock = threading.Lock()
+        self._buckets: Dict[str, _Bucket] = {}
+        self.counters: Dict[str, int] = {
+            "charged": 0, "settled_traced": 0, "settled_untraced": 0,
+            "shed_batch": 0, "shed_interactive": 0, "deferred": 0,
+            "tenants_evicted": 0,
+        }
+
+    @property
+    def enabled(self) -> bool:
+        return self.config.rate > 0
+
+    # ----------------------------------------------------------- buckets
+
+    def set_share(self, tenant: str, share: float) -> None:
+        """Override one tenant's share (its rate/burst multiplier)."""
+        if share <= 0:
+            raise ValueError("tenant share must be > 0")
+        now = self.clock()
+        with self._lock:
+            self._bucket_locked(tenant, now).share = share
+
+    def _bucket_locked(self, tenant: str, now: float) -> _Bucket:
+        # Must hold _lock. Fetch-and-refill, with recency eviction: the
+        # dict is kept in last-touch order (pop/reinsert) so the victim
+        # is always the least recently active tenant.
+        b = self._buckets.pop(tenant, None)
+        if b is None:
+            if len(self._buckets) >= self.TENANTS_MAX:
+                self._buckets.pop(next(iter(self._buckets)), None)
+                self.counters["tenants_evicted"] += 1
+            share = self.config.default_tenant_share
+            b = _Bucket(self.config.burst * share, now, share)
+        else:
+            cap = self.config.burst * b.share
+            b.balance = min(cap, b.balance
+                            + self.config.rate * b.share * (now - b.last))
+            b.last = now
+        self._buckets[tenant] = b
+        return b
+
+    # --------------------------------------------------------- admission
+
+    def admission_verdict(self, tenant: str, cls: str) -> bool:
+        """Admission-time budget check. Returns True when the tenant is
+        over budget but still admissible (the scheduler parks it on the
+        over-budget queue), False when in budget. Raises
+        TenantBudgetError (-> typed 429) per the shed ordering contract:
+        batch sheds at dry, interactive only past the hard cap."""
+        if not self.enabled:
+            return False
+        from .scheduler import CLASS_BATCH
+
+        now = self.clock()
+        with self._lock:
+            b = self._bucket_locked(tenant, now)
+            if b.balance > 0:
+                return False
+            debt = -b.balance
+            hard_cap = self.config.interactive_cap * self.config.burst * b.share
+            if cls == CLASS_BATCH:
+                key = "shed_batch"
+            elif debt > hard_cap:
+                key = "shed_interactive"
+            else:
+                self.counters["deferred"] += 1
+                return True
+            self.counters[key] += 1
+            b.shed += 1
+            retry = self._retry_after_locked(b, debt)
+        raise TenantBudgetError(
+            f"tenant {tenant!r} is over its query budget "
+            f"({debt:.0f}ms in debt); retry after {retry:.2f}s",
+            retry_after=retry, tenant=tenant)
+
+    def _retry_after_locked(self, b: _Bucket, debt: float) -> float:
+        # Time for the bucket to refill past the deficit plus one mean
+        # query's worth, jittered so a fleet of shed clients for one
+        # tenant does not retry in lockstep. Jitter fraction and the
+        # final wait both clamped (the PR 15 percent-vs-fraction lesson:
+        # a mis-scaled jitter must never produce a zero/negative or
+        # absurd wait).
+        rate = self.config.rate * b.share
+        need = debt + max(b.mean_ms, self.config.estimate_ms)
+        retry = need / rate if rate > 0 else self.RETRY_MAX
+        retry *= 1.0 + self._rng.uniform(-0.25, 0.25)
+        return min(self.RETRY_MAX, max(self.RETRY_MIN, retry))
+
+    # ---------------------------------------------------------- charging
+
+    def charge_estimate(self, tenant: str) -> float:
+        """Charge the conservative up-front estimate at admission; the
+        settle() reconciles it to the measured cost. Returns the amount
+        charged (the settle's reconciliation baseline)."""
+        if not self.enabled:
+            return 0.0
+        est = self.config.estimate_ms
+        now = self.clock()
+        with self._lock:
+            b = self._bucket_locked(tenant, now)
+            b.balance -= est
+            b.queries += 1
+            self.counters["charged"] += 1
+        return est
+
+    def settle(self, tenant: str, estimate: float,
+               measured: Optional[float]) -> None:
+        """Reconcile the up-front estimate to the query's real cost.
+        `measured` is the summed CHARGED_SPANS duration (None when the
+        query was untraced -> charge the tenant's rolling mean so
+        sampling cannot starve the ledger)."""
+        if not self.enabled:
+            return
+        failpoints.fire("qos-charge")
+        now = self.clock()
+        with self._lock:
+            b = self._bucket_locked(tenant, now)
+            if measured is not None:
+                actual = measured
+                # EWMA with a warm start: the first sample seeds the
+                # mean; later samples fold in at 0.1.
+                b.mean_ms = (actual if b.samples == 0
+                             else 0.9 * b.mean_ms + 0.1 * actual)
+                b.samples += 1
+                self.counters["settled_traced"] += 1
+            else:
+                actual = b.mean_ms if b.samples else estimate
+                self.counters["settled_untraced"] += 1
+            b.balance -= actual - estimate
+            b.charged_ms += actual
+        # The charge as a trace stage (docs/observability.md): a traced
+        # query shows what the ledger actually billed it. No-op when
+        # untraced.
+        obs_record("qos.charge", actual, tenant=tenant)
+
+    # ------------------------------------------------------------- stats
+
+    def balance(self, tenant: str) -> float:
+        now = self.clock()
+        with self._lock:
+            return self._bucket_locked(tenant, now).balance
+
+    def snapshot(self, top_n: int = 32) -> dict:
+        """Counters plus the top-N tenants by cumulative charged cost
+        (bounded: /debug/vars must not grow with tenant churn)."""
+        with self._lock:
+            out: Dict[str, object] = dict(self.counters)
+            out["tenants"] = len(self._buckets)
+            ranked = sorted(self._buckets.items(),
+                            key=lambda kv: kv[1].charged_ms, reverse=True)
+            out["top"] = {
+                t: {
+                    "balance_ms": round(b.balance, 3),
+                    "mean_ms": round(b.mean_ms, 3),
+                    "charged_ms": round(b.charged_ms, 3),
+                    "queries": b.queries,
+                    "shed": b.shed,
+                    "share": b.share,
+                }
+                for t, b in ranked[:max(1, top_n)]
+            }
+        out["enabled"] = self.enabled
+        return out

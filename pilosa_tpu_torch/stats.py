@@ -1,16 +1,16 @@
-"""In-memory metrics client (jax-free copy of pilosa_tpu/stats.py's
-InMemoryStatsClient, the expvar equivalent of reference stats.go).
+"""Metrics abstraction (port of reference stats.go).
 
-The port's holder takes it as `stats`; the fragments count their writes
-and the executor its device-ladder events (DeviceLadderFallback,
-DeviceHostRouted, DeviceSigQuarantined) through it. The StatsD and Multi
-clients come with the server slice.
+StatsClient interface: count/gauge/histogram/set/timing with tag scoping.
+Implementations: Nop, InMemory (expvar-equivalent, JSON-dumpable), Multi,
+and StatsDClient (UDP fire-and-forget, datadog wire format — the
+reference's statsd/statsd.go), selected by config via new_stats_client.
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 from bisect import bisect_left
 from collections import defaultdict
 from typing import Dict, List, Optional
@@ -68,6 +68,38 @@ class Histogram:
             "max": self.max,
             "buckets": buckets,
         }
+
+
+class NopStatsClient:
+    def tags(self):
+        return []
+
+    def with_tags(self, *tags):
+        return self
+
+    def count(self, name, value, rate=1.0):
+        pass
+
+    def count_with_custom_tags(self, name, value, rate=1.0, tags=()):
+        pass
+
+    def gauge(self, name, value, rate=1.0):
+        pass
+
+    def histogram(self, name, value, rate=1.0):
+        pass
+
+    def set(self, name, value, rate=1.0):
+        pass
+
+    def timing(self, name, value, rate=1.0):
+        pass
+
+    def open(self):
+        pass
+
+    def close(self):
+        pass
 
 
 class InMemoryStatsClient:
@@ -141,3 +173,144 @@ class InMemoryStatsClient:
 
     def close(self):
         pass
+
+
+class MultiStatsClient:
+    def __init__(self, clients):
+        self.clients = list(clients)
+
+    def tags(self):
+        return self.clients[0].tags() if self.clients else []
+
+    def with_tags(self, *tags):
+        return MultiStatsClient([c.with_tags(*tags) for c in self.clients])
+
+    def count(self, name, value, rate=1.0):
+        for c in self.clients:
+            c.count(name, value, rate)
+
+    def count_with_custom_tags(self, name, value, rate=1.0, tags=()):
+        for c in self.clients:
+            c.count_with_custom_tags(name, value, rate, tags)
+
+    def gauge(self, name, value, rate=1.0):
+        for c in self.clients:
+            c.gauge(name, value, rate)
+
+    def histogram(self, name, value, rate=1.0):
+        for c in self.clients:
+            c.histogram(name, value, rate)
+
+    def set(self, name, value, rate=1.0):
+        for c in self.clients:
+            c.set(name, value, rate)
+
+    def timing(self, name, value, rate=1.0):
+        for c in self.clients:
+            c.timing(name, value, rate)
+
+    def snapshot(self) -> dict:
+        """Delegate to the first snapshot-capable client (keeps /debug/vars
+        working when statsd is layered on top of the in-memory store)."""
+        for c in self.clients:
+            if hasattr(c, "snapshot"):
+                return c.snapshot()
+        return {}
+
+    def open(self):
+        for c in self.clients:
+            c.open()
+
+    def close(self):
+        for c in self.clients:
+            c.close()
+
+
+class StatsDClient:
+    """UDP statsd emitter (reference statsd/statsd.go, datadog wire format:
+    "name:value|type|#tag1,tag2"). Fire-and-forget; errors are dropped."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 8125,
+                 tags: Optional[List[str]] = None, prefix: str = "pilosa_tpu."):
+        import socket
+
+        self.addr = (host, port)
+        self.prefix = prefix
+        self._tags = list(tags or [])
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+
+    def _send(self, name, value, kind, rate=1.0, tags=None):
+        all_tags = sorted(set(self._tags) | set(tags or ()))
+        msg = f"{self.prefix}{name}:{value}|{kind}"
+        if rate < 1.0:
+            msg += f"|@{rate}"
+        if all_tags:
+            msg += "|#" + ",".join(all_tags)
+        try:
+            self._sock.sendto(msg.encode(), self.addr)
+        except OSError:
+            pass
+
+    def tags(self):
+        return list(self._tags)
+
+    def with_tags(self, *tags):
+        c = StatsDClient.__new__(StatsDClient)
+        c.addr = self.addr
+        c.prefix = self.prefix
+        c._tags = sorted(set(self._tags) | set(tags))
+        c._sock = self._sock
+        return c
+
+    def count(self, name, value, rate=1.0):
+        self._send(name, value, "c", rate)
+
+    def count_with_custom_tags(self, name, value, rate=1.0, tags=()):
+        self._send(name, value, "c", rate, tags)
+
+    def gauge(self, name, value, rate=1.0):
+        self._send(name, value, "g", rate)
+
+    def histogram(self, name, value, rate=1.0):
+        self._send(name, value, "h", rate)
+
+    def set(self, name, value, rate=1.0):
+        self._send(name, value, "s", rate)
+
+    def timing(self, name, value, rate=1.0):
+        self._send(name, value, "ms", rate)
+
+    def open(self):
+        pass
+
+    def close(self):
+        self._sock.close()
+
+
+def new_stats_client(service: str, host: str = "") -> object:
+    """Factory matching the reference's config-driven choice
+    (server/server.go:227): inmem (expvar), statsd/datadog, or nop."""
+    if service in ("statsd", "datadog"):
+        h, _, p = (host or "127.0.0.1:8125").partition(":")
+        return MultiStatsClient(
+            [InMemoryStatsClient(), StatsDClient(h or "127.0.0.1", int(p or 8125))]
+        )
+    if service in ("none", "nop"):
+        return NopStatsClient()
+    return InMemoryStatsClient()
+
+
+class Timer:
+    """Context manager feeding a stats histogram in milliseconds."""
+
+    def __init__(self, stats, name):
+        self.stats = stats
+        self.name = name
+
+    def __enter__(self):
+        self.start = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        if self.stats:
+            self.stats.timing(self.name, (time.monotonic() - self.start) * 1000.0)

@@ -25,8 +25,7 @@ headroom, so a predicted-hot plane is resident before the query arrives.
 Prefetch never evicts: it stops at the headroom boundary rather than
 thrashing the working set it is trying to serve.
 
-A jax-free copy of pilosa_tpu/tier/manager.py (tracing spans are
-no-ops here).
+A jax-free copy of pilosa_tpu/tier/manager.py.
 
 Locking: one manager lock guards the host/disk maps and counters. It is
 never held while calling into the engine, and fragment mutexes are only
@@ -36,7 +35,6 @@ installing), so the engine-lock -> manager-lock order can't invert.
 
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import json
 import os
@@ -49,17 +47,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..constants import WORDS_PER_ROW
+from ..obs import NOP_SPAN, span as obs_span
 from ..storage.bitmap import decode_plane_words
 from . import TierConfig
-
-# The port has no tracing layer yet: the span call sites stay as they are
-# and record nothing (as in plan/signature.py).
-NOP_SPAN = None
-
-
-@contextlib.contextmanager
-def obs_span(name: str, **tags):
-    yield NOP_SPAN
 
 _SPILL_MAGIC = b"PTSP1\n"
 

@@ -527,3 +527,107 @@ def test_kernel_launch_fault_raises_out_of_execute(cuda_device, monkeypatch, q):
     finally:
         ex.close()
         h.close()
+
+
+def test_server_on_card_coalesces_concurrent_counts(cuda_device):
+    """An in-process Server on the card: 8 concurrent clients' distinct
+    Counts over HTTP equal the CPU executor's answers, the micro-batcher
+    coalesces them (its window held open until the group fills), and K1
+    launches fewer times than there are queries; bitmap_batch planes on
+    the card equal per-call bitmaps."""
+    import http.client
+    import json
+    import threading
+
+    from pilosa_tpu_torch.pql.parser import parse
+    from pilosa_tpu_torch.server.server import Server
+
+    n = 8
+    srv = Server(data_dir=None, port=0, cache_flush_interval=0, executor_workers=0)
+    srv.open()
+    cpu_h = pilosa_tpu_torch.Holder(None, device="cpu")
+    cpu_h.open()
+    try:
+        for h in (srv.holder, cpu_h):
+            fld = h.create_index_if_not_exists("i").create_field_if_not_exists("f")
+            r = np.random.default_rng(405)
+            for row in range(n + 1):
+                cols = r.choice(3 * SHARD_WIDTH, 4000, replace=False)
+                fld.import_bits([row] * len(cols), [int(c) for c in cols])
+        cpu_ex = pilosa_tpu_torch.Executor(cpu_h)
+        qs = [f"Count(Intersect(Row(f={a}), Row(f={a + 1})))" for a in range(n)]
+        want = [cpu_ex.execute("i", q)[0] for q in qs]
+        eng = srv.executor.engine
+        batcher = srv.batcher
+        batcher.batch_max = n
+        batcher.depth_fn = lambda: n
+        batcher.wait_window = lambda group, w: group.full.wait(timeout=30)
+        got = [None] * n
+        barrier = threading.Barrier(n)
+
+        def client(i):
+            conn = http.client.HTTPConnection("localhost", srv.port, timeout=60)
+            barrier.wait(timeout=30)
+            conn.request("POST", "/index/i/query", body=qs[i].encode())
+            got[i] = json.loads(conn.getresponse().read())["results"][0]
+            conn.close()
+
+        kernels.reset_counters()
+        with eng.memos_off():
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        torch.cuda.synchronize()
+        assert got == want
+        assert batcher.snapshot()["coalesced"] > 0
+        assert 0 < kernels.LAUNCHES["gather_expr_count"] < n
+        assert not any(kernels.PLAIN_CALLS.values())
+        calls = [parse(f"Union(Row(f={a}), Row(f={a + 1}))").calls[0] for a in range(n)]
+        rows = eng.bitmap_batch("i", calls, [0, 1, 2])
+        for c, row in zip(calls, rows):
+            assert row.segments[0].is_cuda
+            assert row.columns().tolist() == eng.bitmap("i", c, [0, 1, 2]).columns().tolist()
+        cpu_ex.close()
+    finally:
+        srv.close()
+        cpu_h.close()
+
+
+
+def test_k1_staged_concurrent_rings_of_different_sizes(cuda_device):
+    """Threads launching K1 staged with different ring sizes at once (the
+    server's concurrent groups): the kernel's shared-memory limit is one
+    process-wide attribute, and no launch may find it lowered under it.
+    Every result equals the twin."""
+    import threading
+
+    rng = np.random.default_rng(409)
+    tape = lower_tape(("Intersect", (leaf(0), leaf(1))))
+    cases = []
+    for u in (2, 16, 64, 200):
+        stacked = rand_stack(rng, (u, 4, 4096), cuda_device)
+        idxs = torch.from_numpy(rng.integers(0, u, (2, 8), dtype=np.int32))
+        cases.append((stacked, idxs, kernels.gather_expr_count_plain(stacked, idxs, tape)))
+    errors = []
+    barrier = threading.Barrier(len(cases))
+
+    def run(stacked, idxs, want):
+        stream = torch.cuda.Stream()
+        barrier.wait(timeout=30)
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(50):
+                    got = kernels.gather_expr_count(stacked, idxs, tape, variant="staged")
+                    stream.synchronize()
+                    assert torch.equal(got, want)
+        except BaseException as e:  # handed back to the test thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=c) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert errors == []

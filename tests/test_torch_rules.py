@@ -5,7 +5,7 @@
       test environment pre-imports jax (tests/conftest.py), so a
       sys.modules check would prove nothing.
 (ii)  Entry points run on the card unless the caller asks for the CPU:
-      with no CUDA device, Holder(path) raises.
+      with no CUDA device, Holder(path) and Server() raise.
 (iii) A kernel that cannot be built raises; a CUDA tensor never falls
       back to a kernel's plain twin (held on a card in
       tests/test_torch_cuda.py).
@@ -58,7 +58,8 @@ def test_no_jax_or_pilosa_tpu_imports(path):
 def test_scan_covers_the_package():
     names = {os.path.relpath(p, PKG) for p in port_sources()}
     for must in ("executor.py", "parallel/engine.py", "ops/kernels.py",
-                 "core/fragment.py", "core/holder.py"):
+                 "core/fragment.py", "core/holder.py", "server/server.py",
+                 "sched/batcher.py", "translate.py"):
         assert must in names
 
 
@@ -71,6 +72,19 @@ def test_holder_without_device_needs_cuda(tmp_path):
         pilosa_tpu_torch.Holder(None, device="cuda")
     h = pilosa_tpu_torch.Holder(None, device="cpu")
     assert h.device == torch.device("cpu")
+
+
+def test_server_without_device_needs_cuda():
+    """The server is an entry point: the card unless the caller asks for
+    the CPU, and it raises before building anything."""
+    from pilosa_tpu_torch.server.server import Server
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: Server() takes it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(data_dir=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server(data_dir=None, device="cuda")
 
 
 def test_build_failure_raises(monkeypatch, tmp_path):

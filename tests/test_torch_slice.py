@@ -224,14 +224,19 @@ def test_respellings_share_one_plan_and_fit_the_kernel(pair):
 
 
 def test_calls_outside_the_slice_raise_not_ported(pair):
-    """Key translation is still outside the port: string keys and an index
-    with the `keys` option raise instead of being read as ids."""
+    """Point-in-time reads (CDC) and the read path's peer fan-out are still
+    outside the port: they raise instead of answering."""
     _, tex = pair
-    from pilosa_tpu_torch.core.index import IndexOptions
+    from pilosa_tpu_torch.cluster.node import Cluster, Node
     from pilosa_tpu_torch.errors import QueryError
+    from pilosa_tpu_torch.executor import ExecOptions, Executor
 
-    tex.holder.create_index("keyed", IndexOptions(keys=True))
-    for index, q in (("i", 'Row(f="a")'), ("i", 'Set(1, f="x")'),
-                     ("keyed", "Count(Row(f=1))")):
+    with pytest.raises(QueryError, match="not ported"):
+        tex.execute("i", "Count(Row(f=1))", opt=ExecOptions(at_position=1))
+    cluster = Cluster(node=Node(id="a", uri="a:1"))
+    cluster.add_node(Node(id="b", uri="b:1"))
+    ex = Executor(tex.holder, cluster=cluster)
+    for q in ("Count(Row(f=1))", "Row(f=1)", "TopN(f, n=2)"):
         with pytest.raises(QueryError, match="not ported"):
-            tex.execute(index, q)
+            ex.execute("i", q)
+    ex.close()
