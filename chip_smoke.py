@@ -40,7 +40,9 @@ Phases, each of which fails the run if it fails:
              dense containers (4 GiB on the host). (a) Executor.execute
              Count(Intersect) for several pairs plus a Union/Difference/
              Xor nest and a 40-row Union, (b) engine.count_batch over 256
-             distinct pairs, then timed batches, (c) TopN(f, n=10) and
+             distinct pairs, then timed batches, (c) TopN(f, n=10) (also
+             timed on an Executor of 8 workers beside one of 1, and one
+             call under cProfile) and
              TopN(f, Row(f=a), n=10), (d) a Set on one shard and a
              recount (the stale leaf and the batch's stack are refreshed
              by a delta scatter: full_refresh_bytes does not move), (e) on the same
@@ -96,7 +98,32 @@ Phases, each of which fails the run if it fails:
              pilosa_tpu_torch.cli server` in a subprocess on the card:
              the getting-started flow, /schema, /status, /debug/vars,
              SIGTERM, a relaunch on the same directory (counts and key
-             ids kept) and a /debug/profile trace. Every answer is
+             ids kept) and a /debug/profile trace; (g4) also times TopN(f,
+             n=10) over HTTP with the server executor's 8-worker pool and
+             with none. (h) a static cluster on the card: (a)-(g)'s engine
+             and holder closed, four in-process Servers, each with
+             cluster_hosts naming all four, replica_n = 2 and the jump
+             hasher, each holding exactly the shards its placement gives
+             it of f (the same 256 x 128 planes), v (path (e)'s values)
+             and a sparse field s (8 rows of 4096 bits over all shards),
+             with a quarter of the default leaf and stack budgets each;
+             (h1) 512 distinct Count(Intersect(Row, Row)) per client from
+             C = 1 and 8 clients, round-robin over the nodes, memos off:
+             queries/s, p50/p99, K1 launches by variant, the p50 of the
+             coordinators' executor.fanout, remote:<peer> and reduce
+             spans, the device idle share; (h2) from every node a nested
+             set-op Count, Row(s=r) and Intersect(Row(s=r), Row(f=a)) as
+             Rows, TopN(f, n=10), TopN(f, Row(f=a), n=10) (K2, two phases
+             across nodes) and Sum/Min/Max of v with Row(f=a) (K2, K3,
+             composed per node); (h3) a query node's link to one owner
+             dropped by the client-send failpoint: 64 Counts answered
+             from the replicas, the breaker open, then healed and
+             re-closed; one node closed, the other three answering; (h4)
+             a Set on one replica of a shard of s only, the replicas'
+             Counts differing, the syncer's merge of that fragment, and
+             the repaired replica's K1 Count equal to numpy through a
+             delta refresh (full_refresh_bytes unmoved); one dense f
+             fragment's block checksums timed. Every answer is
              checked against numpy on the fragments' host planes (TopN
              against a numpy replay of the two-phase ranking).
 5. kernel line — launch counters set to 0 just before each path of
@@ -107,12 +134,15 @@ Phases, each of which fails the run if it fails:
              Min/Max, none of the three in the memo hits of (f1), the
              plain twins at 0 in every path and the compile gate's
              refusals at 0 (in (g): K1 above 0 in every Count level and
-             in (g5), K2 in (g4)'s TopNs, K3 in its Min/Max); outside
+             in (g5), K2 in (g4)'s TopNs, K3 in its Min/Max; in (h): K1
+             in every path, K2 and K3 in (h2)); outside
              (f4) the fault-ladder and host
              counters (host_counts, host_topn, device_dispatch_errors,
              oom_*, watchdog_timeouts, kernel_faults; host_cold_counts
              outside (f3)) are
-             0 after every path. The line carries the launch sums.
+             0 after every path, on every node's engine in (h), failover
+             included. The line carries the launch sums. The log lines
+             of (h) carry the nvidia-smi name and power limit.
 
 It prints the nvidia-smi line and a {"kernels": [...]} JSON line before
 the last line, and as its last line {"ok": true, "device": {...}}. With
@@ -925,12 +955,36 @@ def main_path(torch, pt, kernels, args, rng, report):
     cache = np.stack([np.bitwise_count(H[r]).sum(axis=1, dtype=np.int64)
                       for r in range(n_rows)])  # (R, S)
     ph = start("c_topn")
-    t0 = time.perf_counter()
-    got = ex.execute("big", "TopN(f, n=10)")[0]
-    out["topn_ms"] = (time.perf_counter() - t0) * 1e3
-    end(ph)
+    with GcPauses() as gcp:
+        t0 = time.perf_counter()
+        got = ex.execute("big", "TopN(f, n=10)")[0]
+        out["topn_ms"] = (time.perf_counter() - t0) * 1e3
+    out["topn_first_gc"] = (gcp.n, gcp.ms)
     want = replay_topn(cache, cache, 10)
     assert [(p.id, p.count) for p in got] == want, (got, want)
+    # The unfiltered TopN is a per-shard walk of the rank caches on the
+    # executor's pool: one Executor with no pool (workers 1, as `ex`) and
+    # one with 8 workers (the server's), timed in turn.
+    ex8 = pt.Executor(holder, workers=8)
+    ex8._engine = eng
+    reps = {1: [], 8: []}
+    for _ in range(3):
+        for w, e in ((1, ex), (8, ex8)):
+            with GcPauses() as gcp:
+                t0 = time.perf_counter()
+                got = e.execute("big", "TopN(f, n=10)")[0]
+                reps[w].append(((time.perf_counter() - t0) * 1e3, gcp.n, gcp.ms))
+            assert [(p.id, p.count) for p in got] == want, (w, got)
+    ex8._engine = None
+    ex8.close()
+    out["topn_workers_ms"] = reps
+    got, top = host_profile(lambda: ex.execute("big", "TopN(f, n=10)")[0], top=8)
+    out["topn_profile"] = top
+    end(ph)
+    log(f"main (c): TopN(f, n=10) (ms, gen-2 GCs, their ms) workers 1 {reps[1]}, "
+        f"workers 8 {reps[8]}; one "
+        f"call's top functions by own time (ms): " + "; ".join(
+            f"{t['fn']} {t['own_ms']:.0f} ({t['calls']} calls)" for t in top))
     fa = int(rng.integers(n_rows))
     with ThreadPoolExecutor(max_workers=8) as pool:
         inter = np.stack(list(pool.map(
@@ -950,7 +1004,8 @@ def main_path(torch, pt, kernels, args, rng, report):
         out["topn_filter_ms"] = (time.perf_counter() - t0) * 1e3
     end(ph, "masked_plane_counts")
     log(f"main (c): TopN(f, n=10) and TopN(f, Row(f={fa}), n=10) equal the numpy "
-        f"replay; {out['topn_ms']:.1f} ms and {out['topn_filter_ms']:.1f} ms warm "
+        f"replay; {out['topn_ms']:.1f} ms (gen-2 GCs in it, their ms: "
+        f"{out['topn_first_gc']}) and {out['topn_filter_ms']:.1f} ms warm "
         f"({out['topn_filter_cold_ms']:.1f} ms first)")
 
     # ---- (d) a write, then recounts: the stale leaf and the batch's
@@ -997,6 +1052,12 @@ def main_path(torch, pt, kernels, args, rng, report):
     out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     ex.close()  # (g)'s server serves the same holder and closes it
     main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out)
+    # (g)'s server closed the holder and its engine; drop its fragments so
+    # that (h)'s nodes do not share the host (and the collector) with them.
+    holder.indexes.clear()
+    del holder, ex, eng
+    main_path_h(torch, kernels, H, bsi, out["bsi"]["depth"], rng, start, end, out,
+                report["nvidia_smi"])
     launches = {k: sum(p["launches"][k] for p in phases.values())
                 for k in kernels.LAUNCHES}
     out["phases"] = phases
@@ -1611,30 +1672,33 @@ def main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, ctx):
 
 # ------------------------------------------------------------ path (g)
 
-# Path (g)'s HTTP clients run in a process of their own (stdlib only), so
-# their JSON and socket work does not share the server's GIL. stdin: {"port",
-# "index", "work": [[pql, ...] per client]}; each client holds one
-# keep-alive connection and sends its queries in order; all start at one
-# barrier. stdout: {"wall_s", "clients": [[[latency_s, status, body], ...]]}.
+# Path (g)'s and (h)'s HTTP clients run in a process of their own (stdlib
+# only), so their JSON and socket work does not share the servers' GIL.
+# stdin: {"ports", "index", "work": [[pql, ...] per client]}; client i
+# sends its j-th query to ports[(i + j) % len(ports)] over one keep-alive
+# connection per port, in order; all start at one barrier. stdout:
+# {"wall_s", "clients": [[[latency_s, status, body], ...]]}.
 HTTP_CLIENTS_SCRIPT = r"""
 import http.client, json, sys, threading, time
 cfg = json.load(sys.stdin)
-work = cfg["work"]
+work, ports = cfg["work"], cfg["ports"]
 t = {}
 barrier = threading.Barrier(len(work), action=lambda: t.setdefault("start", time.perf_counter()))
 out = [None] * len(work)
 
 def run(i):
-    conn = http.client.HTTPConnection("localhost", cfg["port"], timeout=600)
+    conns = [http.client.HTTPConnection("localhost", p, timeout=600) for p in ports]
     res = []
     barrier.wait()
-    for q in work[i]:
+    for j, q in enumerate(work[i]):
+        conn = conns[(i + j) % len(ports)]
         t0 = time.perf_counter()
         conn.request("POST", "/index/%s/query" % cfg["index"], body=q.encode())
         r = conn.getresponse()
         body = r.read().decode()
         res.append([time.perf_counter() - t0, r.status, body])
-    conn.close()
+    for conn in conns:
+        conn.close()
     out[i] = res
 
 threads = [threading.Thread(target=run, args=(i,)) for i in range(len(work))]
@@ -1646,12 +1710,14 @@ print(json.dumps({"wall_s": time.perf_counter() - t["start"], "clients": out}))
 """
 
 
-def http_clients(port: int, index: str, work):
+def http_clients(port, index: str, work):
     """Drive `work` (one list of PQL strings per client) from the client
-    process; returns (wall_s, [[(latency_s, results)]]), failing on any
-    answer that is not a 200."""
+    process against one port, or round-robin over a list of ports;
+    returns (wall_s, [[(latency_s, results)]]), failing on any answer
+    that is not a 200."""
+    ports = list(port) if isinstance(port, (list, tuple)) else [port]
     proc = subprocess.run([sys.executable, "-c", HTTP_CLIENTS_SCRIPT],
-                          input=json.dumps({"port": port, "index": index, "work": work}),
+                          input=json.dumps({"ports": ports, "index": index, "work": work}),
                           capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout)
@@ -1778,7 +1844,7 @@ def unordered_pairs(rng, n_rows: int) -> np.ndarray:
 
 
 def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
-                per_client=512, n_keys=1 << 20, device=None):
+                per_client=512, per_client_c32=128, n_keys=1 << 20, device=None):
     """Path (g): one pilosa node over HTTP on the card. (g1) an in-process
     Server handed the 256-shard holder of (a)-(f); (g2) concurrent distinct
     Counts from C = 1, 8, 32 keep-alive clients through the scheduler and
@@ -1842,7 +1908,9 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
         levels = {}
         want = {}  # numpy's count per pair, shared by the levels
         for c in (1, 8, 32):
-            per = per_client
+            # C = 32 runs 128 queries per client, not 512: the script's
+            # time limit also holds path (h).
+            per = per_client if c < 32 else per_client_c32
             n = c * per
             # Pairs cycle through every unordered pair; within a client
             # they are distinct, and the level runs with the memos off, so
@@ -1948,6 +2016,24 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
         got = query(port, "big", "TopN(f, n=10)")[0]
         g["topn_ms"] = (time.perf_counter() - t0) * 1e3
         assert [(p["id"], p["count"]) for p in got] == replay_topn(cache, cache, 10), got
+        # The same over HTTP with the server's 8-worker pool and with none.
+        pool8 = srv.executor._pool
+        reps = {1: [], 8: []}
+        try:
+            for _ in range(3):
+                for w in (1, 8):
+                    srv.executor._pool = pool8 if w == 8 else None
+                    with GcPauses() as gcp:
+                        t0 = time.perf_counter()
+                        got = query(port, "big", "TopN(f, n=10)")[0]
+                        reps[w].append(((time.perf_counter() - t0) * 1e3, gcp.n, gcp.ms))
+                    assert [(p["id"], p["count"]) for p in got] == replay_topn(
+                        cache, cache, 10), got
+        finally:
+            srv.executor._pool = pool8
+        g["topn_workers_ms"] = reps
+        log(f"main (g4): TopN(f, n=10) over HTTP (ms, gen-2 GCs, their ms), executor "
+            f"workers 1 {reps[1]}, workers 8 {reps[8]}")
         t0 = time.perf_counter()
         got = query(port, "big", f"TopN(f, Row(f={fa}), n=10)")[0]
         g["topn_filter_ms"] = (time.perf_counter() - t0) * 1e3
@@ -2041,6 +2127,500 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
         srv.close()
     g["g6"] = cli_server_flow(device)
     out["g"] = g
+
+
+# ------------------------------------------------------------ path (h)
+
+H_NODES = 4
+H_REPLICAS = 2
+H_SPARSE_ROWS = 8
+H_SPARSE_BITS = 4096  # bits per row of the sparse field s, over every shard
+
+
+def free_ports(n: int):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for sk in socks:
+        sk.bind(("localhost", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    return ports
+
+
+def bsi_planes(vals, nn, depth: int) -> np.ndarray:
+    """One shard's (depth + 1, W) BSI planes from its values and not-null
+    bits: planes 0..depth-1 the value bits under not-null, plane depth
+    the not-null bits."""
+    bits = np.unpackbits(vals.view(np.uint8).reshape(-1, 4), axis=1, bitorder="little")
+    planes = np.packbits(np.ascontiguousarray(bits[:, :depth].T), axis=1,
+                         bitorder="little").view(np.uint32)
+    nnw = np.packbits(nn, bitorder="little").view(np.uint32)
+    return np.concatenate([planes & nnw, nnw[None]], axis=0)
+
+
+def fill_node(srv, H, v_planes, sparse, n_shards: int) -> list:
+    """Give one node exactly the shards its placement assigns it: f's
+    dense planes from H and v's BSI planes (each a copy per node), and
+    s's sparse bits. Returns the node's shards."""
+    from pilosa_tpu_torch.constants import SHARD_WIDTH, VIEW_BSI_GROUP_PREFIX
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.storage.bitmap import Container
+
+    idx = srv.holder.create_index("big")
+    f_view = idx.create_field("f").create_view_if_not_exists("standard")
+    v = idx.create_field("v", FieldOptions(type="int", min=0, max=V_MAX))
+    v_view = v.create_view_if_not_exists(VIEW_BSI_GROUP_PREFIX + "v")
+    s_view = idx.create_field("s").create_view_if_not_exists("standard")
+    idx.set_remote_max_shard(n_shards - 1)
+    owned = [s for s in range(n_shards) if any(
+        n.id == srv.node.id for n in srv.cluster.shard_nodes("big", s))]
+    srows, scols = sparse
+    n_rows, n_containers = H.shape[0], SHARD_WIDTH >> 16
+    for shard in owned:
+        frag = f_view.create_fragment_if_not_exists(shard, broadcast=False)
+        words = H[:, shard].view(np.uint64).reshape(n_rows, n_containers, 1024).copy()
+        counts = np.bitwise_count(words).sum(axis=2)
+        for row in range(n_rows):
+            for ci in range(n_containers):
+                frag.storage.containers[row * n_containers + ci] = Container(
+                    bits=words[row, ci], n=int(counts[row, ci]))
+            frag.cache.bulk_add(row, int(counts[row].sum()))
+        frag.cache.invalidate(force=True)
+        vfrag = v_view.create_fragment_if_not_exists(shard, broadcast=False)
+        for row, plane in enumerate(v_planes[shard]):
+            pw = plane.view(np.uint64).reshape(-1, 1024)
+            pc = np.bitwise_count(pw).sum(axis=1)
+            for ci in range(pw.shape[0]):
+                if pc[ci]:
+                    vfrag.storage.containers[row * pw.shape[0] + ci] = Container(
+                        bits=pw[ci].copy(), n=int(pc[ci]))
+        sel = (scols // SHARD_WIDTH) == shard
+        if sel.any():
+            s_view.create_fragment_if_not_exists(shard, broadcast=False).bulk_import(
+                srows[sel], scols[sel])
+    return owned
+
+
+def cluster_stages(servers, n: int) -> dict:
+    """p50 over the coordinators' newest n traces of each node (traces
+    holding an `executor.fanout` span; a forwarded leg records none) of
+    the fan-out, the remote legs (every `remote:<peer>` span, each leg
+    its own sample) and the reduce, plus the handler's whole span."""
+    per = {"server": [], "executor.fanout": [], "remote": [], "reduce": []}
+    for srv in servers:
+        for t in srv.trace_recorder.traces(index="big", limit=n):
+            names = [sp["name"] for sp in t["spans"]]
+            if "executor.fanout" not in names:
+                continue
+            per["server"].append(t["duration_ms"])
+            for sp in t["spans"]:
+                if sp["name"].startswith("remote:"):
+                    per["remote"].append(sp["dur_ms"])
+                elif sp["name"] in per:
+                    per[sp["name"]].append(sp["dur_ms"])
+    out = {name: (float(np.median(v)) if v else None) for name, v in per.items()}
+    out["traces"] = len(per["server"])
+    return out
+
+
+def fold_val_count(srv, kind: str, vals, mask, n_shards: int):
+    """numpy's Min or Max as a cluster answers it: each node's (value,
+    count) over the shards the fan-out gives it (this node's own, then
+    each peer's, in the executor's order), folded with the reference's
+    ValCount.smaller/larger, which keep the first node's count on a tie
+    (executor.go's ValCount; pilosa_tpu/executor.py:150-167)."""
+    local = [s for s in range(n_shards) if any(
+        n.id == srv.node.id for n in srv.cluster.shard_nodes("big", s))]
+    remote = {}
+    for s in range(n_shards):
+        if s not in local:
+            remote.setdefault(srv.cluster.shard_nodes("big", s)[0].id, []).append(s)
+    acc = (0, 0)
+    for group in [local] + list(remote.values()):
+        sel = vals[group][mask[group]]
+        if not sel.size:
+            continue
+        best = int(sel.min() if kind == "min" else sel.max())
+        vc = (best, int(np.count_nonzero(sel == best)))
+        better = vc[0] < acc[0] if kind == "min" else vc[0] > acc[0]
+        if acc[1] == 0 or better:
+            acc = vc
+    return acc
+
+
+def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
+                per_client=512, device=None):
+    """Path (h): a static cluster of four nodes on one card. Four
+    in-process Servers, every one with cluster_hosts naming all four,
+    replica_n = 2 and the default jump hasher; each holds exactly the
+    shards its placement gives it of f (256 shards x 128 rows, (a)-(g)'s
+    planes), v (path (e)'s values) and a sparse field s. (h1) distinct
+    HTTP Counts at C = 1 and 8, round-robin over the nodes; (h2) nested
+    set-ops, Rows that cross nodes, TopN with and without a filter,
+    Sum/Min/Max; (h3) failover: a dropped link, the breaker, then a node
+    closed; (h4) anti-entropy repairs a replica written alone."""
+    import contextlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch import failpoints
+    from pilosa_tpu_torch.cluster.health import CLOSED
+    from pilosa_tpu_torch.cluster.syncer import HolderSyncer
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+    from pilosa_tpu_torch.parallel import EngineConfig
+    from pilosa_tpu_torch.plan.signature import Leaf
+    from pilosa_tpu_torch.server.server import Server
+
+    n_rows, n_shards, n_words = H.shape
+    h = {"nodes": H_NODES, "replica_n": H_REPLICAS, "smi": smi}
+    # Four engines share the card: each gets a quarter of the default
+    # 16 GiB leaf + 16 GiB stack budgets, 8 GiB, split 5 + 3 (a setting of
+    # this script): a node caches its leaves once for its own shards and
+    # once more for the shards each peer sends it (a leaf is cached per
+    # shard set), ~4.6 GiB of f and v.
+    leaf_budget, stack_budget = 5 << 30, 3 << 30
+    ports = free_ports(H_NODES)
+    hosts = [f"localhost:{p}" for p in ports]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    servers = [Server(
+        data_dir=None, port=p, cluster_hosts=hosts, replica_n=H_REPLICAS,
+        cache_flush_interval=0, anti_entropy_interval=0, member_monitor_interval=0,
+        engine_config=EngineConfig(leaf_cache_bytes=leaf_budget,
+                                   stack_cache_bytes=stack_budget),
+        device=device) for p in ports]
+    for srv in servers:
+        srv.open()
+    # The sparse field s: H_SPARSE_BITS random columns per row over every
+    # shard, so that a Row answer crossing nodes stays small on the wire.
+    srows = np.repeat(np.arange(H_SPARSE_ROWS, dtype=np.uint64), H_SPARSE_BITS)
+    scols = np.concatenate([np.sort(rng.choice(n_shards * SHARD_WIDTH, H_SPARSE_BITS,
+                                               replace=False)).astype(np.uint64)
+                            for _ in range(H_SPARSE_ROWS)])
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            v_planes = list(pool.map(lambda sh: bsi_planes(
+                bsi["vals"][sh], bsi["nn"][sh], depth), range(n_shards)))
+        owned = {}
+        for srv in servers:
+            owned[srv.node.id] = fill_node(srv, H, v_planes, (srows, scols), n_shards)
+        del v_planes
+        h["build_s"] = time.perf_counter() - t0
+        by_node = {srv.node.id: len(owned[srv.node.id]) for srv in servers}
+        assert sum(by_node.values()) == H_REPLICAS * n_shards, by_node
+        engines = [srv.executor.engine for srv in servers]
+        # Serving nodes hold their shards in HBM, as in (g1): every row of
+        # f resident on each node over each shard set it serves — its own
+        # shards (a query it coordinates) and, for each peer, the shards
+        # that peer's fan-out sends it (the executor's own assignment).
+        sets = {srv.node.id: {tuple(owned[srv.node.id])} for srv in servers}
+        for srv in servers:
+            _, remote = srv.executor._assign_shards("big", list(range(n_shards)))
+            for nid, shards in remote.items():
+                sets[nid].add(tuple(shards))
+        t0 = time.perf_counter()
+        for srv, eng in zip(servers, engines):
+            for shards in sorted(sets[srv.node.id]):
+                eng._leaf_tensor("big", [Leaf("f", "standard", r) for r in range(n_rows)],
+                                 shards)
+        torch.cuda.synchronize()
+        h["resident_s"] = time.perf_counter() - t0
+        h["shards_per_node"] = by_node
+        h["shard_sets_per_node"] = {k: sorted(len(t) for t in v) for k, v in sets.items()}
+        h["resident_gib"] = {srv.node.id: eng._leaf_bytes / 2**30
+                             for srv, eng in zip(servers, engines)}
+        log(f"main (h) [{smi}]: {H_NODES} Servers on {torch.cuda.get_device_name(0)} "
+            f"(replica_n {H_REPLICAS}, jump hash), shards per node {by_node}; filled in "
+            f"{h['build_s']:.1f} s; f resident on every node over each shard set it serves "
+            f"(sizes {h['shard_sets_per_node']}) in {h['resident_s']:.1f} s, leaf GiB per node "
+            f"{h['resident_gib']}; leaf + stack budgets {leaf_budget >> 30} + "
+            f"{stack_budget >> 30} GiB per node")
+
+        bufs = threading.local()
+
+        def want_pair(a, b):
+            x, y = H[a].reshape(-1).view(np.uint64), H[b].reshape(-1).view(np.uint64)
+            if getattr(bufs, "w", None) is None:
+                bufs.w, bufs.c = np.empty_like(x), np.empty(x.shape, np.uint8)
+            np.bitwise_and(x, y, out=bufs.w)
+            np.bitwise_count(bufs.w, out=bufs.c)
+            return int(bufs.c.sum(dtype=np.int64))
+
+        def memos_off():
+            stack = contextlib.ExitStack()
+            for eng in engines:
+                stack.enter_context(eng.memos_off())
+            return stack
+
+        def peers_snapshot():
+            return [srv.cluster.health.snapshot() for srv in servers]
+
+        # ---- (h1) distinct Counts over HTTP, round-robin over the nodes
+        every = unordered_pairs(rng, n_rows)
+        want = {}
+        levels = {}
+        offset = 0
+        for c in (1, 8):
+            n = c * per_client
+            sel = every[(offset + np.arange(n)) % len(every)]
+            offset += n
+            work = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in
+                     sel[i * per_client:(i + 1) * per_client]] for i in range(c)]
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                new = sorted({(int(a), int(b)) for a, b in sel} - want.keys())
+                want.update(zip(new, pool.map(lambda p: want_pair(*p), new)))
+            ph = start(f"h1_http_count_c{c}")
+            with memos_off(), GcPauses() as gcp:
+                (wall_s, clients), dev_ms = profiled_wall(
+                    torch, lambda: http_clients(ports, "big", work))
+            lat = []
+            for i, res in enumerate(clients):
+                for (a, b), (dt, results) in zip(sel[i * per_client:(i + 1) * per_client], res):
+                    assert results == [want[(int(a), int(b))]], (a, b, results)
+                    lat.append(dt)
+            k1 = {k: kernels.LAUNCHES[k] for k in ("gather_expr_count", "gather_expr_count_staged",
+                                                    "gather_expr_count_streaming")}
+            lv = dict(clients=c, queries=n, wall_s=wall_s, qps=n / wall_s,
+                      p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), max_ms=max(lat) * 1e3,
+                      k1_launches=k1, gc_gen2=gcp.n, gc_gen2_ms=gcp.ms, device_ms=dev_ms,
+                      idle_share=(1.0 - dev_ms / (wall_s * 1e3)) if dev_ms else None,
+                      stages_p50_ms=cluster_stages(servers, min(n // H_NODES, 256)))
+            end(ph, "gather_expr_count", quiet=engines)
+            levels[c] = lv
+            log(f"main (h1) [{smi}] C={c}: {n} distinct Counts over HTTP, round-robin over "
+                f"{H_NODES} nodes, equal numpy; {lv['qps']:.1f} queries/s, p50 "
+                f"{lv['p50_ms']:.3f} ms, p99 {lv['p99_ms']:.3f} ms, max {lv['max_ms']:.3f} ms; "
+                f"K1 {k1}; gen-2 GCs {gcp.n} ({gcp.ms:.1f} ms); device {dev_ms} ms of "
+                f"{wall_s * 1e3:.1f} ms wall, idle share {lv['idle_share']}; p50 of the "
+                f"coordinators' spans (ms) {lv['stages_p50_ms']}")
+        h["h1"] = levels
+        h["h1_breakers"] = [p["breaker_opened"] for p in peers_snapshot()]
+        assert not any(h["h1_breakers"]), h["h1_breakers"]
+
+        # ---- (h2) answers that cross nodes
+        fa, fb, fc, fd, fe = (int(x) for x in rng.choice(n_rows, 5, replace=False))
+        sr = int(rng.integers(H_SPARSE_ROWS))
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            cache = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r]).sum(axis=1, dtype=np.int64), range(n_rows))))
+            inter = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r] & H[fa]).sum(axis=1, dtype=np.int64),
+                range(n_rows))))
+        nest = (f"Count(Union(Difference(Row(f={fa}), Row(f={fb})), "
+                f"Xor(Row(f={fc}), Intersect(Row(f={fd}), Row(f={fe})))))")
+        want_nest = np_count((H[fa] & ~H[fb]) | (H[fc] ^ (H[fd] & H[fe])))
+        s_cols = scols[srows == sr].astype(np.int64)
+        fbits_flat = np.unpackbits(H[fa].view(np.uint8), axis=1,
+                                   bitorder="little").reshape(-1).view(bool)
+        want_s_and_f = s_cols[fbits_flat[s_cols]]
+        fbits = np.unpackbits(H[fa].view(np.uint8), axis=1, bitorder="little").view(bool)
+        vals, nn, want_vc = bsi["vals"], bsi["nn"], bsi["want_vc"]
+        ph = start("h2_cross_node")
+        timed = {}
+        e0 = [eng.snapshot() for eng in engines]
+        with memos_off(), GcPauses() as gcp:
+            # Each node twice: the first call gathers the leaves of the
+            # shard sets it has not served yet (v's planes, TopN's
+            # candidates), the repeat finds them resident.
+            for rep in ("", "_warm"):
+                for srv in servers:
+                    def run(name, pql):
+                        t0 = time.perf_counter()
+                        got = query(srv.port, "big", pql)
+                        timed.setdefault(name + rep, []).append(
+                            (time.perf_counter() - t0) * 1e3)
+                        return got
+
+                    assert run("nest", nest) == [want_nest], srv.node.id
+                    got = run("row", f"Row(s={sr})")[0]
+                    assert got["columns"] == s_cols.tolist(), srv.node.id
+                    got = run("row_and", f"Intersect(Row(s={sr}), Row(f={fa}))")[0]
+                    assert got["columns"] == want_s_and_f.tolist(), srv.node.id
+                    got = run("topn", "TopN(f, n=10)")[0]
+                    assert [(p["id"], p["count"]) for p in got] == replay_topn(
+                        cache, cache, 10), got
+                    got = run("topn_filter", f"TopN(f, Row(f={fa}), n=10)")[0]
+                    assert [(p["id"], p["count"]) for p in got] == replay_topn(
+                        inter, cache, 10), got
+                    for kind in ("sum", "min", "max"):
+                        got = run(kind, f"{kind.title()}(Row(f={fa}), field=v)")[0]
+                        want_k = (want_vc(kind, nn & fbits) if kind == "sum" else
+                                  fold_val_count(srv, kind, vals, nn & fbits, n_shards))
+                        assert (got["value"], got["count"]) == want_k, (kind, got, want_k)
+        # The executor's own reduce: peers' Rows merged onto the card.
+        row = servers[0].executor.execute("big", f"Row(s={sr})")[0]
+        assert row.columns().astype(np.int64).tolist() == s_cols.tolist()
+        assert all(seg.device.type == servers[0].holder.device.type
+                   for seg in row.segments.values())
+        end(ph, "gather_expr_count", "masked_plane_counts", "bsi_minmax", quiet=engines)
+        h["h2_ms"] = timed
+        h["h2_engines"] = {k: sum(e[k] - b[k] for e, b in zip(
+            (eng.snapshot() for eng in engines), e0)) for k in (
+            "leaf_misses", "leaf_hits", "stack_misses", "full_refresh_bytes",
+            "leaf_evictions", "stack_evictions", "leaf_tier_hits")}
+        h["h2_gc"] = (gcp.n, gcp.ms)
+        log(f"main (h2) [{smi}]: from every node a Union/Difference/Xor nest, Row(s={sr}) "
+            f"({len(s_cols)} columns over {n_shards} shards) and its Intersect with Row(f={fa}), "
+            f"TopN(f, n=10), TopN(f, Row(f={fa}), n=10) and Sum/Min/Max of v with Row(f={fa}) "
+            f"equal numpy (TopN the two-phase replay); a peer's Row merged on the card; ms per "
+            f"node: " + "; ".join(f"{k} {', '.join(f'{x:.1f}' for x in v)}"
+                                   for k, v in timed.items())
+            + f"; gen-2 GCs {gcp.n} ({gcp.ms:.1f} ms); engines {h['h2_engines']}")
+
+        # ---- (h3) failover: a dropped link, then a closed node
+        q_srv = target = None
+        for srv in servers:
+            for shard in range(n_shards):
+                owners = srv.cluster.shard_nodes("big", shard)
+                if all(n.id != srv.node.id for n in owners):
+                    q_srv, target = srv, owners[0]
+                    break
+            if q_srv is not None:
+                break
+        assert q_srv is not None, "every node holds every shard"
+        sel = every[:64]
+        for a, b in sel:
+            if (int(a), int(b)) not in want:
+                want[(int(a), int(b))] = want_pair(int(a), int(b))
+        qs = [(f"Count(Intersect(Row(f={a}), Row(f={b})))", want[(int(a), int(b))])
+              for a, b in sel]
+        ph = start("h3_failover")
+        b0 = q_srv.cluster.health.snapshot()
+        failpoints.configure(f"client-send@{target.uri}", "drop")
+        try:
+            t0 = time.perf_counter()
+            with memos_off():
+                for pql, w in qs:
+                    assert query(q_srv.port, "big", pql) == [w], pql
+            drop_s = time.perf_counter() - t0
+            b1 = q_srv.cluster.health.snapshot()
+        finally:
+            failpoints.reset()
+        assert b1["peers"][target.id]["state"] != CLOSED, b1["peers"]
+        assert b1["breaker_opened"] > b0["breaker_opened"], b1
+        t0 = time.perf_counter()
+        closed = False
+        while time.perf_counter() - t0 < 30 and not closed:
+            for srv in servers:
+                srv._monitor_members()
+            assert query(q_srv.port, "big", qs[0][0]) == [qs[0][1]]
+            closed = all(p["state"] == CLOSED
+                         for p in q_srv.cluster.health.snapshot()["peers"].values())
+        recover_s = time.perf_counter() - t0
+        assert closed, q_srv.cluster.health.snapshot()["peers"]
+        # Close one node; the other three answer every query from the
+        # replicas of its shards.
+        victim = next(srv for srv in servers if srv is not q_srv)
+        victim_ladder = {k: victim.executor.engine.snapshot()[k] for k in LADDER}
+        assert not any(victim_ladder.values()), victim_ladder
+        victim.close()
+        alive = [srv for srv in servers if srv is not victim]
+        t0 = time.perf_counter()
+        with memos_off():
+            for srv in alive:
+                for pql, w in qs[:16]:
+                    assert query(srv.port, "big", pql) == [w], (srv.node.id, pql)
+        dead_s = time.perf_counter() - t0
+        end(ph, "gather_expr_count", quiet=[srv.executor.engine for srv in alive])
+        b2 = q_srv.cluster.health.snapshot()
+        h["h3"] = dict(query_node=q_srv.node.id, dropped=target.id, drop_queries=len(qs),
+                       drop_s=drop_s, recover_s=recover_s, closed_node=victim.node.id,
+                       dead_queries=16 * len(alive), dead_s=dead_s,
+                       breaker={k: b2[k] - b0[k] for k in (
+                           "breaker_opened", "breaker_closed", "breaker_short_circuits",
+                           "half_open_probes", "retries_spent", "retries_denied",
+                           "hedges_fired", "hedges_won")})
+        log(f"main (h3) [{smi}]: {q_srv.node.id}'s link to {target.id} dropped: {len(qs)} "
+            f"Counts equal numpy from the replicas in {drop_s:.2f} s, breaker "
+            f"{b1['peers'][target.id]['state']}; healed, breakers closed in {recover_s:.2f} s; "
+            f"{victim.node.id} closed: {16 * len(alive)} Counts from the other three equal "
+            f"numpy in {dead_s:.2f} s; breaker counters {h['h3']['breaker']}")
+
+        # ---- (h4) anti-entropy: a Set on one replica only, then the
+        # syncer. The divergence is in the sparse field s: the block merge
+        # ships every bit of a differing 100-row block, and a dense block
+        # of f holds ~52M bits. The sweep's step for that fragment runs
+        # as sync_holder runs it; one dense f fragment's block checksums
+        # (every set position hashed, 8 bytes per bit) are timed beside it.
+        live = {srv.node.id: srv for srv in alive}
+        shard = next(s for s in range(n_shards)
+                     if all(n.id in live for n in alive[0].cluster.shard_nodes("big", s)))
+        rep_a, rep_b = (live[n.id] for n in alive[0].cluster.shard_nodes("big", shard))
+        s_set = set(s_cols.tolist())
+        col = next(shard * SHARD_WIDTH + int(c) for c in np.flatnonzero(np.unpackbits(
+            H[fa, shard].view(np.uint8), bitorder="little"))
+            if shard * SHARD_WIDTH + int(c) not in s_set)
+        b_shards = [s for s in range(n_shards) if any(
+            n.id == rep_b.node.id for n in rep_b.cluster.shard_nodes("big", s))]
+        pair_q = f"Count(Intersect(Row(s={sr}), Row(f={fa})))"
+        row_q = f"Count(Row(s={sr}))"
+
+        def local_count(srv, pql, shards):
+            """A node's own answer over `shards` (a forwarded request:
+            ?remote=true answers typed values, {"type", "value"})."""
+            status, got = http(srv.port, "POST", "/index/big/query?remote=true",
+                               {"query": pql, "shards": shards})
+            assert status == 200, got
+            return got["results"][0]["value"]
+
+        def want_local(cols, shards):
+            cols = np.asarray(sorted(cols), dtype=np.int64)
+            return int(np.count_nonzero(np.isin(cols // SHARD_WIDTH, shards)
+                                        & fbits_flat[cols]))
+
+        ph = start("h4_anti_entropy")
+        with memos_off():
+            # Both replicas' leaves resident before the divergence.
+            assert local_count(rep_b, pair_q, b_shards) == want_local(s_set, b_shards)
+            before = [local_count(r, row_q, [shard]) for r in (rep_a, rep_b)]
+            assert before[0] == before[1], before
+            status, got = http(rep_a.port, "POST", "/index/big/query?remote=true",
+                               f"Set({col}, s={sr})")
+            assert status == 200 and got["results"] == [{"type": "bool", "value": True}], got
+            counts = [local_count(r, row_q, [shard]) for r in (rep_a, rep_b)]
+            assert counts == [before[0] + 1, before[1]], counts
+            e0 = rep_b.executor.engine.snapshot()
+            syncer = HolderSyncer(rep_a)
+            t0 = time.perf_counter()
+            syncer._sync_fragment("big", "s", "standard", shard,
+                                  syncer._remote_replicas("big", shard))
+            sync_s = time.perf_counter() - t0
+            s_set.add(col)
+            assert [local_count(r, row_q, [shard]) for r in (rep_a, rep_b)] == [counts[0]] * 2
+            assert local_count(rep_b, pair_q, b_shards) == want_local(s_set, b_shards)
+            e1 = rep_b.executor.engine.snapshot()
+        dd = {k: e1[k] - e0[k] for k in ("leaf_delta_hits", "stack_delta_hits", "delta_bytes",
+                                         "full_refresh_bytes")}
+        assert dd["full_refresh_bytes"] == 0, dd
+        assert dd["leaf_delta_hits"] + dd["stack_delta_hits"] >= 1, dd
+        end(ph, "gather_expr_count", quiet=[srv.executor.engine for srv in alive])
+        for srv in alive:
+            assert query(srv.port, "big", pair_q) == [want_local(s_set, range(n_shards))]
+        frag = rep_a.holder.fragment("big", "f", "standard", shard)
+        frag.invalidate_checksums()
+        t0 = time.perf_counter()
+        n_blocks = len(frag.blocks())
+        dense_blocks_s = time.perf_counter() - t0
+        h["h4"] = dict(shard=shard, replicas=[rep_a.node.id, rep_b.node.id], sync_s=sync_s,
+                       delta=dd, dense_fragment_blocks_s=dense_blocks_s,
+                       dense_fragment_blocks=n_blocks)
+        log(f"main (h4) [{smi}]: Set({col}, s={sr}) on {rep_a.node.id} alone: shard {shard}'s "
+            f"{row_q} {counts[0]} there, {counts[1]} on {rep_b.node.id}; the syncer repaired "
+            f"the fragment in {sync_s:.3f} s, and {rep_b.node.id}'s K1 {pair_q} over its "
+            f"{len(b_shards)} shards equals numpy, refreshed by a delta {dd}; one dense f "
+            f"fragment's {n_blocks} block checksums took {dense_blocks_s:.2f} s")
+        h["engines"] = {srv.node.id: srv.executor.engine.snapshot() for srv in alive}
+        h["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"main (h) [{smi}]: peak device memory over (h) "
+            f"{h['max_memory_allocated_gib']:.2f} GiB")
+    finally:
+        failpoints.reset()
+        for srv in servers:
+            if srv.opened:
+                srv.close()
+    out["h"] = h
 
 
 def cli_server_flow(device=None):

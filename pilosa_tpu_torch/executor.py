@@ -37,9 +37,17 @@ spans naming the rung, the micro-batcher (sched/batcher.py) for Counts
 and bitmaps, string-key translation (executor.py:2059-2140 of the JAX
 package), and the write routing through the shard owners with hint
 capture and the [replication] consistency gate (executor.py:1588-1942,
-2024-2057). On one node every owner is this node. Not ported yet, and
-refused when asked: the read path's peer fan-out (a cluster of more than
-one node), the collective plane, and point-in-time reads (at_position).
+2024-2057).
+
+The read path's peer fan-out (executor.py:460-818 of the JAX package):
+shards are assigned to owners preferring this node, each peer gets one
+batched query for its shards over HTTP, and the answers reduce as the
+reference reduces them (Counts add, Rows merge, ValCounts add, take the
+smaller or the larger, TopN pairs add and sort). A failed peer's shards
+re-map onto replicas within the retry budget, a 409 gets one free
+re-route, and with a worker pool a slow peer's batch is hedged on a
+replica. Not ported yet, and refused when asked: the collective plane
+and point-in-time reads (at_position).
 """
 
 from __future__ import annotations
@@ -256,8 +264,13 @@ class Executor:
                 f"too many writes: {len(query.write_calls())} > {self.max_writes_per_request}"
             )
         opt = opt or ExecOptions()
+        if opt.remote and opt.entry_epoch is None:
+            # The anchor of the forwarded execution's post-gather re-check
+            # (_fan_out): taken before the stale-epoch gate below.
+            opt.entry_epoch = self.cluster.routing_epoch
         if opt.at_position is not None:
-            raise not_ported("point-in-time reads (at_position, CDC)")
+            raise not_ported("point-in-time reads (at_position, CDC; "
+                             "ROADMAP Queue 1 item 4)")
         if opt.max_staleness is not None and self.geo is not None:
             self.geo.check_staleness(opt.max_staleness)
         if self.geo is not None and not opt.remote and query.write_calls():
@@ -268,6 +281,18 @@ class Executor:
         if not shards and needs_shards:
             shards = list(range(idx.max_shard() + 1))
         shards = list(shards or [])
+        if opt.remote and (opt.epoch or 0) < self.cluster.routing_epoch:
+            # The sender routed under an older placement than ours: a
+            # shard we no longer own would read as a silent hole. 409
+            # instead; the sender re-routes once on refreshed placement.
+            for shard in shards:
+                if not self._serves_shard(index, shard):
+                    from .errors import StaleRoutingEpochError
+
+                    raise StaleRoutingEpochError(
+                        f"shard {shard} of {index} no longer served here "
+                        f"(request epoch {opt.epoch} < local "
+                        f"{self.cluster.routing_epoch})")
         results = [self._execute_call(index, call, shards, opt)
                    for call in query.calls]
         return [self._translate_result(index, idx, call, r)
@@ -302,32 +327,60 @@ class Executor:
 
     # ----------------------------------------------------------- mapReduce
 
-    def _fan_out(self, shards: List[int], opt: ExecOptions,
-                 local_runner: Callable):
-        """The single node's fan-out: every shard is local, so the runner
-        takes them all in one call (the reference's _fan_out with no
-        remote owner). A cluster of more than one node needs the peer
-        fan-out, which is not ported yet."""
-        if len(self.cluster.nodes) > 1 and not opt.remote:
-            raise not_ported("the read path's peer fan-out")
-        if not shards:
-            return None
-        trace = obs_current()
-        t0 = _time.monotonic()
-        if opt.deadline is not None:
-            opt.deadline.check("local dispatch")
-        result = local_runner(list(shards))
-        if trace is not None:
-            trace.record("executor.fanout",
-                         (_time.monotonic() - t0) * 1000.0, shards=len(shards))
-        return result
+    def _assign_shards(self, index: str, shards: List[int], exclude=()):
+        """Shards -> (local list, {node_id: shards}) using health info
+        (executor.py:460-500 of the JAX package).
 
-    def _map_reduce(self, shards: List[int], opt: ExecOptions,
-                    map_fn: Callable, reduce_fn: Callable):
+        Prefers self when a replica (maximizes local device work,
+        executor.go:1444-1458); skips nodes in `exclude` and peers whose
+        circuit breaker refuses traffic. The breaker gate is consulted
+        lazily in placement order and memoized per assignment round, so a
+        down peer whose backoff elapsed is admitted for its WHOLE shard
+        batch: that one batched request is the half-open probe, and its
+        outcome (recorded by the fan-out) decides re-close vs re-open."""
+        if len(self.cluster.nodes) == 1 and self.node.id not in exclude:
+            # One node owns every shard: skip the per-shard placement hash
+            # (~1.4 ms of host time per 256-shard query on the H100's host,
+            # chip_smoke.py (g2)'s profile).
+            return list(shards), {}
+        health = self.cluster.health
+        admitted: Dict[str, bool] = {}
+
+        def ok(node_id: str) -> bool:
+            if node_id not in admitted:
+                admitted[node_id] = health.allow_request(node_id)
+            return admitted[node_id]
+
+        local: List[int] = []
+        remote: Dict[str, List[int]] = {}
+        for shard in shards:
+            nodes = self.cluster.shard_nodes(index, shard)
+            owner = None
+            if any(n.id == self.node.id for n in nodes) and (
+                    self.node.id not in exclude):
+                owner = self.node
+            else:
+                for n in nodes:  # placement order, like the reference
+                    if n.id in exclude:
+                        continue
+                    if ok(n.id):
+                        owner = n
+                        break
+            if owner is None:
+                raise PilosaError(f"no available node owns shard {shard}")
+            if owner.id == self.node.id:
+                local.append(shard)
+            else:
+                remote.setdefault(owner.id, []).append(shard)
+        return local, remote
+
+    def _map_reduce(self, index: str, shards: List[int], c: Call,
+                    opt: ExecOptions, map_fn: Callable, reduce_fn: Callable):
         """The per-shard walk for trees the engine does not compile, and
-        the ladder's rung for device work with no host twin: one shard at
-        a time (on the pool when there is one), the deadline checked
-        before each, reduced in shard order (None over no shards)."""
+        the ladder's rung for device work with no host twin: this node's
+        shards one at a time (on the pool when there is one), the
+        deadline checked before each; peers get one batched query each
+        through the fan-out."""
         deadline = opt.deadline
 
         def checked_map(shard):
@@ -345,7 +398,248 @@ class Executor:
                 result = v if result is None else reduce_fn(result, v)
             return result
 
-        return self._fan_out(shards, opt, local_runner)
+        return self._fan_out(index, shards, c, opt, local_runner, reduce_fn)
+
+    def _serves_shard(self, index: str, shard: int) -> bool:
+        """True when this node serves (index, shard) under the current
+        routing view: the one predicate behind every stale-placement gate
+        (the entry 409 and the post-gather re-checks)."""
+        return any(n.id == self.node.id
+                   for n in self.cluster.shard_nodes(index, shard))
+
+    def _fan_out(self, index: str, shards: List[int], c: Call,
+                 opt: ExecOptions, local_runner: Callable,
+                 reduce_fn: Callable):
+        """Group shards by owning node (executor.py:543-725 of the JAX
+        package, executor.go:1464-1555): this node's shards go to
+        `local_runner` in one call, each peer gets one batched query for
+        its shards, and the answers fold through `reduce_fn`. A failed
+        peer is excluded and its shards re-mapped onto replicas within
+        the retry budget; a 4xx is retried on a replica and surfaces
+        once the owners are exhausted; a 409 (a routing conflict) gets
+        one free re-route. A forwarded execution (opt.remote) runs
+        exactly the shards it was handed."""
+        from .server.client import ClientError
+
+        if opt.remote:
+            if not shards:
+                return None
+            # A cutover committing after the entry gate can GC a moved
+            # shard's fragment mid-read: compare against the epoch that
+            # execute() anchored before the gate, and 409 back to the
+            # sender for its free re-route.
+            epoch_at_entry = opt.entry_epoch
+            if epoch_at_entry is None:
+                epoch_at_entry = self.cluster.routing_epoch
+            v = local_runner(list(shards))
+            if self.cluster.routing_epoch != epoch_at_entry:
+                moved = [s for s in shards if not self._serves_shard(index, s)]
+                if moved:
+                    self._count_stat("RemoteEpochReread")
+                    from .errors import StaleRoutingEpochError
+
+                    raise StaleRoutingEpochError(
+                        f"shards {sorted(moved)} of {index} moved during "
+                        f"forwarded execution (epoch {epoch_at_entry} -> "
+                        f"{self.cluster.routing_epoch})")
+            return v
+
+        trace = obs_current()
+        reduce_acc = [0.0]
+        if trace is not None:
+            # One "reduce" span per fan-out (the accumulated merge cost),
+            # not one per reduce_fn call.
+            t_fanout = _time.monotonic()
+            inner_reduce = reduce_fn
+
+            def reduce_fn(a, b, _f=inner_reduce):
+                t0 = _time.monotonic()
+                r = _f(a, b)
+                reduce_acc[0] += _time.monotonic() - t0
+                return r
+
+        result = None
+        failed: set = set()
+        app_error = None
+        pending = list(shards)
+        while pending:
+            # The epoch BEFORE the placement read: the dispatch stamp and
+            # the local re-check reflect the routing decision, not the
+            # epoch at send time.
+            epoch_at_assign = self.cluster.routing_epoch
+            try:
+                local, remote = self._assign_shards(index, pending, exclude=failed)
+            except PilosaError:
+                if app_error is not None:
+                    # Owners exhausted chasing a deterministic 4xx: the
+                    # application error is the real story.
+                    raise app_error
+                raise
+            pending = []
+            if local:
+                if opt.deadline is not None:
+                    opt.deadline.check("local dispatch")
+                v = local_runner(local)
+                moved = [] if self.cluster.routing_epoch == epoch_at_assign else [
+                    s for s in local if not self._serves_shard(index, s)]
+                if moved:
+                    # A cutover committed since this batch was assigned:
+                    # a moved shard may have read as empty. Discard the
+                    # batch and re-run it on refreshed placement.
+                    self._count_stat("LocalEpochReread")
+                    pending.extend(local)
+                elif v is not None:
+                    result = v if result is None else reduce_fn(result, v)
+            for node_id, node_shards in remote.items():
+                node = self.cluster.node_by_id(node_id)
+                kw = {}
+                if epoch_at_assign:
+                    kw["epoch"] = epoch_at_assign
+                if opt.deadline is not None:
+                    # Abort before the hop, and forward only the remaining
+                    # budget so the peer never works past our cutoff.
+                    opt.deadline.check("remote fan-out")
+                    kw["deadline"] = opt.deadline.remaining()
+                if opt.tenant is not None:
+                    kw["tenant"] = opt.tenant
+                try:
+                    v = self._remote_dispatch(node, index, c, node_shards, kw)
+                except ClientError as e:
+                    if opt.deadline is not None and opt.deadline.expired():
+                        # The peer failed while our budget ran out: abort
+                        # as a deadline miss instead of chasing replicas.
+                        opt.deadline.check("remote fan-out")
+                    if not _is_node_failure(e):
+                        # 4xx: the peer executed and rejected the query.
+                        # Transport success for the breaker (a half-open
+                        # probe must re-close), but try a replica before
+                        # surfacing it: it may be transient schema lag.
+                        self.health.record_success(node_id)
+                        app_error = app_error or e
+                        failed.add(node_id)
+                        if getattr(e, "status", 0) == 409:
+                            # A routing conflict: one free re-route on
+                            # refreshed placement, outside the budget.
+                            self._count_stat("StaleEpochReroute")
+                            pending.extend(node_shards)
+                            continue
+                        if not self.health.try_spend_retry():
+                            raise app_error
+                        pending.extend(node_shards)
+                        continue
+                    # The breaker already advanced inside _remote_dispatch.
+                    # Re-map the shards onto replicas, within the budget,
+                    # so a brown-out cannot amplify load onto survivors.
+                    failed.add(node_id)
+                    if not self.health.try_spend_retry():
+                        raise PilosaError(
+                            f"retry budget exhausted re-mapping shards of "
+                            f"{node_id}: {e}")
+                    pending.extend(node_shards)
+                    continue
+                result = v if result is None else reduce_fn(result, v)
+        if trace is not None:
+            trace.record("executor.fanout",
+                         (_time.monotonic() - t_fanout) * 1000.0, shards=len(shards))
+            trace.record("reduce", reduce_acc[0] * 1000.0)
+        return result
+
+    def _on_device(self, v):
+        """A peer's answer with its Row segments on this node's device
+        (the wire decodes them on the host), so the reduce merges
+        segments of one device."""
+        if isinstance(v, Row):
+            dev = self.holder.device
+            v.segments = {s: t.to(dev) for s, t in v.segments.items()}
+        return v
+
+    def _remote_dispatch(self, node, index: str, c: Call, node_shards, kw):
+        """One batched query to a peer (executor.py:727-798 of the JAX
+        package), with per-peer latency and breaker accounting and, when
+        the executor has a pool, a hedged backup request: if the primary
+        has not answered within the peer's hedge delay (rolling p99 or
+        the configured fixed delay), the same shard batch goes to a
+        replica that owns every shard of it, and the first good answer
+        wins. The health registry caps the hedge volume."""
+        from .server.client import ClientError
+
+        health = self.health
+        # Captured in the request thread: hedge legs run on pool threads
+        # where the obs contextvar is not set, so the trace travels by
+        # closure and each leg records its own remote:<peer> span.
+        trace = obs_current()
+
+        def call(target):
+            """One request with health accounting: success and transport
+            failure are recorded here, whatever thread runs it, so a
+            losing hedge leg still drives its peer's breaker."""
+            t0 = _time.monotonic()
+            sp = (trace.span(f"remote:{target.id}", shards=len(node_shards))
+                  if trace is not None else NOP_SPAN)
+            call_kw = kw if trace is None else {**kw, "trace": sp}
+            with sp:
+                try:
+                    res = self.client.query_node(
+                        target, index, str(c), shards=node_shards,
+                        remote=True, **call_kw)[0]
+                except ClientError as e:
+                    if _is_node_failure(e):
+                        health.record_failure(target.id)
+                    raise
+            health.record_success(target.id, _time.monotonic() - t0)
+            return self._on_device(res)
+
+        if self._pool is None or not health.hedge_enabled():
+            return call(node)
+        hedge_node = self._hedge_replica(index, node, node_shards)
+        if hedge_node is None:
+            return call(node)
+        from concurrent.futures import FIRST_COMPLETED, wait
+        from concurrent.futures import TimeoutError as FuturesTimeout
+
+        primary = self._pool.submit(call, node)
+        try:
+            # A fast primary failure raises here and takes the normal
+            # replica-retry classification.
+            return primary.result(timeout=health.hedge_delay(node.id))
+        except FuturesTimeout:
+            pass
+        if not health.allow_hedge():
+            return primary.result()
+        hedge = self._pool.submit(call, hedge_node)
+        futures = {primary, hedge}
+        errors = {}
+        while futures:
+            done, futures = wait(futures, return_when=FIRST_COMPLETED)
+            for fut in done:
+                err = fut.exception()
+                if err is None:
+                    if fut is hedge:
+                        health.note_hedge_won()
+                    return fut.result()
+                errors[fut] = err
+        # Both legs failed: surface the primary's error so the caller
+        # re-maps the shards it actually assigned.
+        raise errors.get(primary) or errors[hedge]
+
+    def _hedge_replica(self, index: str, primary, node_shards):
+        """A routable peer (breaker closed, not self, not the primary)
+        that owns every shard of the batch, or None: when replicas do not
+        align, hedging is skipped rather than splitting the batch."""
+        health = self.health
+        common = None
+        for shard in node_shards:
+            ids = {n.id for n in self.cluster.shard_nodes(index, shard)}
+            common = ids if common is None else common & ids
+            if not common or common == {primary.id}:
+                return None
+        for nid in sorted(common):
+            if nid in (primary.id, self.node.id) or health.is_down(nid):
+                continue
+            n = self.cluster.node_by_id(nid)
+            if n is not None:
+                return n
+        return None
 
     def _count_stat(self, name: str) -> None:
         """holder.stats.count guarded for library use (a holder opened
@@ -358,71 +652,90 @@ class Executor:
         self.logger.error("device %s dispatch failed (%s), serving it from "
                           "the %s rung: %s", what, e.kind, rung, e)
 
-    def _shard_rung(self, shards: List[int], opt: ExecOptions,
-                    map_fn: Callable, reduce_fn: Callable):
+    def _shard_rung(self, index: str, shards: List[int], c: Call,
+                    opt: ExecOptions, map_fn: Callable, reduce_fn: Callable):
         """The per-shard walk as a ladder rung, in a `device.dispatch`
         span naming it."""
         with obs_span("device.dispatch", rung="shard", shards=len(shards)):
-            return self._map_reduce(shards, opt, map_fn, reduce_fn)
+            return self._map_reduce(index, shards, c, opt, map_fn, reduce_fn)
+
+    @staticmethod
+    def _walk_local(local_shards, map_fn: Callable, reduce_fn: Callable):
+        """A local batch's per-shard rung: the reference walk over this
+        node's shards only, in a `device.dispatch` span naming it."""
+        result = None
+        with obs_span("device.dispatch", rung="shard", shards=len(local_shards)):
+            for s in local_shards:
+                v = map_fn(s)
+                result = v if result is None else reduce_fn(result, v)
+        return result
 
     def _batched_or_map_reduce(self, index: str, c: Call, shards: List[int],
                                opt: ExecOptions, kind: str, map_fn: Callable,
                                reduce_fn: Callable, child: Optional[Call] = None):
-        """One device program over all shards when the tree compiles
-        (kind "count" or "bitmap"), through the micro-batcher when the
-        server wired one, under the device-fault ladder: the breakers
-        route a quarantined signature to the per-shard walk and an open
-        plane to host execution before any device work, and a dispatch
-        that fails mid-request falls one rung down for this query — the
+        """One device program over this node's shards when the tree
+        compiles (kind "count" or "bitmap"), through the micro-batcher
+        when the server wired one, under the device-fault ladder; peers
+        answer for theirs through the fan-out. The breakers route a
+        quarantined signature to the per-shard walk and an open plane to
+        host execution before any device work, and a dispatch that fails
+        mid-request falls one rung down for this node's batch: the
         breakers make the routing sticky for the next. Each rung runs in
         a `device.dispatch` span naming it."""
         target = child if child is not None else c
         plan = self._supports(index, target, shards)
         if not plan:
-            return self._map_reduce(shards, opt, map_fn, reduce_fn)
+            return self._map_reduce(index, shards, c, opt, map_fn, reduce_fn)
         eng = self.engine
         host_ok = kind == "count" and eng.host_supports(target)
+
+        def host_count(local_shards):
+            with obs_span("device.dispatch", rung="host", shards=len(local_shards)):
+                return eng.host_count(index, target, local_shards, plan=plan)
 
         def host_runner(local_shards):
             if opt.deadline is not None:
                 opt.deadline.check("host execution")
-            with obs_span("device.dispatch", rung="host", shards=len(local_shards)):
-                return eng.host_count(index, target, local_shards, plan=plan)
+            return host_count(local_shards)
 
         route = eng.route(plan.sig_tuple)
         if route == "shard":
             self._count_stat("DeviceSigQuarantined")
-            return self._shard_rung(shards, opt, map_fn, reduce_fn)
+            return self._shard_rung(index, shards, c, opt, map_fn, reduce_fn)
         if route == "host":
             self._count_stat("DeviceHostRouted")
             if host_ok:
-                return self._fan_out(shards, opt, host_runner)
-            return self._shard_rung(shards, opt, map_fn, reduce_fn)
+                return self._fan_out(index, shards, c, opt, host_runner, reduce_fn)
+            return self._shard_rung(index, shards, c, opt, map_fn, reduce_fn)
 
         def local_runner(local_shards):
             if opt.deadline is not None:
                 opt.deadline.check("device dispatch")
-            with obs_span("device.dispatch", rung="device",
-                          shards=len(local_shards)) as sp:
-                if sp is not NOP_SPAN:
-                    sp.tag(sig=str(plan.sig_tuple))
-                if kind == "count":
+            try:
+                with obs_span("device.dispatch", rung="device",
+                              shards=len(local_shards)) as sp:
+                    if sp is not NOP_SPAN:
+                        sp.tag(sig=str(plan.sig_tuple))
+                    if kind == "count":
+                        if self.batcher is not None:
+                            return self.batcher.count(
+                                index, target, local_shards, plan=plan,
+                                deadline=opt.deadline)
+                        return eng.count(index, target, local_shards, plan=plan)
                     if self.batcher is not None:
-                        return self.batcher.count(index, target, local_shards,
-                                                  plan=plan, deadline=opt.deadline)
-                    return eng.count(index, target, local_shards, plan=plan)
-                if self.batcher is not None:
-                    return self.batcher.bitmap(index, target, local_shards,
-                                               plan=plan, deadline=opt.deadline)
-                return eng.bitmap(index, target, local_shards, plan=plan)
+                        return self.batcher.bitmap(
+                            index, target, local_shards, plan=plan,
+                            deadline=opt.deadline)
+                    return eng.bitmap(index, target, local_shards, plan=plan)
+            except DeviceDispatchError as e:
+                # One rung down for this batch: the breaker state decides
+                # where the next query routes; this query still answers.
+                self._fallback(kind, e, "host" if host_ok else "shard")
+                if host_ok:
+                    return host_count(local_shards)
+                return self._walk_local(local_shards, map_fn, reduce_fn)
 
-        try:
-            return self._fan_out(shards, opt, local_runner)
-        except DeviceDispatchError as e:
-            self._fallback(kind, e, "host" if host_ok else "shard")
-            if host_ok:
-                return self._fan_out(shards, opt, host_runner)
-            return self._shard_rung(shards, opt, map_fn, reduce_fn)
+        return self._fan_out(index, shards, c, opt, local_runner, reduce_fn)
 
     # ------------------------------------------------------------- bitmaps
 
@@ -586,34 +899,37 @@ class Executor:
         reduce_fn = {"sum": ValCount.add, "min": ValCount.smaller,
                      "max": ValCount.larger}[kind]
 
-        def walk() -> ValCount:
-            return self._map_reduce(
-                shards, opt, lambda s: self._execute_val_count_shard(index, c, s, kind),
-                reduce_fn) or ValCount()
+        def map_fn(shard):
+            return self._execute_val_count_shard(index, c, shard, kind)
 
-        def device(local_shards):
-            with obs_span("device.dispatch", rung="device", shards=len(local_shards)):
-                return self.engine.bsi_val_count(
-                    index, field_name, kind, bsig.bit_depth(), local_shards,
-                    filter_call)
+        def local_runner(local_shards):
+            # One K2 (Sum) or K3 (Min/Max) program over this node's
+            # shards, composed here so that peers' composed ValCounts and
+            # this node's reduce alike (executor.py:1175-1201 of the JAX
+            # package).
+            try:
+                with obs_span("device.dispatch", rung="device",
+                              shards=len(local_shards)):
+                    out = self.engine.bsi_val_count(
+                        index, field_name, kind, bsig.bit_depth(),
+                        local_shards, filter_call)
+            except DeviceDispatchError as e:
+                # The BSI scans have no host twin: this batch takes the
+                # per-shard walk, and the breaker reroutes the next query.
+                self._fallback("BSI", e, "shard")
+                return self._walk_local(local_shards, map_fn, reduce_fn)
+            return self._compose_bsi_result(bsig, kind, out)
 
-        # The BSI scans are device programs with no host twin, so the
-        # per-shard walk is their whole degraded ladder: an open plane
-        # breaker takes it BEFORE any dispatch, and a dispatch failing
-        # mid-request takes it for this query.
+        # The per-shard walk is the BSI scans' whole degraded ladder: an
+        # open plane breaker takes it before any dispatch.
         if (bsig is not None
                 and (self._supports(index, filter_call, shards)
                      if filter_call is not None else shards)
                 and self.engine.route() == "device"):
-            try:
-                result = self._compose_bsi_result(
-                    bsig, kind, self._fan_out(shards, opt, device))
-            except DeviceDispatchError as e:
-                self._fallback("BSI", e, "shard")
-                with obs_span("device.dispatch", rung="shard", shards=len(shards)):
-                    result = walk()
+            result = self._fan_out(index, shards, c, opt, local_runner, reduce_fn)
         else:
-            result = walk()
+            result = self._map_reduce(index, shards, c, opt, map_fn, reduce_fn)
+        result = result or ValCount()
         if result.count == 0:
             return ValCount()
         return result
@@ -692,39 +1008,40 @@ class Executor:
             raise QueryError("TopN() can only have one input bitmap")
         src_call = c.children[0] if c.children else None
 
-        def walk() -> List[Pair]:
-            return sort_pairs(self._map_reduce(
-                shards, opt, lambda s: self._execute_topn_shard(index, c, s),
-                add_pairs) or [])
+        def map_fn(shard):
+            return self._execute_topn_shard(index, c, shard)
 
         # Without a filter the host rank caches hold exact counts: the
         # per-shard walk needs no device work, as in the JAX package.
         if src_call is None or not self._supports(index, src_call, shards):
-            return walk()
+            return sort_pairs(self._map_reduce(
+                index, shards, c, opt, map_fn, add_pairs) or [])
         field_name = c.args.get("_field") or DEFAULT_FIELD
         thr = max(c.uint_arg("threshold")[0], DEFAULT_MIN_THRESHOLD)
         attr_name = c.args.get("attrName", "")
         attr_values = c.args.get("attrValues") or []
-        def batched(local_shards):
-            if ids:
-                return self._topn_candidates(
-                    index, field_name, ids, local_shards, src_call, thr,
-                    tanimoto, attr_name, attr_values)
-            return self._topn_ranked(
-                index, field_name, local_shards, src_call, TopOptions(
-                    n=c.uint_arg("n")[0], min_threshold=thr,
-                    filter_name=attr_name, filter_values=attr_values,
-                    tanimoto_threshold=tanimoto), opt.deadline)
 
-        try:
-            return self._fan_out(shards, opt, batched) or []
-        except DeviceDispatchError as e:
-            # Last rung: neither the device nor the host evaluator could
-            # serve the counts (a degraded plane and a source with no host
-            # twin, such as a BSI Range): the per-shard TopN walk.
-            self._fallback("TopN", e, "shard")
-            with obs_span("device.dispatch", rung="shard", shards=len(shards)):
-                return walk()
+        def local_runner(local_shards):
+            try:
+                if ids:
+                    return self._topn_candidates(
+                        index, field_name, ids, local_shards, src_call, thr,
+                        tanimoto, attr_name, attr_values)
+                return self._topn_ranked(
+                    index, field_name, local_shards, src_call, TopOptions(
+                        n=c.uint_arg("n")[0], min_threshold=thr,
+                        filter_name=attr_name, filter_values=attr_values,
+                        tanimoto_threshold=tanimoto), opt.deadline)
+            except DeviceDispatchError as e:
+                # Last rung: neither the device nor the host evaluator
+                # could serve the counts (a degraded plane and a source
+                # with no host twin, such as a BSI Range): the per-shard
+                # TopN walk over this node's shards.
+                self._fallback("TopN", e, "shard")
+                return self._walk_local(local_shards, map_fn, add_pairs)
+
+        return sort_pairs(self._fan_out(
+            index, shards, c, opt, local_runner, add_pairs) or [])
 
     def _topn_counts_laddered(self, index: str, field: str, ids, shards,
                               src_call: Optional[Call], need_rc: bool):

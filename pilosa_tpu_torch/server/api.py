@@ -623,9 +623,9 @@ class API:
     def collective_count(self, index: str, field: str, rows: List[int]) -> int:
         """Leader side of multi-host collective execution. The port has
         no collective plane until the multi-GPU slice (ROADMAP Queue 1
-        item 7): refused with the typed not-ported error."""
+        item 3): refused with the typed not-ported error."""
         self._validate("collective_count")
-        raise not_ported("collective_count (ROADMAP Queue 1 item 7)")
+        raise not_ported("collective_count (ROADMAP Queue 1 item 3)")
 
     def cluster_message(self, msg: dict) -> None:
         self._validate("cluster_message")

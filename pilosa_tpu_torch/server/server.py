@@ -1,16 +1,21 @@
 """Server: node composition root (port of reference server.go).
 
 Owns holder, cluster, executor, translate store, HTTP handler and the
-background loops (cache flush, hint delivery, runtime metrics,
-diagnostics). A copy of pilosa_tpu/server/server.py for ONE node: the
-constructor keeps the reference's parameters and construction order,
-threads `device` (the card unless the caller asks for the CPU) to the
-Holder, and refuses every setting that would start peer machinery with
-the typed not-ported error: other cluster hosts, join_addr, replica_n >
-1, a primary translate store, CDC, geo replication, the mux transport
-and the autoscaler (ROADMAP Queue 1 items 7 and 8), and an engine mesh
-wider than one device (item 7). There is no jax.distributed job and no
-collective backend: executor.collective stays None.
+background loops (anti-entropy, cache flush, hint delivery, member
+monitor, runtime metrics, diagnostics). A copy of
+pilosa_tpu/server/server.py: the constructor keeps the reference's
+parameters and construction order and threads `device` (the card unless
+the caller asks for the CPU) to the Holder. Cluster membership is static
+by config, as in the reference: `cluster_hosts` names every node (node id
+equals URI), `replica_n` places each shard on that many of them, and any
+node answers a query by fanning it out to the owners of the shards it
+does not hold. Refused with the typed not-ported error: a membership
+change (join_addr, and the node-join, node-leave, resize, rebalance and
+foreign cluster-status messages), a primary translate store, CDC, geo
+replication, the mux transport and the autoscaler (ROADMAP Queue 1 item
+4), and an engine mesh wider than one device or a collective-exec message
+(item 3). There is no jax.distributed job and no collective backend:
+executor.collective stays None.
 """
 
 from __future__ import annotations
@@ -93,8 +98,7 @@ class Server:
         # raises before anything is built.
         self.device = resolve_device(device)
         self._refuse_peer_settings(
-            host, port, cluster_hosts, join_addr, replica_n,
-            primary_translate_store_url, cdc_config, geo_config,
+            join_addr, primary_translate_store_url, cdc_config, geo_config,
             transport_config, autoscale_config, engine_config)
         self.data_dir = data_dir
         self.host = host
@@ -413,38 +417,38 @@ class Server:
         self.opened = False
 
     @staticmethod
-    def _refuse_peer_settings(host, port, cluster_hosts, join_addr, replica_n,
-                              primary_translate_store_url, cdc_config,
-                              geo_config, transport_config, autoscale_config,
-                              engine_config) -> None:
-        """One node only: each setting that would start peer machinery
-        raises the typed not-ported error naming it and the ROADMAP item
-        that lifts it."""
-        own = f"{host}:{port}"
-        others = [h for h in (cluster_hosts or [])
-                  if h.split("://", 1)[-1] != own]
+    def _refuse_peer_settings(join_addr, primary_translate_store_url,
+                              cdc_config, geo_config, transport_config,
+                              autoscale_config, engine_config) -> None:
+        """A static cluster only: each setting that would start other peer
+        machinery raises the typed not-ported error naming it and the
+        ROADMAP item that lifts it."""
         refused = [
-            (others, f"cluster_hosts naming other nodes {others} "
-                     "(ROADMAP Queue 1 item 8)"),
-            (join_addr, "join_addr (ROADMAP Queue 1 item 8)"),
-            (replica_n > 1, f"replica_n = {replica_n} (ROADMAP Queue 1 item 8)"),
+            (join_addr, "join_addr (ROADMAP Queue 1 item 4)"),
             (primary_translate_store_url,
-             "primary_translate_store_url (ROADMAP Queue 1 item 8)"),
+             "primary_translate_store_url (ROADMAP Queue 1 item 4)"),
             (cdc_config is not None and cdc_config.enabled,
-             "cdc_config.enabled (ROADMAP Queue 1 item 8)"),
+             "cdc_config.enabled (ROADMAP Queue 1 item 4)"),
             (geo_config is not None and geo_config.role != "none",
              f"geo_config.role = {getattr(geo_config, 'role', None)!r} "
-             "(ROADMAP Queue 1 item 8)"),
+             "(ROADMAP Queue 1 item 4)"),
             (transport_config is not None and transport_config.enabled,
-             "transport_config.enabled (ROADMAP Queue 1 item 8)"),
+             "transport_config.enabled (ROADMAP Queue 1 item 4)"),
             (autoscale_config is not None and autoscale_config.interval > 0,
-             "autoscale_config.interval > 0 (ROADMAP Queue 1 item 8)"),
+             "autoscale_config.interval > 0 (ROADMAP Queue 1 item 4)"),
             (engine_config is not None and engine_config.mesh_devices > 1,
-             "engine_config.mesh_devices > 1 (ROADMAP Queue 1 item 7)"),
+             "engine_config.mesh_devices > 1 (ROADMAP Queue 1 item 3)"),
         ]
         for hit, what in refused:
             if hit:
                 raise not_ported(f"the server setting {what}")
+
+    @staticmethod
+    def _refuse_membership(what: str) -> None:
+        """Membership stays static until ROADMAP Queue 1 item 4 lands: a
+        message or request that would change the node set raises the
+        typed not-ported error."""
+        raise not_ported(f"{what}: membership changes (ROADMAP Queue 1 item 4)")
 
     # ------------------------------------------------------------ lifecycle
 
@@ -706,7 +710,9 @@ class Server:
             self.handle_node_join(rejoined)
 
     def handle_node_join(self, node: Node) -> None:
-        """Coordinator-side admission (cluster.go:1638 nodeJoin)."""
+        """Coordinator-side admission (cluster.go:1638 nodeJoin): refused
+        in the port's static cluster."""
+        self._refuse_membership(f"node-join of {node.id}")
         if not self.node.is_coordinator:
             coordinator = self.cluster.coordinator_node()
             if coordinator is None:
@@ -765,7 +771,9 @@ class Server:
     def handle_node_leave(self, node_id: str) -> None:
         """Coordinator-side removal (api.go:777 RemoveNode): shards the
         leaving node exclusively held are re-fetched by new owners before
-        the status flips (it stays reachable as a source during the job)."""
+        the status flips (it stays reachable as a source during the job).
+        Refused in the port's static cluster."""
+        self._refuse_membership(f"node-leave of {node_id}")
         if not self.node.is_coordinator:
             coordinator = self.cluster.coordinator_node()
             if coordinator is None:
@@ -1227,6 +1235,10 @@ class Server:
         from ..core.index import IndexOptions
 
         typ = msg.get("type")
+        if typ in ("resize-instruction", "rebalance-begin"):
+            # The resize and live-rebalance jobs move shards between
+            # members; their branches below stay inert until item 4.
+            self._refuse_membership(f"a {typ} message")
         if typ == "create-index":
             self.holder.create_index_if_not_exists(
                 msg["index"], IndexOptions.from_dict(msg.get("options", {}))
@@ -1269,6 +1281,10 @@ class Server:
         elif typ == "schema":
             self.holder.apply_schema(msg["schema"])
         elif typ == "cluster-status":
+            named = {n.get("id") for n in msg.get("nodes", [])}
+            if named != {n.id for n in self.cluster.nodes}:
+                self._refuse_membership(
+                    f"a cluster-status naming nodes {sorted(named)}")
             prev_state = self.cluster.state
             self.cluster.state = msg.get("state", self.cluster.state)
             self.cluster.nodes = [Node.from_dict(n) for n in msg.get("nodes", [])]
@@ -1353,11 +1369,9 @@ class Server:
                 if upd.process_idx is not None:
                     existing.process_idx = upd.process_idx
         elif typ == "collective-exec":
-            # Non-leader side of leader-driven collective serving: enqueue
-            # the descriptor for the runner thread (SPMD entry happens in
-            # cluster-wide seq order; the handler thread must not block
-            # inside the collective). See parallel/collective.py.
-            self.collective.receive(msg)
+            # The collective plane comes with the multi-GPU slice.
+            raise not_ported(
+                "the collective-exec cluster message (ROADMAP Queue 1 item 3)")
         elif typ == "node-state":
             pass  # coordinator bookkeeping; static clusters are always NORMAL
         elif typ == "rebalance-begin":

@@ -1,5 +1,6 @@
 """pilosa_tpu_torch on a CUDA card: the kernels against their plain twins,
-and the executor on the card against the same executor on the CPU.
+the executor on the card against the same executor on the CPU, and
+servers and static clusters of nodes on the card.
 
 Every test here needs a card (the CUDA kernels have no CPU mode), is
 marked `cuda`, and skips where torch.cuda.is_available() is false. The
@@ -596,6 +597,75 @@ def test_server_on_card_coalesces_concurrent_counts(cuda_device):
 
 
 
+def test_two_card_nodes_answer_across_each_other(cuda_device):
+    """Two Server nodes on the card in one static cluster (replica_n = 1):
+    a Count and a Row whose shards lie on both nodes, asked of each node,
+    equal a CPU executor over the same bits. The peer's Row segments come
+    off the wire on the host and are merged on the card."""
+    import http.client
+    import json
+    import socket
+
+    from pilosa_tpu_torch.cluster.hash import ModHasher
+    from pilosa_tpu_torch.server.server import Server
+
+    socks = [socket.socket() for _ in range(2)]
+    for sk in socks:
+        sk.bind(("localhost", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    hosts = [f"localhost:{p}" for p in ports]
+    nodes = [Server(data_dir=None, port=p, cluster_hosts=hosts, hasher=ModHasher(),
+                    cache_flush_interval=0, anti_entropy_interval=0,
+                    member_monitor_interval=0, executor_workers=0).open()
+             for p in ports]
+    cpu_h = pilosa_tpu_torch.Holder(None, device="cpu")
+    cpu_h.open()
+
+    def post(port, path, body):
+        conn = http.client.HTTPConnection("localhost", port, timeout=60)
+        conn.request("POST", path, body=body.encode())
+        resp = conn.getresponse()
+        out = resp.status, json.loads(resp.read())
+        conn.close()
+        return out
+
+    try:
+        assert post(ports[0], "/index/i", "{}")[0] == 200
+        assert post(ports[0], "/index/i/field/f", "{}")[0] == 200
+        fld = cpu_h.create_index("i").create_field("f")
+        r = np.random.default_rng(411)
+        for row in (1, 2):
+            cols = sorted(int(c) for c in r.choice(4 * SHARD_WIDTH, 300, replace=False))
+            fld.import_bits([row] * len(cols), cols)
+            pql = " ".join(f"Set({c}, f={row})" for c in cols)
+            assert post(ports[0], "/index/i/query", pql)[0] == 200
+        owners = {nodes[0].cluster.shard_nodes("i", s)[0].id for s in range(4)}
+        assert owners == set(hosts)
+        cpu_ex = pilosa_tpu_torch.Executor(cpu_h)
+        want_count = cpu_ex.execute("i", "Count(Intersect(Row(f=1), Row(f=2)))")[0]
+        want_cols = cpu_ex.execute("i", "Union(Row(f=1), Row(f=2))")[0].columns().tolist()
+        kernels.reset_counters()
+        for port in ports:
+            assert post(port, "/index/i/query", "Count(Intersect(Row(f=1), Row(f=2)))") == (
+                200, {"results": [want_count]})
+            status, body = post(port, "/index/i/query", "Union(Row(f=1), Row(f=2))")
+            assert status == 200 and body["results"][0]["columns"] == want_cols
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["gather_expr_count"] > 0
+        assert not any(kernels.PLAIN_CALLS.values())
+        # The executor's own reduce: a peer's Row lands on this node's card.
+        row = nodes[0].executor.execute("i", "Union(Row(f=1), Row(f=2))")[0]
+        assert row.columns().tolist() == want_cols
+        assert all(seg.is_cuda for seg in row.segments.values())
+        cpu_ex.close()
+    finally:
+        for n in nodes:
+            n.close()
+        cpu_h.close()
+
+
 def test_k1_staged_concurrent_rings_of_different_sizes(cuda_device):
     """Threads launching K1 staged with different ring sizes at once (the
     server's concurrent groups): the kernel's shared-memory limit is one
@@ -631,3 +701,65 @@ def test_k1_staged_concurrent_rings_of_different_sizes(cuda_device):
     for t in threads:
         t.join(timeout=120)
     assert errors == []
+
+
+def test_cli_cluster_on_the_card(cuda_device, tmp_path):
+    """`python -m pilosa_tpu_torch.cli server` with --cluster-hosts and
+    --cluster-replicas, two processes on the card (no --device): a write
+    through one node lands on both replicas and each node's Count over
+    shards that cross the nodes is right."""
+    import http.client
+    import json
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    socks = [socket.socket() for _ in range(2)]
+    for sk in socks:
+        sk.bind(("localhost", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    hosts = ",".join(f"localhost:{p}" for p in ports)
+
+    def post(port, path, body):
+        conn = http.client.HTTPConnection("localhost", port, timeout=120)
+        conn.request("POST", path, body=body.encode())
+        resp = conn.getresponse()
+        out = resp.status, json.loads(resp.read())
+        conn.close()
+        return out
+
+    procs = []
+    try:
+        for p in ports:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir",
+                 str(tmp_path / f"n{p}"), "--bind", f"localhost:{p}", "--cluster-hosts",
+                 hosts, "--cluster-replicas", "2"],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs.append(proc)
+            for line in proc.stdout:
+                if "listening on" in line:
+                    break
+            else:
+                raise AssertionError("server did not start")
+        assert post(ports[0], "/index/i", "{}")[0] == 200
+        assert post(ports[0], "/index/i/field/f", "{}")[0] == 200
+        cols = [1, SHARD_WIDTH + 2, 2 * SHARD_WIDTH + 3, 5 * SHARD_WIDTH + 4]
+        pql = " ".join(f"Set({c}, f=3)" for c in cols)
+        assert post(ports[0], "/index/i/query", pql)[0] == 200
+        for p in ports:
+            assert post(p, "/index/i/query", "Count(Row(f=3))") == (200, {"results": [4]})
+            status, got = post(p, "/index/i/query", "Row(f=3)")
+            assert status == 200 and got["results"][0]["columns"] == cols
+            status, got = post(p, "/index/i/query?remote=true",
+                               '{"query": "Count(Row(f=3))", "shards": [0, 1, 2, 5]}')
+            assert status == 200 and got["results"][0]["value"] == 4, got
+    finally:
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)

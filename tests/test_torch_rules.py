@@ -59,7 +59,7 @@ def test_scan_covers_the_package():
     names = {os.path.relpath(p, PKG) for p in port_sources()}
     for must in ("executor.py", "parallel/engine.py", "ops/kernels.py",
                  "core/fragment.py", "core/holder.py", "server/server.py",
-                 "sched/batcher.py", "translate.py"):
+                 "sched/batcher.py", "translate.py", "cluster/syncer.py"):
         assert must in names
 
 

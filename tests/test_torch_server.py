@@ -6,9 +6,12 @@ without keys, Count/Row/TopN/Sum/Min/Max, BSI and time Range, attrs,
 columnAttrs), and the JSON bodies must be equal. Then each server's data
 directory (indexes/ and keys/) is reopened by the other package and the
 reads answer the same. The route walk sends every route of the handler
-to both single nodes: the port answers as the reference does or with the
-typed not-ported error, and never 500. Every peer setting is refused at
-Server.__init__; the wire codec, the config file and the CLI match.
+(and the collective-exec cluster message) to both single nodes: the port
+answers as the reference does or with the typed not-ported error, and
+never 500. A static cluster (`cluster_hosts`, `replica_n`) opens; every
+other peer setting is refused at Server.__init__, and so is every
+message that would change the node set. The wire codec, the config file
+and the CLI match.
 """
 
 import contextlib
@@ -222,6 +225,13 @@ ROUTES = [
 ]
 
 
+# Cluster message types walked beside the routes: both nodes answer, the
+# port with the typed not-ported error where it has no plane to run them.
+MESSAGES = [
+    ("POST", "/internal/cluster/message", '{"type": "collective-exec"}'),
+]
+
+
 @pytest.fixture(scope="module")
 def walked(tmp_path_factory):
     base = tmp_path_factory.mktemp("walk")
@@ -230,7 +240,8 @@ def walked(tmp_path_factory):
         for s in SCHEMA[:2] + [q("i", "Set(5, f=1)")]:
             request(j.port, *s)
             request(t.port, *s)
-        return {step_id(r): (request(j.port, *r), request(t.port, *r)) for r in ROUTES}
+        return {step_id(r): (request(j.port, *r), request(t.port, *r))
+                for r in ROUTES + MESSAGES}
     finally:
         t.close()
         j.close()
@@ -242,7 +253,7 @@ def test_route_walk_covers_the_handler():
     assert src.count("            Route(") == len(ROUTES)
 
 
-@pytest.mark.parametrize("route", ROUTES, ids=step_id)
+@pytest.mark.parametrize("route", ROUTES + MESSAGES, ids=step_id)
 def test_route_answers_like_the_reference_node(walked, route):
     (jstatus, jbody), (tstatus, tbody) = walked[step_id(route)]
     assert tstatus != 500, tbody
@@ -254,9 +265,7 @@ def test_route_answers_like_the_reference_node(walked, route):
 
 
 @pytest.mark.parametrize("kw", [
-    {"cluster_hosts": ["localhost:1", "otherhost:2"]},
     {"join_addr": "localhost:1"},
-    {"replica_n": 2},
     {"primary_translate_store_url": "localhost:1"},
     {"cdc_config": "enabled"},
     {"geo_config": "follower"},
@@ -282,6 +291,97 @@ def test_peer_settings_are_refused(kw):
     with pytest.raises(QueryError, match=f"not ported.*|{name}") as ei:
         TServer(data_dir=None, port=1, device="cpu", **{name: value})
     assert "not ported" in str(ei.value) and name in str(ei.value)
+
+
+def free_port():
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.parametrize("setting", ["cluster_hosts", "replica_n"])
+def test_cluster_settings_are_accepted(setting):
+    """A static cluster of two port nodes opens and answers a Count that
+    crosses them: `cluster_hosts` alone places each shard on one node,
+    with `replica_n = 2` on both."""
+    from pilosa_tpu_torch.cluster.hash import ModHasher
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+
+    ports = [free_port() for _ in range(2)]
+    hosts = [f"localhost:{p}" for p in ports]
+    replica_n = 2 if setting == "replica_n" else 1
+    servers = [TServer(data_dir=None, port=p, cluster_hosts=hosts,
+                       replica_n=replica_n, hasher=ModHasher(),
+                       cache_flush_interval=0, anti_entropy_interval=0,
+                       member_monitor_interval=0, executor_workers=0,
+                       device="cpu").open() for p in ports]
+    try:
+        assert request(ports[0], "POST", "/index/i", "{}")[0] == 200
+        assert request(ports[0], "POST", "/index/i/field/f", "{}")[0] == 200
+        cols = [3, SHARD_WIDTH + 4, 2 * SHARD_WIDTH + 5]
+        for col in cols:
+            assert request(ports[0], "POST", "/index/i/query", f"Set({col}, f=1)")[0] == 200
+        holds = [{s for s in range(3) if srv.holder.fragment("i", "f", "standard", s)
+                  is not None and srv.holder.fragment("i", "f", "standard", s).bit(1, cols[s])}
+                 for srv in servers]
+        owned = [{s for s in range(3) if any(
+            n.id == srv.node.id for n in srv.cluster.shard_nodes("i", s))}
+            for srv in servers]
+        assert holds == owned
+        if replica_n == 2:
+            assert owned == [{0, 1, 2}] * 2
+        else:
+            assert sorted(owned, key=len) == [{1}, {0, 2}]
+        for port in ports:
+            assert request(port, "POST", "/index/i/query", "Count(Row(f=1))") == (
+                200, {"results": [3]})
+    finally:
+        for srv in servers:
+            srv.close()
+
+
+@pytest.mark.parametrize("msg", [
+    {"type": "node-join", "node": {"id": "localhost:1", "uri": "localhost:1"}},
+    {"type": "node-leave", "nodeID": "localhost:1"},
+    {"type": "cluster-status", "state": "NORMAL",
+     "nodes": [{"id": "localhost:1", "uri": "localhost:1"}]},
+    {"type": "rebalance-begin"},
+    {"type": "resize-instruction"},
+    {"type": "collective-exec"},
+], ids=lambda m: m["type"])
+def test_membership_and_collective_messages_are_refused(tmp_path, msg):
+    """A message that would change the static node set, or run the
+    collective plane, answers the typed not-ported error (400), and the
+    node keeps serving as before."""
+    s = TServer(data_dir=str(tmp_path / "d"), device="cpu", cache_flush_interval=0)
+    s.open()
+    try:
+        request(s.port, "POST", "/index/i", "{}")
+        request(s.port, "POST", "/index/i/field/f", "{}")
+        request(s.port, "POST", "/index/i/query", "Set(5, f=1)")
+        status, body = request(s.port, "POST", "/internal/cluster/message", json.dumps(msg))
+        assert status == 400 and "not ported" in body["error"], (status, body)
+        assert [n.id for n in s.cluster.nodes] == [s.node.id]
+        assert s.cluster.state == "NORMAL"
+        assert request(s.port, "POST", "/index/i/query", "Count(Row(f=1))") == (
+            200, {"results": [1]})
+    finally:
+        s.close()
+
+
+def test_own_cluster_status_is_accepted(tmp_path):
+    """A cluster-status naming exactly the configured nodes applies."""
+    s = TServer(data_dir=str(tmp_path / "d"), device="cpu", cache_flush_interval=0)
+    s.open()
+    try:
+        msg = {"type": "cluster-status", "state": "NORMAL",
+               "nodes": [s.node.to_dict()]}
+        status, _ = request(s.port, "POST", "/internal/cluster/message", json.dumps(msg))
+        assert status == 200 and [n.id for n in s.cluster.nodes] == [s.node.id]
+    finally:
+        s.close()
 
 
 def test_own_host_in_cluster_hosts_is_allowed():
@@ -442,3 +542,43 @@ def test_cli_server_getting_started_flow(tmp_path):
     finally:
         proc.send_signal(signal.SIGTERM)
         proc.wait(timeout=60)
+
+
+def test_cli_cluster_of_two_nodes(tmp_path):
+    """`--cluster-hosts` and `--cluster-replicas` reach the server: two
+    CLI nodes form one cluster, a write through one lands on both
+    replicas, and each answers a Count over shards that cross them."""
+    ports = [free_port() for _ in range(2)]
+    hosts = ",".join(f"localhost:{p}" for p in ports)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    procs = []
+    try:
+        for p in ports:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir",
+                 str(tmp_path / f"n{p}"), "--bind", f"localhost:{p}", "--cluster-hosts",
+                 hosts, "--cluster-replicas", "2", "--device", "cpu"],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+            procs.append(proc)
+            for line in proc.stdout:
+                if "listening on" in line:
+                    break
+            else:
+                raise AssertionError("server did not start")
+        for p in ports:
+            status, st = request(p, "GET", "/status")
+            assert status == 200 and sorted(n["id"] for n in st["nodes"]) == sorted(
+                f"localhost:{x}" for x in ports), st
+        assert request(ports[0], "POST", "/index/i", "{}")[0] == 200
+        assert request(ports[0], "POST", "/index/i/field/f", "{}")[0] == 200
+        assert request(ports[0], *q("i", "Set(1, f=3) Set(2097153, f=3)"))[0] == 200
+        for p in ports:
+            assert request(p, *q("i", "Count(Row(f=3))")) == (200, {"results": [2]})
+            status, got = request(p, "POST", "/index/i/query?remote=true",
+                                  '{"query": "Count(Row(f=3))", "shards": [0, 2]}')
+            assert status == 200 and got["results"][0]["value"] == 2, got
+    finally:
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)

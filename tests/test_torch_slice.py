@@ -224,19 +224,41 @@ def test_respellings_share_one_plan_and_fit_the_kernel(pair):
 
 
 def test_calls_outside_the_slice_raise_not_ported(pair):
-    """Point-in-time reads (CDC) and the read path's peer fan-out are still
-    outside the port: they raise instead of answering."""
+    """Point-in-time reads (CDC) and the collective plane are still
+    outside the port: they raise instead of answering. The read path's
+    peer fan-out is in: a two-node executor queries its peer for the
+    shards the peer owns and reduces the answer with its own."""
     _, tex = pair
+    from pilosa_tpu_torch.cluster.hash import ModHasher
     from pilosa_tpu_torch.cluster.node import Cluster, Node
     from pilosa_tpu_torch.errors import QueryError
     from pilosa_tpu_torch.executor import ExecOptions, Executor
+    from pilosa_tpu_torch.server.server import Server
 
     with pytest.raises(QueryError, match="not ported"):
         tex.execute("i", "Count(Row(f=1))", opt=ExecOptions(at_position=1))
-    cluster = Cluster(node=Node(id="a", uri="a:1"))
+    with pytest.raises(QueryError, match="not ported"):
+        Server(data_dir=None, device="cpu",
+               engine_config=TorchEngineConfig(mesh_devices=2))
+
+    class Peer:
+        """Answers every forwarded Count with 1000 and records its shards."""
+
+        def __init__(self):
+            self.shards = []
+
+        def query_node(self, node, index, query, shards=None, remote=True, **kw):
+            self.shards.append((node.id, list(shards), remote))
+            return [1000]
+
+    cluster = Cluster(node=Node(id="a", uri="a:1"), hasher=ModHasher())
     cluster.add_node(Node(id="b", uri="b:1"))
-    ex = Executor(tex.holder, cluster=cluster)
-    for q in ("Count(Row(f=1))", "Row(f=1)", "TopN(f, n=2)"):
-        with pytest.raises(QueryError, match="not ported"):
-            ex.execute("i", q)
+    peer = Peer()
+    ex = Executor(tex.holder, cluster=cluster, client=peer)
+    mine = [s for s in range(N_SHARDS) if cluster.shard_nodes("i", s)[0].id == "a"]
+    theirs = [s for s in range(N_SHARDS) if s not in mine]
+    assert mine and theirs
+    want = tex.execute("i", "Count(Row(f=1))", shards=mine)[0] + 1000
+    assert ex.execute("i", "Count(Row(f=1))") == [want]
+    assert peer.shards == [("b", theirs, True)]
     ex.close()
