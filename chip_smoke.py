@@ -107,8 +107,9 @@ Phases, each of which fails the run if it fails:
              it of f (the same 256 x 128 planes), v (path (e)'s values)
              and a sparse field s (8 rows of 4096 bits over all shards),
              with a quarter of the default leaf and stack budgets each;
-             (h1) 512 distinct Count(Intersect(Row, Row)) per client from
-             C = 1 and 8 clients, round-robin over the nodes, memos off:
+             (h1) distinct Count(Intersect(Row, Row)), 512 per client
+             from C = 1 client and 128 per client from C = 8 (cut from
+             512 since path (i)), round-robin over the nodes, memos off:
              queries/s, p50/p99, K1 launches by variant, the p50 of the
              coordinators' executor.fanout, remote:<peer> and reduce
              spans, the device idle share; (h2) from every node a nested
@@ -123,9 +124,42 @@ Phases, each of which fails the run if it fails:
              Counts differing, the syncer's merge of that fragment, and
              the repaired replica's K1 Count equal to numpy through a
              delta refresh (full_refresh_bytes unmoved); one dense f
-             fragment's block checksums timed. Every answer is
-             checked against numpy on the fragments' host planes (TopN
-             against a numpy replay of the two-phase ranking).
+             fragment's block checksums timed. (i) the collective plane:
+             (h)'s servers closed, the same planes of f and v written once
+             to .npy files, four server processes on the card, each rank
+             r of 4 in one gloo job (PILOSA_JAX_COORDINATOR /
+             NUM_PROCESSES / PROCESS_ID), cluster_hosts naming all four,
+             replica_n = 2, [collective] enabled with a 3000 ms barrier
+             and group timeout and a 2 GiB leaf budget per rank; each
+             fills its holder with its placement's shards from the
+             memory-mapped planes and holds its collective block of every
+             row of f resident; the script waits until every rank's
+             collective.active() is true and drives each through a
+             control directory (reset / report counters, a profiler
+             window); (i1) distinct Count(Intersect(Row, Row)), 512 per
+             client at C = 1 and 256 at C = 8, round-robin over the
+             ranks, every one
+             served by the collective plane (CollectiveCount equals the
+             query count, no fallback): queries/s, p50/p99, collective
+             entries and mean group, K1 launches per rank by variant, the
+             leaders' collective.barrier and collective.entry span p50s,
+             each rank's device time and peak memory, the device idle
+             share; (i2) from every rank a nested set-op Count, TopN(f,
+             n=10) and TopN(f, Row(f=a), n=10) (phase 2 collective),
+             Sum/Min/Max of v with and without Row(f=a) (Min/Max counted
+             over every rank: numpy's global answer, not (h)'s
+             first-node fold), and one POST /internal/collective/count;
+             (i3) one rank stopped with SIGSTOP for 32 Counts on another:
+             every answer right through the fan-out's replicas, the
+             barrier timed out, the plane's breaker open and the later
+             queries past it without a barrier; SIGCONT, the half-open
+             probe closes the plane and CollectiveCount climbs; the
+             resumed rank read `abort` at the aborted barriers and every
+             rank entered the same number of reduces; then SIGTERM to
+             every rank, each exits 0 with its last counters. Every
+             answer is checked against numpy on the fragments' host
+             planes (TopN against a numpy replay of the two-phase
+             ranking).
 5. kernel line — launch counters set to 0 just before each path of
              phase 4 and read just after it: K1 above 0 in (a), (b), (d)
              and the Range Counts of (e) — its streaming variant only in
@@ -135,14 +169,18 @@ Phases, each of which fails the run if it fails:
              plain twins at 0 in every path and the compile gate's
              refusals at 0 (in (g): K1 above 0 in every Count level and
              in (g5), K2 in (g4)'s TopNs, K3 in its Min/Max; in (h): K1
-             in every path, K2 and K3 in (h2)); outside
-             (f4) the fault-ladder and host
+             in every path, K2 and K3 in (h2); in (i): K1 on every rank
+             in (i1), K1, K2 and K3 on every rank in (i2), the plain
+             twins at 0 on every rank, each rank resetting and reporting
+             its own counters); outside (f4) and (i3) the fault-ladder
+             and host
              counters (host_counts, host_topn, device_dispatch_errors,
              oom_*, watchdog_timeouts, kernel_faults; host_cold_counts
              outside (f3)) are
              0 after every path, on every node's engine in (h), failover
-             included. The line carries the launch sums. The log lines
-             of (h) carry the nvidia-smi name and power limit.
+             included, and on every rank's in (i). The line carries the
+             launch sums, (i)'s ranks included. The log lines of (h) and
+             (i) carry the nvidia-smi name and power limit.
 
 It prints the nvidia-smi line and a {"kernels": [...]} JSON line before
 the last line, and as its last line {"ok": true, "device": {...}}. With
@@ -1058,6 +1096,10 @@ def main_path(torch, pt, kernels, args, rng, report):
     del holder, ex, eng
     main_path_h(torch, kernels, H, bsi, out["bsi"]["depth"], rng, start, end, out,
                 report["nvidia_smi"])
+    # (i)'s ranks are processes of their own: each resets and reports its
+    # own counters around each of (i)'s paths, and the sums join phases.
+    main_path_i(torch, kernels, H, bsi, out["bsi"]["depth"], rng, out,
+                report["nvidia_smi"], phases)
     launches = {k: sum(p["launches"][k] for p in phases.values())
                 for k in kernels.LAUNCHES}
     out["phases"] = phases
@@ -2251,7 +2293,7 @@ def fold_val_count(srv, kind: str, vals, mask, n_shards: int):
 
 
 def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
-                per_client=512, device=None):
+                per_client=512, per_client_c8=128, device=None):
     """Path (h): a static cluster of four nodes on one card. Four
     in-process Servers, every one with cluster_hosts naming all four,
     replica_n = 2 and the default jump hasher; each holds exactly the
@@ -2363,11 +2405,14 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
         levels = {}
         offset = 0
         for c in (1, 8):
-            n = c * per_client
+            # C = 8 runs 128 queries per client: the script's
+            # time limit also holds path (i).
+            per = per_client if c == 1 else per_client_c8
+            n = c * per
             sel = every[(offset + np.arange(n)) % len(every)]
             offset += n
             work = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in
-                     sel[i * per_client:(i + 1) * per_client]] for i in range(c)]
+                     sel[i * per:(i + 1) * per]] for i in range(c)]
             with ThreadPoolExecutor(max_workers=8) as pool:
                 new = sorted({(int(a), int(b)) for a, b in sel} - want.keys())
                 want.update(zip(new, pool.map(lambda p: want_pair(*p), new)))
@@ -2377,7 +2422,7 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
                     torch, lambda: http_clients(ports, "big", work))
             lat = []
             for i, res in enumerate(clients):
-                for (a, b), (dt, results) in zip(sel[i * per_client:(i + 1) * per_client], res):
+                for (a, b), (dt, results) in zip(sel[i * per:(i + 1) * per], res):
                     assert results == [want[(int(a), int(b))]], (a, b, results)
                     lat.append(dt)
             k1 = {k: kernels.LAUNCHES[k] for k in ("gather_expr_count", "gather_expr_count_staged",
@@ -2621,6 +2666,554 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
             if srv.opened:
                 srv.close()
     out["h"] = h
+
+
+# ------------------------------------------------------------ path (i)
+
+I_RANKS = 4
+I_TIMEOUT_MS = 3000      # barrier and process-group timeout of path (i)'s job
+I_CLIENT_TIMEOUT = 5.0   # s: a server's peer requests (30 s by default)
+I_LEAF_BUDGET = 2 << 30  # [collective] leaf-budget-bytes per rank (default 256 MiB)
+I_STOP_COUNTS = 32
+
+# One rank of path (i)'s job: a port Server on the card, rank `rank` of
+# I_RANKS in one gloo group (the reference's three variables), holding the
+# shards its placement gives it of f and v from the memory-mapped planes
+# the script wrote. Its main thread answers the script's commands (files
+# in the control directory): reset or report the kernels' launch
+# counters, the engine, collective and batcher counters and the leader's
+# span p50s, start or stop a torch.profiler window. On SIGTERM it writes a
+# last report and exits.
+WORKER_I = r"""
+import json, os, signal, sys, time
+
+cfg = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+sys.path.insert(0, cfg["here"])
+os.environ["PILOSA_JAX_COORDINATOR"] = cfg["coordinator"]
+os.environ["PILOSA_JAX_NUM_PROCESSES"] = str(len(cfg["ports"]))
+os.environ["PILOSA_JAX_PROCESS_ID"] = str(rank)
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from pilosa_tpu_torch.logger import Logger
+from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.parallel import CollectiveConfig, EngineConfig
+from pilosa_tpu_torch.plan.signature import Leaf
+from pilosa_tpu_torch.server.server import Server
+
+stop = []
+signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
+device = cfg["device"]  # None: the card; "cpu" rehearses the path without one
+cuda = device != "cpu"
+
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize()
+
+
+hosts = [f"localhost:{p}" for p in cfg["ports"]]
+srv = Server(
+    data_dir=None, port=cfg["ports"][rank], cluster_hosts=hosts,
+    replica_n=cfg["replica_n"], cache_flush_interval=0, anti_entropy_interval=0,
+    member_monitor_interval=1.0, logger=Logger(stream=sys.stderr),
+    engine_config=EngineConfig(leaf_cache_bytes=cfg["engine_leaf"],
+                               stack_cache_bytes=cfg["engine_stack"]),
+    collective_config=CollectiveConfig(timeout_ms=cfg["timeout_ms"],
+                                       leaf_budget_bytes=cfg["leaf_budget"]),
+    device=device)
+srv.client.timeout = cfg["client_timeout"]
+srv.open()  # joins the job: returns once every rank has
+t0 = time.perf_counter()
+H = np.load(cfg["f_path"], mmap_mode="r")
+V = np.load(cfg["v_path"], mmap_mode="r")
+empty = np.zeros(0, dtype=np.uint64)
+owned = cs.fill_node(srv, H, V, (empty, empty), H.shape[1])
+fill_s = time.perf_counter() - t0
+deadline = time.time() + 120
+while not srv.collective.active():
+    assert time.time() < deadline, [(n.id, n.process_idx) for n in srv.cluster.nodes]
+    time.sleep(0.1)
+# A serving rank holds its block of every row of f resident, as (g1) and
+# (h) hold theirs: the placement a descriptor gives this rank.
+t0 = time.perf_counter()
+desc = srv.collective._descriptor("count", "big", queries=[])
+mine = desc["slots"][rank]
+for r in range(H.shape[0]):
+    srv.collective._global_leaf("big", Leaf("f", "standard", r), mine, desc["k"])
+sync()
+ready = dict(rank=rank, node=srv.node.id, owned=len(owned), slots=len(mine),
+             k=desc["k"], fill_s=fill_s, resident_s=time.perf_counter() - t0,
+             leaf_gib=srv.collective._leaf_bytes / 2**30)
+del H, V
+
+
+def spans(limit):
+    per = {"collective.barrier": [], "collective.entry": []}
+    for t in srv.trace_recorder.traces(index="big", limit=limit):
+        for sp in t["spans"]:
+            if sp["name"] in per:
+                per[sp["name"]].append(sp["dur_ms"])
+    return {k: (float(np.median(v)) if v else None) for k, v in per.items()}
+
+
+def report(limit=256):
+    eng = srv.executor._engine
+    sync()
+    return dict(
+        launches=dict(kernels.LAUNCHES), plain=dict(kernels.PLAIN_CALLS),
+        engine=eng.snapshot() if eng is not None else None,
+        collective=srv.collective.snapshot(), batcher=srv.batcher.snapshot(),
+        counters=dict(srv.stats.snapshot().get("counters", {})),
+        spans=spans(limit),
+        max_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+
+
+prof = None
+
+
+def handle(cmd):
+    global prof
+    op = cmd["op"]
+    if op == "ready":
+        return ready
+    if op == "reset":
+        sync()
+        kernels.reset_counters()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        return {}
+    if op == "report":
+        return report(cmd.get("limit", 256))
+    if op == "profile_start":
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        prof = profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
+        prof.__enter__()
+        return {}
+    if op == "profile_stop":
+        sync()
+        prof.__exit__(None, None, None)
+        us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages())
+        prof = None
+        return {"device_ms": us / 1e3}
+    raise ValueError(op)
+
+
+ctl = cfg["ctl"]
+n = 0
+while not stop:
+    path = os.path.join(ctl, f"{rank}.{n}.cmd")
+    if os.path.exists(path):
+        with open(path) as f:
+            cmd = json.load(f)
+        try:
+            reply = {"ok": handle(cmd)}
+        except Exception as e:  # the script reads it and fails the path
+            reply = {"error": f"{type(e).__name__}: {e}"}
+        tmp = os.path.join(ctl, f"{rank}.{n}.tmp")
+        with open(tmp, "w") as f:
+            json.dump(reply, f, default=float)
+        os.replace(tmp, os.path.join(ctl, f"{rank}.{n}.json"))
+        n += 1
+    time.sleep(0.005)
+final = report()
+srv.close()
+with open(os.path.join(ctl, f"{rank}.final.tmp"), "w") as f:
+    json.dump(final, f, default=float)
+os.replace(os.path.join(ctl, f"{rank}.final.tmp"), os.path.join(ctl, f"{rank}.final.json"))
+"""
+
+
+class RankJob:
+    """Path (i)'s four rank processes: started together, driven through
+    the control directory, stopped with SIGTERM (or killed) on close."""
+
+    def __init__(self, cfg: dict, workdir: str):
+        self.cfg = cfg
+        self.ctl = cfg["ctl"]
+        self.n = [0] * I_RANKS
+        script = os.path.join(workdir, "rank_worker.py")
+        with open(script, "w") as f:
+            f.write(WORKER_I)
+        cfg_path = os.path.join(workdir, "job.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo"}
+        self.logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(I_RANKS)]
+        self.procs = [subprocess.Popen([sys.executable, script, cfg_path, str(r)],
+                                       stdout=self.logs[r], stderr=subprocess.STDOUT,
+                                       env=env, cwd=HERE)
+                      for r in range(I_RANKS)]
+
+    def tail(self, r: int, n: int = 3000) -> str:
+        self.logs[r].flush()
+        with open(self.logs[r].name) as f:
+            return f.read()[-n:]
+
+    def ask(self, r: int, op: str, timeout: float = 600.0, **kw):
+        n = self.n[r]
+        self.n[r] += 1
+        tmp = os.path.join(self.ctl, f"{r}.{n}.w")
+        with open(tmp, "w") as f:
+            json.dump(dict(op=op, **kw), f)
+        os.replace(tmp, os.path.join(self.ctl, f"{r}.{n}.cmd"))
+        path = os.path.join(self.ctl, f"{r}.{n}.json")
+        deadline = time.time() + timeout
+        while not os.path.exists(path):
+            rc = self.procs[r].poll()
+            assert rc is None, f"rank {r} exited {rc}: {self.tail(r)}"
+            assert time.time() < deadline, f"rank {r} did not answer {op}: {self.tail(r)}"
+            time.sleep(0.01)
+        with open(path) as f:
+            reply = json.load(f)
+        assert "error" not in reply, (r, op, reply["error"], self.tail(r))
+        return reply["ok"]
+
+    def all(self, op: str, **kw):
+        return [self.ask(r, op, **kw) for r in range(I_RANKS)]
+
+    def stop(self, timeout: float = 120.0):
+        """SIGTERM every rank, wait for each to exit 0; the last reports."""
+        import signal
+
+        for p in self.procs:
+            p.send_signal(signal.SIGTERM)
+        finals = []
+        for r, p in enumerate(self.procs):
+            rc = p.wait(timeout=timeout)
+            assert rc == 0, f"rank {r} exited {rc}: {self.tail(r)}"
+            with open(os.path.join(self.ctl, f"{r}.final.json")) as f:
+                finals.append(json.load(f))
+        return finals
+
+    def close(self):
+        import signal
+
+        for p in self.procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGCONT)
+                p.kill()
+                p.wait(timeout=60)
+        for f in self.logs:
+            f.close()
+
+
+def sum_launches(reports) -> dict:
+    return {k: sum(rep["launches"][k] for rep in reports) for k in reports[0]["launches"]}
+
+
+def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, per_client=512,
+                per_client_c8=256, device=None):
+    """Path (i): the collective plane on the card. Four server processes,
+    each rank r of 4 in one gloo job (PILOSA_JAX_* variables), each with
+    cluster_hosts naming all four, replica_n = 2 and the jump hasher,
+    each holding its placement's shards of f (the same 256 x 128 planes)
+    and v; whole-index queries go through the collective plane: every
+    rank runs K1/K2/K3 over its own block and the ranks reduce once over
+    gloo. (i1) distinct Counts at C = 1 and 8, round-robin over the nodes;
+    (i2) a nest, TopN with and without a filter, Sum/Min/Max with and
+    without a filter from every node, and /internal/collective/count;
+    (i3) one rank stopped (SIGSTOP) for 32 Counts, then resumed."""
+    import shutil
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.cluster.node import Cluster, Node
+
+    n_rows, n_shards, n_words = H.shape
+    i = {"ranks": I_RANKS, "replica_n": H_REPLICAS, "smi": smi,
+         "timeout_ms": I_TIMEOUT_MS, "leaf_budget_bytes": I_LEAF_BUDGET}
+    work = tempfile.mkdtemp(prefix="pilosa-torch-ranks-")
+    ctl = os.path.join(work, "ctl")
+    os.makedirs(ctl)
+    job = None
+    try:
+        t0 = time.perf_counter()
+        vals, nn = bsi["vals"], bsi["nn"]
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            v_planes = np.stack(list(pool.map(lambda sh: bsi_planes(
+                vals[sh], nn[sh], depth), range(n_shards))))
+        np.save(os.path.join(work, "f.npy"), H)
+        np.save(os.path.join(work, "v.npy"), v_planes)
+        del v_planes
+        i["write_s"] = time.perf_counter() - t0
+        ports = free_ports(I_RANKS + 1)
+        cfg = dict(here=HERE, coordinator=f"localhost:{ports[-1]}", ports=ports[:I_RANKS],
+                   replica_n=H_REPLICAS, engine_leaf=5 << 30, engine_stack=3 << 30,
+                   timeout_ms=I_TIMEOUT_MS, leaf_budget=I_LEAF_BUDGET,
+                   client_timeout=I_CLIENT_TIMEOUT, ctl=ctl,
+                   f_path=os.path.join(work, "f.npy"), v_path=os.path.join(work, "v.npy"),
+                   device=device)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        job = RankJob(cfg, work)
+        ready = job.all("ready", timeout=900)
+        i["start_s"] = time.perf_counter() - t0
+        i["ready"] = ready
+        log(f"main (i) [{smi}]: {I_RANKS} rank processes on {torch.cuda.get_device_name(0)}, "
+            f"one gloo job (replica_n {H_REPLICAS}, jump hash, barrier and group timeout "
+            f"{I_TIMEOUT_MS} ms); planes written in {i['write_s']:.1f} s, ranks up in "
+            f"{i['start_s']:.1f} s: " + "; ".join(
+                f"rank {r['rank']} {r['node']} owns {r['owned']} shards, counts {r['slots']} "
+                f"(k {r['k']}), filled {r['fill_s']:.1f} s, f resident {r['leaf_gib']:.2f} GiB "
+                f"in {r['resident_s']:.1f} s" for r in ready))
+        assert sum(r["slots"] for r in ready) == n_shards, ready
+        port_of = {r["rank"]: ports[r["rank"]] for r in ready}
+
+        def begin(name):
+            job.all("reset")
+            return name, job.all("report")
+
+        def finish(name, before, *need, quiet=True):
+            """Each rank's launches over the path; `need` kernels launched
+            on every rank, no plain twin anywhere, and (with `quiet`) no
+            ladder or host rung on any rank's engine."""
+            reps = job.all("report")
+            for r, rep in enumerate(reps):
+                # A CPU rehearsal (device="cpu") runs the plain twins.
+                ran = rep["plain"] if device == "cpu" else rep["launches"]
+                assert device == "cpu" or not any(rep["plain"].values()), (
+                    name, r, rep["plain"])
+                for k in need:
+                    assert ran[k] > 0, (name, r, k, ran)
+                if quiet and rep["engine"] is not None:
+                    bad = {k: rep["engine"][k] for k in LADDER if rep["engine"][k]}
+                    assert not bad, (name, r, bad)
+                assert not rep["collective"]["fallbacks"] or not quiet, (
+                    name, r, rep["collective"]["fallbacks"])
+            got = {"launches": sum_launches(reps),
+                   "plain_calls": {k: sum(rep["plain"][k] for rep in reps)
+                                   for k in reps[0]["plain"]},
+                   "per_rank": [rep["launches"] for rep in reps]}
+            phases[name] = got
+            log(f"counters {name}: launches per rank {got['per_rank']}, plain twins "
+                f"{got['plain_calls']}")
+            return reps
+
+        def delta(reps, reps0, key, sub):
+            return [rep[key][sub] - rep0[key][sub] if isinstance(rep[key][sub], (int, float))
+                    else None for rep, rep0 in zip(reps, reps0)]
+
+        bufs = threading.local()
+
+        def want_pair(a, b):
+            x, y = H[a].reshape(-1).view(np.uint64), H[b].reshape(-1).view(np.uint64)
+            if getattr(bufs, "w", None) is None:
+                bufs.w, bufs.c = np.empty_like(x), np.empty(x.shape, np.uint8)
+            np.bitwise_and(x, y, out=bufs.w)
+            np.bitwise_count(bufs.w, out=bufs.c)
+            return int(bufs.c.sum(dtype=np.int64))
+
+        # ---- (i1) distinct Counts over HTTP, round-robin over the ranks
+        every = unordered_pairs(rng, n_rows)
+        want, levels, offset = {}, {}, 0
+        for c in (1, 8):
+            per = per_client if c == 1 else per_client_c8
+            n = c * per
+            sel = every[(offset + np.arange(n)) % len(every)]
+            offset += n
+            work_q = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in
+                       sel[j * per:(j + 1) * per]] for j in range(c)]
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                new = sorted({(int(a), int(b)) for a, b in sel} - want.keys())
+                want.update(zip(new, pool.map(lambda p: want_pair(*p), new)))
+            name, reps0 = begin(f"i1_collective_count_c{c}")
+            job.all("profile_start")
+            with GcPauses() as gcp:
+                wall_s, clients = http_clients(ports[:I_RANKS], "big", work_q)
+            dev = [r["device_ms"] for r in job.all("profile_stop")]
+            lat = []
+            for j, res in enumerate(clients):
+                for (a, b), (dt, results) in zip(sel[j * per:(j + 1) * per], res):
+                    assert results == [want[(int(a), int(b))]], (a, b, results)
+                    lat.append(dt)
+            reps = finish(name, reps0, "gather_expr_count")
+            served = sum(rep["counters"].get("CollectiveCount", 0)
+                         - rep0["counters"].get("CollectiveCount", 0)
+                         for rep, rep0 in zip(reps, reps0))
+            assert served == n, (served, n)
+            groups = [rep["batcher"]["launches"] - rep0["batcher"]["launches"]
+                      for rep, rep0 in zip(reps, reps0)]
+            coalesced = [rep["batcher"]["coalesced"] - rep0["batcher"]["coalesced"]
+                         for rep, rep0 in zip(reps, reps0)]
+            k1 = [{k: rep["launches"][k] for k in ("gather_expr_count_staged",
+                                                   "gather_expr_count_streaming")}
+                  for rep in reps]
+            dev_total = sum(d for d in dev if d)
+            entries = delta(reps, reps0, "collective", "entries")
+            assert len(set(entries)) == 1, entries  # every rank enters every entry
+            lv = dict(clients=c, queries=n, wall_s=wall_s, qps=n / wall_s,
+                      p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), max_ms=max(lat) * 1e3,
+                      batcher_groups=groups, coalesced=coalesced,
+                      mean_group=n / entries[0],
+                      k1_per_rank=k1, device_ms_per_rank=dev,
+                      idle_share=1.0 - dev_total / (wall_s * 1e3),
+                      spans_p50_ms=[rep["spans"] for rep in reps],
+                      peak_gib_per_rank=[rep["max_mem_gib"] for rep in reps],
+                      entries=entries[0], gc_gen2=gcp.n)
+            levels[c] = lv
+            log(f"main (i1) [{smi}] C={c}: {n} distinct Counts over HTTP, round-robin over "
+                f"{I_RANKS} ranks, equal numpy, all through the collective plane "
+                f"(CollectiveCount {served}); {lv['qps']:.1f} queries/s, p50 "
+                f"{lv['p50_ms']:.3f} ms, p99 {lv['p99_ms']:.3f} ms, max {lv['max_ms']:.3f} ms; "
+                f"{lv['entries']} collective entries (mean group {lv['mean_group']:.2f} "
+                f"queries; batcher groups per rank {groups}); K1 per rank {k1}; leader span "
+                f"p50s (ms) "
+                f"{lv['spans_p50_ms']}; device ms per rank {dev} of {wall_s * 1e3:.1f} ms "
+                f"wall, idle share {lv['idle_share']:.4f}; peak GiB per rank "
+                f"{lv['peak_gib_per_rank']}")
+        i["i1"] = levels
+
+        # ---- (i2) other queries, from every node
+        fa, fb, fc, fd, fe = (int(x) for x in rng.choice(n_rows, 5, replace=False))
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            cache = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r]).sum(axis=1, dtype=np.int64), range(n_rows))))
+            inter = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r] & H[fa]).sum(axis=1, dtype=np.int64),
+                range(n_rows))))
+        nest = (f"Count(Union(Difference(Row(f={fa}), Row(f={fb})), "
+                f"Xor(Row(f={fc}), Intersect(Row(f={fd}), Row(f={fe})))))")
+        want_nest = np_count((H[fa] & ~H[fb]) | (H[fc] ^ (H[fd] & H[fe])))
+        fbits = np.unpackbits(H[fa].view(np.uint8), axis=1, bitorder="little").view(bool)
+        want_vc = bsi["want_vc"]
+        name, reps0 = begin("i2_collective_other")
+        timed = {}
+        for srv_rank in range(I_RANKS):
+            port = port_of[srv_rank]
+
+            def run(label, pql):
+                t0 = time.perf_counter()
+                got = query(port, "big", pql)
+                timed.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+                return got
+
+            assert run("nest", nest) == [want_nest], srv_rank
+            got = run("topn", "TopN(f, n=10)")[0]
+            assert [(p["id"], p["count"]) for p in got] == replay_topn(cache, cache, 10), got
+            got = run("topn_filter", f"TopN(f, Row(f={fa}), n=10)")[0]
+            assert [(p["id"], p["count"]) for p in got] == replay_topn(inter, cache, 10), got
+            for kind in ("sum", "min", "max"):
+                for flt, mask in (("", nn), (f"Row(f={fa}), ", nn & fbits)):
+                    got = run(kind + ("_filter" if flt else ""),
+                              f"{kind.title()}({flt}field=v)")[0]
+                    # The collective rung counts every column holding the
+                    # extreme value, on every rank: numpy's global answer
+                    # (not the fan-out's first-node fold of path (h)).
+                    assert (got["value"], got["count"]) == want_vc(kind, mask), (
+                        srv_rank, kind, flt, got, want_vc(kind, mask),
+                        job.ask(srv_rank, "report")["collective"]["fallbacks"])
+        status, got = http(port_of[0], "POST", "/internal/collective/count",
+                           {"index": "big", "field": "f", "rows": [fa, fb]})
+        assert status == 200 and got == {"count": want_pair(fa, fb)}, (status, got)
+        reps = finish(name, reps0, "gather_expr_count", "masked_plane_counts", "bsi_minmax")
+        served = {k: sum(rep["counters"].get(k, 0) - rep0["counters"].get(k, 0)
+                         for rep, rep0 in zip(reps, reps0))
+                  for k in ("CollectiveCount", "CollectiveTopN", "CollectiveValCount",
+                            "CollectiveFallback")}
+        assert served["CollectiveTopN"] > 0 and served["CollectiveValCount"] > 0, served
+        assert served["CollectiveFallback"] == 0, served
+        i["i2_ms"] = timed
+        i["i2_served"] = served
+        log(f"main (i2) [{smi}]: from every rank a Union/Difference/Xor nest, TopN(f, n=10), "
+            f"TopN(f, Row(f={fa}), n=10) (phase 2 collective) and Sum/Min/Max of v with and "
+            f"without Row(f={fa}), and one /internal/collective/count, equal numpy (TopN the "
+            f"two-phase replay, Min/Max counted over every rank); served {served}; ms per "
+            f"rank: " + "; ".join(f"{k} {', '.join(f'{x:.1f}' for x in v)}"
+                                  for k, v in timed.items()))
+
+        # ---- (i3) one rank stopped, then resumed
+        q_rank, x_rank = 0, I_RANKS - 1
+        sel = every[:I_STOP_COUNTS]
+        for a, b in sel:
+            if (int(a), int(b)) not in want:
+                want[(int(a), int(b))] = want_pair(int(a), int(b))
+        qs = [(f"Count(Intersect(Row(f={a}), Row(f={b})))", want[(int(a), int(b))])
+              for a, b in sel]
+        name, reps0 = begin("i3_rank_stopped")
+        q0 = reps0[q_rank]
+        os.kill(job.procs[x_rank].pid, signal.SIGSTOP)
+        try:
+            t0 = time.perf_counter()
+            stop_lat = []
+            for pql, w in qs:
+                t1 = time.perf_counter()
+                assert query(port_of[q_rank], "big", pql) == [w], pql
+                stop_lat.append((time.perf_counter() - t1) * 1e3)
+            stop_s = time.perf_counter() - t0
+            q1 = job.ask(q_rank, "report")
+        finally:
+            os.kill(job.procs[x_rank].pid, signal.SIGCONT)
+        h0, h1 = q0["collective"]["health"], q1["collective"]["health"]
+        stopped = dict(
+            barrier_timeouts=q1["collective"]["barrier_timeouts"]
+            - q0["collective"]["barrier_timeouts"],
+            entries=q1["collective"]["entries"] - q0["collective"]["entries"],
+            plane_opened=h1["plane_opened"] - h0["plane_opened"],
+            slice_quarantined=h1["slice_quarantined"] - h0["slice_quarantined"],
+            fallbacks=q1["collective"]["fallbacks"],
+            collective_count=q1["counters"].get("CollectiveCount", 0)
+            - q0["counters"].get("CollectiveCount", 0))
+        assert stopped["barrier_timeouts"] >= 1, stopped
+        assert stopped["plane_opened"] + stopped["slice_quarantined"] >= 1, stopped
+        assert stopped["entries"] < len(qs) // 4, stopped  # later queries skip the barrier
+        t0 = time.perf_counter()
+        resumed = None
+        while time.perf_counter() - t0 < 120:
+            pql, w = qs[len(stop_lat) % len(qs)]
+            assert query(port_of[q_rank], "big", pql) == [w], pql
+            q2 = job.ask(q_rank, "report")
+            if q2["counters"].get("CollectiveCount", 0) > q1["counters"].get(
+                    "CollectiveCount", 0):
+                resumed = time.perf_counter() - t0
+                break
+            time.sleep(0.2)
+        assert resumed is not None, q2["collective"]
+        assert q2["collective"]["health"]["plane_state"] == "closed", q2["collective"]["health"]
+        deadline = time.time() + 60
+        while True:
+            reps = job.all("report")
+            if reps[x_rank]["collective"]["barrier_aborts"] > reps0[x_rank]["collective"][
+                    "barrier_aborts"] or time.time() > deadline:
+                break
+            time.sleep(0.5)
+        finish(name, reps0, "gather_expr_count", quiet=False)
+        aborts = delta(reps, reps0, "collective", "barrier_aborts")
+        reduces = [rep["collective"]["reduces"] for rep in reps]
+        assert aborts[x_rank] >= 1, aborts  # the resumed rank read `abort`
+        assert len(set(reduces)) == 1, reduces  # ... and entered no reduce alone
+        i["i3"] = dict(query_rank=q_rank, stopped_rank=x_rank, counts=len(qs), stop_s=stop_s,
+                       stop_lat_ms=stop_lat, stopped=stopped, resumed_s=resumed,
+                       barrier_aborts=aborts, reduces=reduces,
+                       health=q2["collective"]["health"])
+        log(f"main (i3) [{smi}]: rank {x_rank} stopped (SIGSTOP): {len(qs)} Counts on rank "
+            f"{q_rank} equal numpy in {stop_s:.2f} s (first {stop_lat[0]:.1f} ms, then p50 "
+            f"{float(np.median(stop_lat[1:])):.1f} ms) through the fan-out's replicas; "
+            f"{stopped}; resumed (SIGCONT): the plane closed and CollectiveCount climbed "
+            f"{resumed:.2f} s later; the resumed rank read `abort` at {aborts[x_rank]} "
+            f"barrier(s) and every rank entered {reduces[0]} reduces")
+
+        # ---- shutdown: SIGTERM, each rank's last report
+        finals = job.stop()
+        for r, fin in enumerate(finals):
+            assert device == "cpu" or not any(fin["plain"].values()), (r, fin["plain"])
+        i["final"] = [dict(launches=f["launches"], plain=f["plain"],
+                           collective={k: v for k, v in f["collective"].items()
+                                       if k != "health"}) for f in finals]
+        log(f"main (i) [{smi}]: SIGTERM, every rank exited 0; launches per rank since the "
+            f"last reset {[f['launches'] for f in finals]}, plain twins "
+            f"{[sum(f['plain'].values()) for f in finals]}")
+    finally:
+        if job is not None:
+            job.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["i"] = i
 
 
 def cli_server_flow(device=None):

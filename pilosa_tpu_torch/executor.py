@@ -46,8 +46,17 @@ reference reduces them (Counts add, Rows merge, ValCounts add, take the
 smaller or the larger, TopN pairs add and sort). A failed peer's shards
 re-map onto replicas within the retry budget, a 409 gets one free
 re-route, and with a worker pool a slow peer's batch is hedged on a
-replica. Not ported yet, and refused when asked: the collective plane
-and point-in-time reads (at_position).
+replica.
+
+The collective plane (executor.py:424-456, 983-1006, 1143-1160,
+1210-1220 and 1345-1378 of the JAX package): when a torch.distributed
+job spans the cluster and a query covers every shard, Count, Sum/Min/Max
+and TopN's phase 2 are answered by one collective entry
+(parallel/collective.py) instead of the fan-out; a refusal
+(CollectiveUnavailable) is counted by reason and the query takes the
+fan-out. A real kernel fault on a CUDA rank is not a refusal: it raises
+out of execute. Not ported yet, and refused when asked: point-in-time
+reads (at_position).
 """
 
 from __future__ import annotations
@@ -198,7 +207,8 @@ class Executor:
         # Cross-query micro-batcher (sched/batcher.py), wired by the
         # server's scheduler; None keeps the direct engine path.
         self.batcher = None
-        # The collective plane comes with the multi-GPU slice.
+        # Collective plane backend (parallel/collective.py), wired by the
+        # server; None keeps every query on the fan-out.
         self.collective = None
         # Reads that touched a quarantined fragment (/debug/vars).
         self.quarantined_reads = 0
@@ -324,6 +334,39 @@ class Executor:
     def _supports(self, index: str, c: Call, shards: List[int]):
         """The engine's compile gate; nothing to run over no shards."""
         return bool(shards) and self.engine.supports(c, index)
+
+    # ---------------------------------------------------------- collective
+
+    def _collective_ok(self, index: str, shards: List[int], opt: ExecOptions) -> bool:
+        """True when the collective plane should serve this query: a
+        torch.distributed job spans the cluster and the query covers the
+        full shard range (a collective entry always covers all shards;
+        subsets go through the fan-out)."""
+        c = self.collective
+        if c is None or opt.remote or not shards:
+            return False
+        try:
+            if not c.active():
+                return False
+        except Exception as e:
+            # A probe failure routes the query to the HTTP fan-out; record
+            # it like every other refusal so a climbing fallback counter
+            # stays diagnosable.
+            self._collective_fallback(e)
+            return False
+        idx = self.holder.index(index)
+        if idx is None:
+            return False
+        return set(shards) == set(range(idx.max_shard() + 1))
+
+    def _collective_fallback(self, e) -> None:
+        """Record WHY the fast path refused, where the decision was made;
+        the per-reason breakdown lands in the backend's `collective`
+        counter group (/debug/vars) next to its serve counters."""
+        self._count_stat("CollectiveFallback")
+        if self.collective is not None:
+            self.collective.note_fallback(getattr(e, "reason", "error"))
+        self.logger.error("collective fallback: %s", e)
 
     # ----------------------------------------------------------- mapReduce
 
@@ -878,6 +921,28 @@ class Executor:
         if len(c.children) > 1:
             raise QueryError("Count() only accepts a single bitmap input")
         child = c.children[0]
+        if self._collective_ok(index, shards, opt):
+            plan = self._supports(index, child, shards)
+            if plan:
+                from .parallel.collective import CollectiveUnavailable
+
+                try:
+                    if self.batcher is not None:
+                        # Batched collective entry: concurrent queries of
+                        # one canonical signature coalesce into ONE
+                        # barrier, ONE sequence slot and ONE reduce
+                        # (sched/batcher.py collective_count). The group
+                        # key is the signature the descriptor carries.
+                        sig = self.collective._sig_tuple(plan)
+                        result = self.batcher.collective_count(
+                            self.collective, index, child, sig,
+                            deadline=opt.deadline)
+                    else:
+                        result = int(self.collective.count(index, child))
+                    self._count_stat("CollectiveCount")
+                    return result
+                except CollectiveUnavailable as e:
+                    self._collective_fallback(e)
         result = self._batched_or_map_reduce(
             index, c, shards, opt, "count",
             lambda s: self._execute_bitmap_call_shard(index, child, s).count(),
@@ -920,6 +985,20 @@ class Executor:
                 return self._walk_local(local_shards, map_fn, reduce_fn)
             return self._compose_bsi_result(bsig, kind, out)
 
+        if (bsig is not None
+                and (filter_call is None
+                     or self._supports(index, filter_call, shards))
+                and self._collective_ok(index, shards, opt)):
+            from .parallel.collective import CollectiveUnavailable
+
+            try:
+                result = self._collective_val_count(
+                    index, field_name, bsig, kind, filter_call)
+                self._count_stat("CollectiveValCount")
+                return result
+            except CollectiveUnavailable as e:
+                self._collective_fallback(e)
+
         # The per-shard walk is the BSI scans' whole degraded ladder: an
         # open plane breaker takes it before any dispatch.
         if (bsig is not None
@@ -933,6 +1012,17 @@ class Executor:
         if result.count == 0:
             return ValCount()
         return result
+
+    def _collective_val_count(self, index: str, field_name: str, bsig,
+                              kind: str, filter_call) -> ValCount:
+        """BSI Sum/Min/Max as ONE collective entry over every rank: the
+        cluster-wide replacement for the per-node ValCount merge. Its
+        Min/Max count holds every column with the extreme value, on
+        every rank; the fan-out's ValCount.smaller/larger keep the first
+        node's count on a tie."""
+        out = self.collective.bsi_val_count(
+            index, field_name, kind, bsig.bit_depth(), filter_call)
+        return self._compose_bsi_result(bsig, kind, out)
 
     @staticmethod
     def _compose_bsi_result(bsig, kind: str, out) -> ValCount:
@@ -1010,6 +1100,36 @@ class Executor:
 
         def map_fn(shard):
             return self._execute_topn_shard(index, c, shard)
+
+        if (ids
+                and not c.args.get("attrName")
+                and not tanimoto
+                and max(c.uint_arg("threshold")[0], DEFAULT_MIN_THRESHOLD) <= 1
+                and (src_call is None or self._supports(index, src_call, shards))
+                and self._collective_ok(index, shards, opt)):
+            # Collective phase 2: global candidate counts in one entry per
+            # chunk instead of a fan-out per node. Restricted to
+            # threshold <= 1 (per-shard MinThreshold semantics need
+            # per-shard counts, fragment.go:899-990).
+            from .parallel.collective import CollectiveUnavailable
+
+            field_name = c.args.get("_field") or DEFAULT_FIELD
+            try:
+                pairs: List[Pair] = []
+                chunk_n = _topn_chunk(len(shards))  # bounds the (R, k, W) stack
+                for i in range(0, len(ids), chunk_n):
+                    if i:
+                        self._check_chunk_deadline(
+                            opt.deadline, "between collective TopN chunks")
+                    chunk = ids[i:i + chunk_n]
+                    counts = self.collective.topn_counts(
+                        index, field_name, chunk, src_call)
+                    pairs.extend(Pair(id=r, count=int(cnt))
+                                 for r, cnt in zip(chunk, counts) if cnt > 0)
+                self._count_stat("CollectiveTopN")
+                return sort_pairs(pairs)
+            except CollectiveUnavailable as e:
+                self._collective_fallback(e)
 
         # Without a filter the host rank caches hold exact counts: the
         # per-shard walk needs no device work, as in the JAX package.

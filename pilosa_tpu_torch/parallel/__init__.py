@@ -27,8 +27,9 @@ class EngineConfig:
         because its container walk holds the GIL: on the pool each plane
         took 4-5x longer than serially on the H100's host (PERF.md).
     mesh_devices: the reference's engine mesh width. The port's engine
-        runs on one device; a server refuses a value above 1 until the
-        multi-GPU engine exists.
+        runs on one device, and a server refuses a value above 1: one
+        process over several devices is a difference by design (several
+        devices serve as ranks of the collective plane instead).
     leaf_cache_bytes, stack_cache_bytes, memo_entries, aux_memo_entries:
         cache bounds (0 = auto). Auto means: the env override
         (PILOSA_LEAF_CACHE_BYTES / PILOSA_STACK_CACHE_BYTES /
@@ -61,13 +62,28 @@ class EngineConfig:
 
 
 # The [collective] config section: the same fields and defaults as the
-# reference's, so one TOML file loads in both packages. The port has no
-# collective plane yet; the server keeps the section and builds nothing
-# from it.
+# reference's, so one TOML file loads in both packages. The server hands
+# it to the collective plane (parallel/collective.py).
 @dataclass
 class CollectiveConfig:
-    """Multi-host collective serving plane knobs (the reference's
-    parallel/collective.py)."""
+    """Multi-process collective serving plane knobs
+    (parallel/collective.py).
+
+    enabled: 0 turns the collective rung off entirely (every full-index
+        query takes the HTTP fan-out).
+    single_process: 1 lets a one-process job with a one-node cluster
+        serve through the collective plane (the barrier is a no-op).
+        Default 0: multi-node clusters must span a torch.distributed job.
+    timeout_ms: barrier timeout, and the process group's timeout
+        (PILOSA_COLLECTIVE_TIMEOUT_MS overrides it when no config is
+        given).
+    leaf_budget_bytes: resident (k, W) block budget per process, leaves
+        and stacks each; LRU past it, evicted planes demote through the
+        tier manager (PILOSA_COLLECTIVE_LEAF_BYTES).
+    delta_max_fraction: a stale resident block refreshes by a scatter of
+        the dirty words while they stay under this fraction of it; 0
+        disables deltas.
+    """
 
     enabled: int = 1
     single_process: int = 0

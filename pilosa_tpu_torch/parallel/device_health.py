@@ -1,8 +1,8 @@
 """Device-plane fault state: error classification and the dispatch breakers.
 
-A jax-free copy of pilosa_tpu/parallel/device_health.py (the
-collective-plane breakers wait for the multi-GPU slice), taught CUDA's
-spellings. An engine dispatch that raises — a CUDA allocation failure
+A jax-free copy of pilosa_tpu/parallel/device_health.py, taught CUDA's
+spellings, with the collective plane's breakers (CollectivePlaneHealth,
+at the end) copied as they are. An engine dispatch that raises — a CUDA allocation failure
 (``torch.cuda.OutOfMemoryError``, "CUDA out of memory"), a failed
 kernel launch, a hang caught by the dispatch watchdog — is first
 CLASSIFIED (oom / compile / runtime / timeout), then fed into two
@@ -417,4 +417,220 @@ class DevicePlaneHealth:
                 "sigs_tracked": len(self._sigs),
                 "sigs_open": quarantined,
                 "open_signatures": open_sigs,
+            }
+
+
+# Collective failure kinds (counter suffixes; alongside OOM/COMPILE/...).
+BARRIER_TIMEOUT = "barrier_timeout"
+BROADCAST = "broadcast"
+
+
+class CollectivePlaneHealth:
+    """Breakers for the multi-host collective serving plane
+    (parallel/collective.py).
+
+    Two levels, mirroring DevicePlaneHealth:
+
+      per-mesh-slice    one breaker per rank (= mesh slice). A
+                        descriptor broadcast that can't reach a node, or
+                        a barrier timeout while that node was a
+                        participant, quarantines its slice: every query
+                        whose placement spans it skips the collective
+                        rung instantly (HTTP fan-out) instead of paying
+                        a full barrier timeout per query.
+
+      plane-wide        consecutive collective failures of any kind open
+                        the whole plane — the leader stops entering
+                        barriers at all until a half-open probe query
+                        closes it again.
+
+    The gate is consulted on the LEADER side only (``allow``): peers
+    always enter descriptors they receive, so a probing leader's barrier
+    finds every healthy peer waiting and one clean query re-closes the
+    plane everywhere it opened. ``allow`` claims the half-open probe
+    atomically, exactly like the peer/device breakers; the probing
+    query's recorded outcome resolves it. Stdlib-only and clock-
+    injectable like the rest of this module."""
+
+    def __init__(self, config=None, clock: Optional[Callable[[], float]] = None):
+        import time
+
+        if config is None:
+            config = ResilienceConfig()
+        self.config = config
+        self.clock = clock or time.monotonic
+        self._mu = threading.Lock()
+        self._plane = _Breaker()
+        self._slices: Dict[int, _Breaker] = {}
+        self.counters: Dict[str, int] = {
+            "collective_failures": 0,
+            "failures_barrier_timeout": 0, "failures_broadcast": 0,
+            "failures_runtime": 0,
+            "plane_opened": 0, "plane_closed": 0, "plane_probes": 0,
+            "plane_short_circuits": 0,
+            "slice_quarantined": 0, "slice_restored": 0,
+            "slice_probes": 0, "slice_short_circuits": 0,
+        }
+
+    def allow(self, slices) -> bool:
+        """Leader-side gate for one collective entry spanning `slices`
+        (process indices). True = enter (possibly AS the half-open probe
+        of the plane and/or any probing slice); False = skip the
+        collective rung and fall back to the HTTP fan-out now, without
+        waiting out a barrier.
+
+        Two passes: a side-effect-free due check over EVERY breaker
+        first, probe claims second — claiming the plane's probe and then
+        short-circuiting on a still-backed-off slice would orphan the
+        probe, which expires as a FAILURE and doubles the plane's
+        backoff from short-circuits alone (the same hazard
+        DevicePlaneHealth.plan avoids with _due_locked)."""
+        now = self.clock()
+        base = self.config.collective_breaker_backoff
+        with self._mu:
+            if not self._due_locked(self._plane, now, base):
+                self.counters["plane_short_circuits"] += 1
+                return False
+            open_slices = []
+            for p in slices:
+                s = self._slices.get(int(p))
+                if s is None or s.state == CLOSED:
+                    continue
+                if not self._due_locked(s, now, base):
+                    self.counters["slice_short_circuits"] += 1
+                    return False
+                open_slices.append(s)
+            gate = self._gate_locked(
+                self._plane, now, "plane_probes", "plane_short_circuits",
+                base)
+            if gate is False:
+                # Due-but-refused edge (a HALF_OPEN probe past probe_ttl
+                # reopens inside the gate): nothing claimed yet, clean
+                # short-circuit.
+                return False
+            for s in open_slices:
+                self._gate_locked(s, now, "slice_probes",
+                                  "slice_short_circuits", base)
+        return True
+
+    def _due_locked(self, b: _Breaker, now: float, base: float) -> bool:
+        """Side-effect-free twin of _gate_locked: True when the breaker
+        would admit this entry right now (must hold _mu)."""
+        if b.state == OPEN:
+            return now - b.opened_at >= b.backoff
+        if b.state == HALF_OPEN:
+            return now - b.probe_at >= base
+        return True
+
+    # _gate_locked / _reopen shared with DevicePlaneHealth by copy of
+    # semantics, not inheritance: the two classes gate different things
+    # (dispatches vs barrier entries) and coupling them through a base
+    # class would make every breaker tweak a cross-plane change.
+    def _gate_locked(self, b: _Breaker, now: float, probes_key: str,
+                     short_key: str, base: float) -> Optional[bool]:
+        if b.state == CLOSED:
+            return None
+        if b.state == HALF_OPEN:
+            if now - b.probe_at > self.config.probe_ttl:
+                self._reopen(b, now, base)
+            elif now - b.probe_at >= base:
+                b.probe_at = now
+                self.counters[probes_key] += 1
+                return True
+        if b.state == OPEN and now - b.opened_at >= b.backoff:
+            b.state = HALF_OPEN
+            b.probe_at = now
+            self.counters[probes_key] += 1
+            return True
+        self.counters[short_key] += 1
+        return False
+
+    def _reopen(self, b: _Breaker, now: float, base: float) -> None:
+        b.state = OPEN
+        b.opened_at = now
+        b.backoff = min(
+            max(b.backoff, base) * 2,
+            max(self.config.collective_breaker_backoff_max, base))
+        b.open_count += 1
+
+    def record_success(self, slices=()) -> None:
+        """A collective entry completed: close any probing breaker."""
+        with self._mu:
+            p = self._plane
+            p.consec_failures = 0
+            if p.state != CLOSED:
+                p.state = CLOSED
+                p.backoff = 0.0
+                self.counters["plane_closed"] += 1
+            for pidx in slices:
+                s = self._slices.get(int(pidx))
+                if s is None:
+                    continue
+                s.consec_failures = 0
+                if s.state != CLOSED:
+                    s.state = CLOSED
+                    s.backoff = 0.0
+                    self.counters["slice_restored"] += 1
+
+    def record_failure(self, kind: str, slices=()) -> None:
+        """A collective entry failed with classified `kind`
+        (barrier_timeout / broadcast / runtime). `slices` names the
+        processes the evidence points at — the broadcast target for a
+        send failure, every participant for a barrier timeout (the
+        barrier cannot attribute; the member monitor narrows it)."""
+        now = self.clock()
+        cfg = self.config
+        with self._mu:
+            self.counters["collective_failures"] += 1
+            key = f"failures_{kind}"
+            self.counters[key] = self.counters.get(key, 0) + 1
+            p = self._plane
+            p.consec_failures += 1
+            if p.state == HALF_OPEN:
+                self._reopen(p, now, cfg.collective_breaker_backoff)
+            elif (p.state == CLOSED
+                  and p.consec_failures >= cfg.collective_breaker_failures):
+                p.state = OPEN
+                p.opened_at = now
+                p.backoff = cfg.collective_breaker_backoff
+                p.open_count += 1
+                self.counters["plane_opened"] += 1
+            for pidx in slices:
+                s = self._slices.get(int(pidx))
+                if s is None:
+                    s = self._slices[int(pidx)] = _Breaker()
+                s.consec_failures += 1
+                if s.state == HALF_OPEN:
+                    self._reopen(s, now, cfg.collective_breaker_backoff)
+                elif (s.state == CLOSED
+                      and s.consec_failures
+                      >= cfg.collective_breaker_failures):
+                    s.state = OPEN
+                    s.opened_at = now
+                    s.backoff = cfg.collective_breaker_backoff
+                    s.open_count += 1
+                    self.counters["slice_quarantined"] += 1
+
+    def plane_state(self) -> str:
+        with self._mu:
+            return self._plane.state
+
+    def slice_state(self, pidx: int) -> str:
+        with self._mu:
+            s = self._slices.get(int(pidx))
+            return s.state if s is not None else CLOSED
+
+    def snapshot(self) -> dict:
+        """Counter + breaker-state export (the `collective` group's
+        `health` sub-dict in /debug/vars)."""
+        with self._mu:
+            return {
+                **dict(self.counters),
+                "plane_state": self._plane.state,
+                "plane_backoff": round(self._plane.backoff, 3),
+                "plane_open_count": self._plane.open_count,
+                "slices": {
+                    str(p): b.state for p, b in self._slices.items()
+                    if b.state != CLOSED
+                },
             }

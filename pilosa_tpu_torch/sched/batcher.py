@@ -3,8 +3,9 @@
 A copy of pilosa_tpu/sched/batcher.py fitted to the port's engine: a
 call's compiled form is its canonical plan (``engine.plan``), passed on as
 ``plan=`` / ``plans=``; the fused launches are ``count_batch`` (one K1
-launch, ops/kernels.py) and ``bitmap_batch``. The collective-plane group
-(``collective_count``) comes with the multi-GPU slice.
+launch, ops/kernels.py) and ``bitmap_batch``, and the collective-plane
+group (``collective_count``) feeds the collective backend's
+``count_batch`` (parallel/collective.py).
 
 The engine can evaluate Q same-signature expressions in ONE device
 program (parallel/engine.py count_batch / bitmap_batch) — but only a
@@ -145,6 +146,87 @@ class MicroBatcher:
         if kind == "count":
             return engine.count(index, call, shards, plan=plan)
         return engine.bitmap(index, call, shards, plan=plan)
+
+    # -------------------------------------------------- collective plane
+
+    def collective_count(self, backend, index: str, call, sig,
+                         deadline: Optional[Deadline] = None) -> int:
+        """Count(call) through the multi-process collective plane
+        (parallel/collective.py), coalesced with compatible concurrent
+        requests into ONE collective entry: one barrier, one sequence
+        slot, one K1 launch per rank and one reduce for the whole group
+        — the collective path's fixed costs amortize across the batch.
+        `sig` is the call's CANONICAL plan signature (respellings share
+        a group). Raises CollectiveUnavailable through to the caller,
+        whose fallback is the HTTP fan-out."""
+        window = self.effective_window()
+        if window <= 0:
+            obs_record("batch.hold", 0.0, held=0)
+            return int(backend.count(index, call))
+        key = ("ccount", index, sig)
+        item = _Item(call, None)
+        with self._lock:
+            group = self._pending.get(key)
+            leader = group is None or group.closed
+            if leader:
+                group = _Group()
+                self._pending[key] = group
+            group.items.append(item)
+            self.counters["enqueued"] += 1
+            if len(group.items) >= self.batch_max:
+                group.closed = True
+                if self._pending.get(key) is group:
+                    del self._pending[key]
+                group.full.set()
+        if leader:
+            with obs_span("batch.hold", role="leader", held=1):
+                self.wait_window(group, window)
+            self._run_collective(key, group, backend, index)
+        else:
+            budget = 30.0
+            if deadline is not None:
+                budget = max(0.0, min(budget, deadline.remaining()))
+            with obs_span("batch.hold", role="follower", held=1):
+                answered = item.event.wait(
+                    timeout=budget + 10 * self.window_max)
+            if not answered:
+                with self._lock:
+                    self.counters["fallbacks"] += 1
+                if deadline is not None:
+                    deadline.check("micro-batch wait")
+                return int(backend.count(index, call))
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    def _run_collective(self, key, group: _Group, backend, index: str) -> None:
+        with self._lock:
+            if self._pending.get(key) is group:
+                del self._pending[key]
+            group.closed = True
+            items = list(group.items)
+        try:
+            if len(items) == 1:
+                results = [backend.count(index, items[0].call)]
+            else:
+                results = backend.count_batch(
+                    index, [it.call for it in items])
+            for it, r in zip(items, results):
+                it.result = int(r)
+        except BaseException as e:
+            # Every member sees the group's error — typically
+            # CollectiveUnavailable, which each caller's executor catches
+            # and serves through its own fan-out fallback.
+            for it in items:
+                it.error = e
+        finally:
+            with self._lock:
+                self.counters["launches"] += 1
+                self.counters["coalesced"] += len(items) - 1
+            if self.stats:
+                self.stats.histogram("SchedulerBatchSize", len(items))
+            for it in items:
+                it.event.set()
 
     def _submit(self, kind: str, index: str, call, shards, plan,
                 deadline: Optional[Deadline]):

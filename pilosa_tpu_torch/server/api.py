@@ -19,7 +19,7 @@ from ..core.field import FieldOptions
 from ..core.index import IndexOptions
 from ..core.row import Row
 from ..errors import PilosaError, QueryError
-from ..executor import ExecOptions, Executor, ValCount, not_ported
+from ..executor import ExecOptions, Executor, ValCount
 from ..obs import current as obs_current
 from ..core.cache import Pair
 
@@ -621,11 +621,31 @@ class API:
         return {"rowIDs": rows.tolist(), "columnIDs": cols.tolist()}
 
     def collective_count(self, index: str, field: str, rows: List[int]) -> int:
-        """Leader side of multi-host collective execution. The port has
-        no collective plane until the multi-GPU slice (ROADMAP Queue 1
-        item 3): refused with the typed not-ported error."""
+        """Leader side of multi-process collective execution:
+        Count(Intersect) over `rows` through the collective backend
+        (parallel/collective.py) — placement follows jump-hash, entry is
+        barrier-guarded and seq-ordered, failures surface instead of
+        hanging. A one-process job counts over this node's shards."""
         self._validate("collective_count")
-        raise not_ported("collective_count (ROADMAP Queue 1 item 3)")
+        if not rows:
+            raise QueryError("collective_count requires at least one row")
+        if len(self.cluster.nodes) > 1:
+            from ..parallel import distributed
+
+            if distributed.process_count() < len(self.cluster.nodes):
+                # Without a shared job a count would silently miss the
+                # peers' shards: refuse rather than answer wrong.
+                raise ApiError(
+                    "collective_count requires a torch.distributed job "
+                    f"spanning the cluster ({len(self.cluster.nodes)} nodes, "
+                    f"{distributed.process_count()} processes); set "
+                    "PILOSA_JAX_COORDINATOR on every node")
+        from ..pql.parser import parse
+
+        terms = ", ".join(f"Row({field}={int(r)})" for r in rows)
+        query = terms if len(rows) == 1 else f"Intersect({terms})"
+        call = parse(query).calls[0]
+        return self.server.collective.count(index, call)
 
     def cluster_message(self, msg: dict) -> None:
         self._validate("cluster_message")

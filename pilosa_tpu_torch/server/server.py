@@ -13,9 +13,16 @@ does not hold. Refused with the typed not-ported error: a membership
 change (join_addr, and the node-join, node-leave, resize, rebalance and
 foreign cluster-status messages), a primary translate store, CDC, geo
 replication, the mux transport and the autoscaler (ROADMAP Queue 1 item
-4), and an engine mesh wider than one device or a collective-exec message
-(item 3). There is no jax.distributed job and no collective backend:
-executor.collective stays None.
+4), and an engine mesh wider than one device (a difference by design:
+one process drives one device).
+
+The collective plane: `open()` joins the torch.distributed job the
+reference's variables describe (parallel/distributed.py; the reference
+joins a jax.distributed one), sets this node's process index to its
+rank, and builds the CollectiveBackend (parallel/collective.py) that the
+executor serves whole-index Counts, Sum/Min/Max and TopN phase 2
+through; peers enter the leader's descriptors from the collective-exec
+cluster message.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from typing import List, Optional
 
 from ..cluster.node import Cluster, Node, STATE_NORMAL, STATE_RESIZING, STATE_STARTING
 from ..core.holder import Holder, resolve_device
-from ..errors import PilosaError
+from ..errors import PilosaError, QueryError
 from ..executor import Executor, not_ported
 from ..logger import NopLogger
 from ..stats import InMemoryStatsClient
@@ -422,7 +429,8 @@ class Server:
                               autoscale_config, engine_config) -> None:
         """A static cluster only: each setting that would start other peer
         machinery raises the typed not-ported error naming it and the
-        ROADMAP item that lifts it."""
+        ROADMAP item that lifts it (or, for an engine mesh, why none
+        will)."""
         refused = [
             (join_addr, "join_addr (ROADMAP Queue 1 item 4)"),
             (primary_translate_store_url,
@@ -436,12 +444,16 @@ class Server:
              "transport_config.enabled (ROADMAP Queue 1 item 4)"),
             (autoscale_config is not None and autoscale_config.interval > 0,
              "autoscale_config.interval > 0 (ROADMAP Queue 1 item 4)"),
-            (engine_config is not None and engine_config.mesh_devices > 1,
-             "engine_config.mesh_devices > 1 (ROADMAP Queue 1 item 3)"),
         ]
         for hit, what in refused:
             if hit:
                 raise not_ported(f"the server setting {what}")
+        if engine_config is not None and engine_config.mesh_devices > 1:
+            raise QueryError(
+                "the server setting engine_config.mesh_devices > 1 is not "
+                "ported, by design: one process drives one device (ROADMAP "
+                "Queue 3), and several devices serve as ranks of the "
+                "collective plane")
 
     @staticmethod
     def _refuse_membership(what: str) -> None:
@@ -482,6 +494,26 @@ class Server:
     def open(self) -> "Server":
         """Open sequence (reference server.go:311-357)."""
         self._raise_file_limit()
+        # Multi-process job: join the torch.distributed group when
+        # configured (PILOSA_JAX_COORDINATOR/NUM_PROCESSES/PROCESS_ID, the
+        # reference's names). No-op for one-process deployments. The
+        # group's timeout is the collective plane's barrier timeout.
+        from ..parallel import distributed
+        from ..parallel.collective import DEFAULT_TIMEOUT_MS, CollectiveBackend
+
+        timeout_ms = (self.collective_config.timeout_ms
+                      if self.collective_config is not None
+                      else DEFAULT_TIMEOUT_MS)
+        if distributed.initialize(timeout_ms=timeout_ms):
+            self.node.process_idx = distributed.process_index()
+            self.logger.info(
+                "joined torch.distributed job: rank %d of %d",
+                distributed.process_index(), distributed.process_count())
+        # Collective query plane (leader + peer sides). Constructed for
+        # every server; one-process jobs serve through it only with
+        # `[collective] single-process` on a one-node cluster.
+        self.collective = CollectiveBackend(self, self.collective_config)
+        self.executor.collective = self.collective
         self.executor.logger = self.logger
         self.translate_store.open()
         self._httpd, self._http_thread, actual_port = serve(
@@ -1369,9 +1401,11 @@ class Server:
                 if upd.process_idx is not None:
                     existing.process_idx = upd.process_idx
         elif typ == "collective-exec":
-            # The collective plane comes with the multi-GPU slice.
-            raise not_ported(
-                "the collective-exec cluster message (ROADMAP Queue 1 item 3)")
+            # Non-leader side of leader-driven collective serving: enqueue
+            # the descriptor for the runner thread (entry happens in
+            # cluster-wide seq order; the handler thread must not block
+            # inside the collective). See parallel/collective.py.
+            self.collective.receive(msg)
         elif typ == "node-state":
             pass  # coordinator bookkeeping; static clusters are always NORMAL
         elif typ == "rebalance-begin":

@@ -763,3 +763,90 @@ def test_cli_cluster_on_the_card(cuda_device, tmp_path):
         for proc in procs:
             proc.send_signal(signal.SIGTERM)
             proc.wait(timeout=60)
+
+
+def _collective_pod(h):
+    """A one-process, one-node collective backend over `h`
+    (`[collective] single-process`): the barrier is a no-op and the
+    reduce is the rank's own result."""
+    from types import SimpleNamespace
+
+    from pilosa_tpu_torch.cluster.node import Cluster, Node
+    from pilosa_tpu_torch.logger import NopLogger
+    from pilosa_tpu_torch.parallel import CollectiveConfig
+    from pilosa_tpu_torch.parallel.collective import CollectiveBackend
+
+    node = Node(id="n0", process_idx=0)
+    server = SimpleNamespace(holder=h, logger=NopLogger(), client=None,
+                             cluster=Cluster(node=node, nodes=[node], replica_n=1))
+    return CollectiveBackend(server, CollectiveConfig(single_process=1)), server
+
+
+def test_collective_plane_on_card_matches_cpu(cuda_device):
+    """The collective plane's three programs on the card (K1, K2, K3 over
+    the rank's block) equal the same backend on a CPU holder of the same
+    planes, launch the kernels and never a twin; a planted launch error
+    inside an entry raises DeviceKernelFault out of Executor.execute."""
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.parallel.device_health import DeviceKernelFault
+    from pilosa_tpu_torch.pql.parser import parse
+
+    pods = []
+    for device in ("cuda", "cpu"):
+        h = pilosa_tpu_torch.Holder(None, device=device)
+        h.open()
+        idx = h.create_index("i")
+        fld = idx.create_field("f")
+        v = idx.create_field("v", FieldOptions(type="int", min=-5, max=900))
+        r = np.random.default_rng(417)
+        for row in range(4):
+            cols = r.choice(3 * SHARD_WIDTH, 5000, replace=False)
+            fld.import_bits([row] * len(cols), [int(c) for c in cols])
+        for col, val in zip(r.choice(3 * SHARD_WIDTH, 800, replace=False),
+                            r.integers(-5, 900, 800)):
+            v.set_value(int(col), int(val))
+        pods.append((h, *_collective_pod(h)))
+    depth = pods[0][0].field("i", "v").bsi_group("v").bit_depth()
+
+    def call(q):
+        return parse(q).calls[0].children[0]
+
+    batch = [f"Count(Difference(Row(f={a}), Range(v != 7)))" for a in (0, 1, 3)]
+    answers = []
+    for h, backend, _ in pods:
+        before = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+        got = [backend.count_batch("i", [call(q) for q in batch]),
+               backend.topn_counts("i", "f", [3, 0, 2], call("Count(Row(f=1))")).tolist()]
+        for kind in ("sum", "min", "max"):
+            for flt in (None, call("Count(Row(f=2))")):
+                out = backend.bsi_val_count("i", "v", kind, depth, flt)
+                got.append(out.tolist() if kind == "sum" else (out[0].tolist(), out[1]))
+        answers.append(got)
+        if h.device.type == "cuda":
+            torch.cuda.synchronize()
+            for k in ("gather_expr_count", "masked_plane_counts", "bsi_minmax"):
+                assert kernels.LAUNCHES[k] > before[0][k], k
+                assert kernels.PLAIN_CALLS[k] == before[1][k], k
+    assert answers[0] == answers[1]
+
+    h, backend, server = pods[0]
+    ex = pilosa_tpu_torch.Executor(h, cluster=server.cluster)
+    ex.collective = backend
+    server.executor = ex
+
+    def planted(name, err):
+        raise RuntimeError(f"{name} kernel launch failed: cudaError 700")
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(kernels, "_check_launch", planted)
+    try:
+        with pytest.raises(DeviceKernelFault) as fe:
+            ex.execute("i", "Count(Intersect(Row(f=0), Row(f=1)))")
+        assert fe.value.kind == "runtime"
+        assert backend.fallbacks == {}
+    finally:
+        mp.undo()
+        ex.close()
+        for h, backend, _ in pods:
+            backend.close()
+            h.close()

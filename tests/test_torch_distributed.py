@@ -1,0 +1,211 @@
+"""The port's multi-process job (pilosa_tpu_torch/parallel/distributed.py),
+mirroring tests/test_distributed.py.
+
+Two OS processes each own half the shards, join one torch.distributed
+gloo job, and produce identical all-reduced counts from K1 over their
+local blocks (its plain twin on the CPU) and one int64 all_reduce — the
+counterpart of the reference's global-mesh counts. Run as subprocesses
+because a process group binds one rank per OS process. Then the
+collective-count endpoint through a real one-process server, the
+single-process degenerate case, and the reference's variable names.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+import urllib.request
+
+import pytest
+import torch
+
+from pilosa_tpu_torch.parallel import distributed as dist
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port():
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+WORKER = textwrap.dedent("""
+    import sys
+    import torch
+
+    coordinator, n_proc, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+
+    from pilosa_tpu_torch.parallel import distributed as dist
+
+    assert dist.initialize(coordinator, n_proc, pid)
+    assert dist.initialize(coordinator, n_proc, pid)  # joined already
+    assert dist.process_count() == n_proc
+    assert dist.process_index() == pid
+
+    # 8 shards, 64 words per plane; shard s has popcount (s+1) in row 0 and
+    # bit pattern overlapping row 1 only on even shards.
+    n_shards, w = 8, 64
+    padded, lo, hi = dist.process_shard_slots(n_shards)
+    assert padded == -(-n_shards // n_proc) * n_proc  # 8, or 9 over 3 ranks
+    a_local = torch.zeros((hi - lo, w), dtype=torch.int32)
+    b_local = torch.zeros((hi - lo, w), dtype=torch.int32)
+    for s in range(lo, min(hi, n_shards)):  # padding slots stay zero
+        a_local[s - lo, 0] = (1 << (s + 1)) - 1     # popcount s+1
+        b_local[s - lo, 0] = -1 if s % 2 == 0 else 0
+
+    total = dist.global_count(a_local)
+    want_total = sum(s + 1 for s in range(n_shards))
+    assert total == want_total, (total, want_total)
+
+    inter = dist.global_and_count(a_local, b_local)
+    want_inter = sum(s + 1 for s in range(n_shards) if s % 2 == 0)
+    assert inter == want_inter, (inter, want_inter)
+    rows = dist.all_gather(torch.tensor([pid, 10 * pid], dtype=torch.int64))
+    assert rows.tolist() == [[p, 10 * p] for p in range(n_proc)], rows
+    print(f"WORKER_OK pid={pid} total={total} inter={inter}")
+""")
+
+
+def run_workers(tmp_path, script, argv, timeout):
+    """One worker per argv list, each waited on with a time limit and
+    killed in a `finally` if it is still running; [(rc, out, err)]."""
+    path = tmp_path / "worker.py"
+    path.write_text(script)
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo",
+           "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(path)] + [str(a) for a in args],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env)
+             for args in argv]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    return outs
+
+
+@pytest.mark.parametrize("n_proc", [2, 3])
+def test_two_process_global_mesh_counts(tmp_path, n_proc):
+    coordinator = f"localhost:{free_port()}"
+    outs = run_workers(tmp_path, WORKER,
+                       [[coordinator, n_proc, pid] for pid in range(n_proc)],
+                       timeout=120)
+    for rc, out, err in outs:
+        assert rc == 0, f"worker failed rc={rc}\nstdout:{out}\nstderr:{err[-2000:]}"
+        assert "WORKER_OK" in out
+    # Every process materialized the same all-reduced scalars.
+    totals = {line.split("total=")[1] for _, out, _ in outs
+              for line in out.splitlines() if "WORKER_OK" in line}
+    assert len(totals) == 1
+
+
+def _post(host, path, body):
+    req = urllib.request.Request(f"http://{host}{path}",
+                                 data=json.dumps(body).encode(), method="POST")
+    return json.load(urllib.request.urlopen(req))
+
+
+def test_collective_count_endpoint(tmp_path):
+    """Leader-driven collective count through the real server and API on
+    a one-process job (no peers to broadcast to; the rank's block holds
+    every shard). Cross-checks against the PQL path."""
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+    from pilosa_tpu_torch.server.client import InternalClient
+    from pilosa_tpu_torch.server.server import Server
+
+    s = Server(data_dir=str(tmp_path / "n0"), cache_flush_interval=0, device="cpu")
+    s.open()
+    try:
+        client = InternalClient()
+        h = f"localhost:{s.port}"
+        client.create_index(h, "cc")
+        client.create_field(h, "cc", "f")
+        for col in [1, 5, SHARD_WIDTH + 3]:
+            client.query(h, "cc", f"Set({col}, f=7)")
+            client.query(h, "cc", f"Set({col}, f=9)")
+        client.query(h, "cc", "Set(2, f=9)")
+
+        got = _post(h, "/internal/collective/count",
+                    {"index": "cc", "field": "f", "rows": [7]})["count"]
+        assert got == 3
+        got = _post(h, "/internal/collective/count",
+                    {"index": "cc", "field": "f", "rows": [7, 9]})["count"]
+        assert got == 3
+        want = client.query(h, "cc", "Count(Intersect(Row(f=7), Row(f=9)))")
+        assert want["results"][0] == 3
+        assert s.collective.counters["served_count"] == 2
+        client.close()
+    finally:
+        s.close()
+
+
+def test_collective_count_refused_without_a_spanning_job(tmp_path):
+    """Two nodes and no job: a collective count would miss the peer's
+    shards, so the endpoint refuses instead of answering."""
+    from pilosa_tpu_torch.server.server import Server
+
+    ports = [free_port(), free_port()]
+    hosts = [f"localhost:{p}" for p in ports]
+    s = Server(data_dir=None, port=ports[0], cluster_hosts=hosts, device="cpu",
+               cache_flush_interval=0, anti_entropy_interval=0,
+               member_monitor_interval=0)
+    s.open()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(hosts[0], "/internal/collective/count",
+                  {"index": "cc", "field": "f", "rows": [7]})
+        assert "torch.distributed job" in ei.value.read().decode()
+    finally:
+        s.close()
+
+
+def test_single_process_degenerates_to_local(monkeypatch):
+    """initialize() without a coordinator is a no-op and the helpers work
+    on the local block."""
+    monkeypatch.delenv("PILOSA_JAX_COORDINATOR", raising=False)
+    assert not dist.initialize()
+    assert dist.process_count() == 1 and dist.process_index() == 0
+    assert dist.connect_store() is None
+    n_shards = 8
+    padded, lo, hi = dist.process_shard_slots(n_shards)
+    assert lo == 0 and hi == padded >= n_shards
+    planes = torch.zeros((hi - lo, 16), dtype=torch.int32)
+    planes[3, 0] = 0b1011
+    assert dist.global_count(planes) == 3
+    other = torch.zeros_like(planes)
+    other[3, 0] = 0b0011
+    assert dist.global_and_count(planes, other) == 2
+
+
+@pytest.mark.parametrize("env", [
+    {"PILOSA_JAX_NUM_PROCESSES": "4", "PILOSA_JAX_PROCESS_ID": "1"},
+    {"PILOSA_JAX_COORDINATOR": "localhost:1", "PILOSA_JAX_NUM_PROCESSES": "1"},
+], ids=["no-coordinator", "one-process"])
+def test_initialize_reads_the_reference_variables(monkeypatch, env):
+    """The job is described by pilosa_tpu's variable names; without a
+    coordinator, or with one process, nothing is joined (and nothing is
+    dialed: the coordinator above does not exist)."""
+    for name in ("PILOSA_JAX_COORDINATOR", "PILOSA_JAX_NUM_PROCESSES",
+                 "PILOSA_JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert not dist.initialize()
+    assert dist.process_count() == 1
+
+
+@pytest.mark.parametrize("n_shards", [1, 7, 8, 256])
+def test_process_shard_slots_cover_the_shards(n_shards):
+    padded, lo, hi = dist.process_shard_slots(n_shards)
+    assert (padded, lo, hi) == (n_shards, 0, n_shards)

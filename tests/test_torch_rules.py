@@ -59,7 +59,8 @@ def test_scan_covers_the_package():
     names = {os.path.relpath(p, PKG) for p in port_sources()}
     for must in ("executor.py", "parallel/engine.py", "ops/kernels.py",
                  "core/fragment.py", "core/holder.py", "server/server.py",
-                 "sched/batcher.py", "translate.py", "cluster/syncer.py"):
+                 "sched/batcher.py", "translate.py", "cluster/syncer.py",
+                 "parallel/collective.py", "parallel/distributed.py"):
         assert must in names
 
 
