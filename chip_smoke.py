@@ -79,8 +79,8 @@ Phases, each of which fails the run if it fails:
              beside the kernel-path times: the warm loops of (a), (c) and
              (e) run inside engine.memos_off(). (g) one node over HTTP:
              (g1) an in-process Server on the card handed the same
-             holder; (g2) 512 distinct Count(Intersect(Row, Row)) per
-             client from C = 1, 8 and 32 keep-alive clients (a process
+             holder; (g2) distinct Count(Intersect(Row, Row)), 512, 256
+             and 128 per client from C = 1, 8 and 32 keep-alive clients (a process
              of their own), memos off, at the scheduler's defaults:
              queries/s, p50/p99, the micro-batcher's groups, K1 launches
              by variant, stack misses, the device idle share (1 - the
@@ -107,9 +107,10 @@ Phases, each of which fails the run if it fails:
              it of f (the same 256 x 128 planes), v (path (e)'s values)
              and a sparse field s (8 rows of 4096 bits over all shards),
              with a quarter of the default leaf and stack budgets each;
-             (h1) distinct Count(Intersect(Row, Row)), 512 per client
-             from C = 1 client and 128 per client from C = 8 (cut from
-             512 since path (i)), round-robin over the nodes, memos off:
+             (h1) distinct Count(Intersect(Row, Row)), 256 per client
+             from C = 1 client and 64 per client from C = 8 (cut from
+             512 since paths (i) and (j)), round-robin over the nodes,
+             memos off:
              queries/s, p50/p99, K1 launches by variant, the p50 of the
              coordinators' executor.fanout, remote:<peer> and reduce
              spans, the device idle share; (h2) from every node a nested
@@ -136,8 +137,8 @@ Phases, each of which fails the run if it fails:
              row of f resident; the script waits until every rank's
              collective.active() is true and drives each through a
              control directory (reset / report counters, a profiler
-             window); (i1) distinct Count(Intersect(Row, Row)), 512 per
-             client at C = 1 and 256 at C = 8, round-robin over the
+             window); (i1) distinct Count(Intersect(Row, Row)), 256 per
+             client at C = 1 and 128 at C = 8, round-robin over the
              ranks, every one
              served by the collective plane (CollectiveCount equals the
              query count, no fallback): queries/s, p50/p99, collective
@@ -156,7 +157,38 @@ Phases, each of which fails the run if it fails:
              probe closes the plane and CollectiveCount climbs; the
              resumed rank read `abort` at the aborted barriers and every
              rank entered the same number of reduces; then SIGTERM to
-             every rank, each exits 0 with its last counters. Every
+             every rank, each exits 0 with its last counters. (j) a
+             cluster that changes shape, and the change stream: (j1)
+             three server processes on the card with data directories
+             (replica_n = 2, the jump hasher, live rebalance), each
+             filled with its placement's shards of the first 64 shards
+             of f, v and s (the planes (i) wrote); a fourth server
+             process joins through join_addr while 8 clients (a process
+             of their own, 50 ms between requests) run
+             Count(Intersect(Row, Row)) over rows 0..31 and, every 4th
+             request, a Set or a Clear of their own columns of row 128
+             of f, round-robin over the first three nodes (a request
+             refused at a cutover is sent again and counted):
+             the rebalance's wall time, bytes and shards moved, cutover
+             pauses, Counts/s and p50/p99 before, during and after the
+             move, write p50/p99 and retries, K1 launches per node, the
+             device idle share; (j2) every node's Counts, Count(Row(f=
+             128)) against the acknowledged writes, Rows of s, TopN(f,
+             n=10) and Sum/Min/Max of v with Row(f=a), and the joined
+             node's own K1 Count over the shards it received; then
+             /cluster/resize/remove-node takes the fourth node out under
+             the same load, its shards move back, and (j2) holds again;
+             (j3) one Server with index ev (f over 64 shards x 128 rows,
+             written to its files, 256 Sets timed), reopened with [cdc]
+             enabled (base images cut): 2048 single-bit Sets and Clears
+             at positions 1..2048 (Set p50 with capture on and off),
+             /cdc/stream from 0 gives every op in order,
+             Count(Intersect(Row(f=a), Row(f=b))) with
+             X-Pilosa-At-Position at 4 positions equals a numpy replay
+             (planes on the card, K2, K1 not launched, the live engine's
+             counters unmoved) beside a live Count, and a standing
+             Count(Row(f=a)) re-evaluates without a push after a write to
+             row b and re-pushes after a write to row a. Every
              answer is checked against numpy on the fragments' host
              planes (TopN against a numpy replay of the two-phase
              ranking).
@@ -172,15 +204,19 @@ Phases, each of which fails the run if it fails:
              in every path, K2 and K3 in (h2); in (i): K1 on every rank
              in (i1), K1, K2 and K3 on every rank in (i2), the plain
              twins at 0 on every rank, each rank resetting and reporting
-             its own counters); outside (f4) and (i3) the fault-ladder
+             its own counters; in (j): K1 in the join, the leave, the
+             joined node's Count and the standing query, K1, K2 and K3
+             in each (j2), K2 and not K1 on the point-in-time path);
+             outside (f4) and (i3) the fault-ladder
              and host
              counters (host_counts, host_topn, device_dispatch_errors,
              oom_*, watchdog_timeouts, kernel_faults; host_cold_counts
              outside (f3)) are
              0 after every path, on every node's engine in (h), failover
-             included, and on every rank's in (i). The line carries the
-             launch sums, (i)'s ranks included. The log lines of (h) and
-             (i) carry the nvidia-smi name and power limit.
+             included, on every rank's in (i) and every node's in (j).
+             The line carries the launch sums, (i)'s ranks included. The
+             log lines of (h), (i) and (j) carry the nvidia-smi name and
+             power limit.
 
 It prints the nvidia-smi line and a {"kernels": [...]} JSON line before
 the last line, and as its last line {"ok": true, "device": {...}}. With
@@ -630,6 +666,52 @@ def check_kernels(torch, kernels, engine_mod, rng, brng, report, u, s, q,
         f"and without the mask, exact; {k3_ms:.4f} ms ({k3_method}, both launches), bound "
         f"{k3_bound:.4f} ms ({k3_by}, {k3_bytes / 1e6:.1f} MB), {k3_bound / k3_ms:.3f} of it; "
         f"twin {k3_plain_ms:.2f} ms")
+    # Path (i)'s shapes: each rank's (k, W) blocks, k = 67 shards. K1 on a
+    # two-leaf Count at Q = 1 (streaming), K2 on a 64-row TopN chunk and
+    # the 18-plane Sum stack, K3 on the depth-17 scan, all masked but K1.
+    k = 67
+    k67 = {}
+    pair = rand_planes((2, k, w))
+    pair_idx = torch.arange(2, dtype=torch.int32).reshape(-1, 1)
+    pair_tape = P(("Intersect", (leaf(0), leaf(1))))
+    k1_hold("path (i)'s Count at k = 67", pair, pair_idx, pair_tape)
+    chunk = rand_planes((64, k, w))
+    bsi_k = bsi[:, :k].contiguous()
+    mask_k = mask[:k].contiguous()
+    for name, st, m in (("topn_chunk", chunk, mask_k), ("sum_stack", bsi_k, mask_k)):
+        if not torch.equal(kernels.masked_plane_counts(st, m),
+                           kernels.masked_plane_counts_plain(st, m)):
+            raise AssertionError(f"K2 {name} at k = {k}: kernel != twin")
+    for maximize in (True, False):
+        got = kernels.bsi_minmax(bsi_k, mask_k, maximize)
+        want = kernels.bsi_minmax_plain(bsi_k, mask_k, maximize)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])):
+            raise AssertionError(f"K3 at k = {k} max={maximize}: kernel != twin")
+    for name, run, plain, kname, nbytes, ops, per_call in (
+            ("k1_count", lambda: kernels.gather_expr_count(pair, pair_idx, pair_tape),
+             lambda: kernels.gather_expr_count_plain(pair, pair_idx, pair_tape),
+             "k1_streaming_kernel", 2 * k * w * 4 + 8 + 8, 2 * k * w, False),
+            ("k2_topn_chunk", lambda: kernels.masked_plane_counts(chunk, mask_k),
+             lambda: kernels.masked_plane_counts_plain(chunk, mask_k),
+             "masked_plane_counts_kernel", (65 * k * w + 64 * k) * 4, 64 * k * w * 3, False),
+            ("k2_sum_stack", lambda: kernels.masked_plane_counts(bsi_k, mask_k),
+             lambda: kernels.masked_plane_counts_plain(bsi_k, mask_k),
+             "masked_plane_counts_kernel", ((depth + 2) * k * w + (depth + 1) * k) * 4,
+             (depth + 1) * k * w * 3, False),
+            ("k3_minmax", lambda: kernels.bsi_minmax(bsi_k, mask_k, True),
+             lambda: kernels.bsi_minmax_plain(bsi_k, mask_k, True),
+             "bsi_minmax", (depth + 2) * k * w * 4 + depth * 4 + 8, k * w * 3 * depth, True)):
+        ms, method = kernel_ms(torch, run, kname, 20, per_call=per_call)
+        plain_ms = cuda_time_ms(torch, plain, 3, warm=1)
+        b_ms, b_by = bound(nbytes, ops)
+        k67[name] = dict(ms=ms, method=method, plain_ms=plain_ms, bytes=nbytes,
+                         bound_ms=b_ms, bound_by=b_by)
+    report["kernel_phase_k67"] = k67
+    log(f"path (i)'s shapes, k = {k} shards per rank, exact against the twins: " + "; ".join(
+        f"{name} {r['ms']:.4f} ms ({r['method']}), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}), twin {r['plain_ms']:.3f} ms" for name, r in k67.items()))
+    del pair, chunk, bsi_k, mask_k
     del bsi, mask
     torch.cuda.empty_cache()
     # Small and ragged K3 shapes (S*W not a multiple of a block's 4096
@@ -1098,8 +1180,18 @@ def main_path(torch, pt, kernels, args, rng, report):
                 report["nvidia_smi"])
     # (i)'s ranks are processes of their own: each resets and reports its
     # own counters around each of (i)'s paths, and the sums join phases.
-    main_path_i(torch, kernels, H, bsi, out["bsi"]["depth"], rng, out,
-                report["nvidia_smi"], phases)
+    import shutil
+    import tempfile
+
+    planes_dir = tempfile.mkdtemp(prefix="pilosa-torch-planes-")
+    try:
+        planes = write_planes(H, bsi, out["bsi"]["depth"], planes_dir)
+        main_path_i(torch, kernels, H, bsi, out["bsi"]["depth"], rng, out,
+                    report["nvidia_smi"], phases, planes)
+        main_path_j(torch, kernels, H, bsi, out["bsi"]["depth"], rng, start, end, out,
+                    report["nvidia_smi"], phases, planes)
+    finally:
+        shutil.rmtree(planes_dir, ignore_errors=True)
     launches = {k: sum(p["launches"][k] for p in phases.values())
                 for k in kernels.LAUNCHES}
     out["phases"] = phases
@@ -1771,7 +1863,7 @@ def http_clients(port, index: str, work):
     return got["wall_s"], clients
 
 
-def http(port: int, method: str, path: str, body=None):
+def http(port: int, method: str, path: str, body=None, headers=None):
     """One request on a fresh connection; (status, parsed JSON or text)."""
     import http.client
 
@@ -1779,7 +1871,7 @@ def http(port: int, method: str, path: str, body=None):
     try:
         data = body if body is None or isinstance(body, bytes) else (
             body.encode() if isinstance(body, str) else json.dumps(body).encode())
-        conn.request(method, path, body=data)
+        conn.request(method, path, body=data, headers=headers or {})
         r = conn.getresponse()
         raw = r.read().decode()
     finally:
@@ -1788,6 +1880,19 @@ def http(port: int, method: str, path: str, body=None):
         return r.status, json.loads(raw)
     except ValueError:
         return r.status, raw
+
+
+def http_raw(port: int, path: str):
+    """One GET on a fresh connection; (status, the body's bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=300)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
 
 
 def query(port: int, index: str, pql: str):
@@ -1886,7 +1991,8 @@ def unordered_pairs(rng, n_rows: int) -> np.ndarray:
 
 
 def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
-                per_client=512, per_client_c32=128, n_keys=1 << 20, device=None):
+                per_client=512, per_client_c8=256, per_client_c32=128, n_keys=1 << 20,
+                device=None):
     """Path (g): one pilosa node over HTTP on the card. (g1) an in-process
     Server handed the 256-shard holder of (a)-(f); (g2) concurrent distinct
     Counts from C = 1, 8, 32 keep-alive clients through the scheduler and
@@ -1950,9 +2056,9 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
         levels = {}
         want = {}  # numpy's count per pair, shared by the levels
         for c in (1, 8, 32):
-            # C = 32 runs 128 queries per client, not 512: the script's
-            # time limit also holds path (h).
-            per = per_client if c < 32 else per_client_c32
+            # C = 8 runs 256 queries per client and C = 32 128, not 512:
+            # the script's time limit also holds paths (h)-(j).
+            per = {1: per_client, 8: per_client_c8, 32: per_client_c32}[c]
             n = c * per
             # Pairs cycle through every unordered pair; within a client
             # they are distinct, and the level runs with the memos off, so
@@ -2293,7 +2399,7 @@ def fold_val_count(srv, kind: str, vals, mask, n_shards: int):
 
 
 def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
-                per_client=512, per_client_c8=128, device=None):
+                per_client=256, per_client_c8=64, device=None):
     """Path (h): a static cluster of four nodes on one card. Four
     in-process Servers, every one with cluster_hosts naming all four,
     replica_n = 2 and the default jump hasher; each holds exactly the
@@ -2405,8 +2511,8 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
         levels = {}
         offset = 0
         for c in (1, 8):
-            # C = 8 runs 128 queries per client: the script's
-            # time limit also holds path (i).
+            # C = 1 runs 256 queries per client and C = 8 64: the
+            # script's time limit also holds paths (i) and (j).
             per = per_client if c == 1 else per_client_c8
             n = c * per
             sel = every[(offset + np.arange(n)) % len(every)]
@@ -2676,16 +2782,97 @@ I_CLIENT_TIMEOUT = 5.0   # s: a server's peer requests (30 s by default)
 I_LEAF_BUDGET = 2 << 30  # [collective] leaf-budget-bytes per rank (default 256 MiB)
 I_STOP_COUNTS = 32
 
+class WorkerCommands:
+    """The main thread of a server process of (i) or (j). It answers the
+    script's commands (files `<r>.<n>.cmd` in the control directory,
+    answered as `<r>.<n>.json`) until SIGTERM, then writes a last report
+    as `<r>.final.json`. Every process answers `reset` (the kernels'
+    launch counters and the peak device memory), `report`,
+    `profile_start` and `profile_stop` (the device time of a
+    torch.profiler window; None in a CPU rehearsal); a path adds its
+    own commands. Made first thing in the process, so that a SIGTERM
+    during start-up ends it too."""
+
+    def __init__(self, torch, kernels, cfg: dict, r: int):
+        import signal
+
+        self.torch, self.kernels, self.ctl, self.r = torch, kernels, cfg["ctl"], r
+        self.cuda = cfg["device"] != "cpu"  # None: the card
+        self.stop = []
+        self.prof = None
+        signal.signal(signal.SIGTERM, lambda *a: self.stop.append(1))
+
+    def sync(self) -> None:
+        if self.cuda:
+            self.torch.cuda.synchronize()
+
+    def max_mem_gib(self):
+        return self.torch.cuda.max_memory_allocated() / 2**30 if self.cuda else None
+
+    def reset(self, cmd):
+        self.sync()
+        self.kernels.reset_counters()
+        if self.cuda:
+            self.torch.cuda.reset_peak_memory_stats()
+        return {}
+
+    def profile_start(self, cmd):
+        if self.cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            self.sync()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        return {}
+
+    def profile_stop(self, cmd):
+        if not self.cuda:
+            return {"device_ms": None}
+        self.sync()
+        self.prof.__exit__(None, None, None)
+        us = sum(getattr(ev, "self_device_time_total", 0)
+                 for ev in self.prof.key_averages())
+        self.prof = None
+        return {"device_ms": us / 1e3}
+
+    def _write(self, name: str, obj) -> None:
+        tmp = os.path.join(self.ctl, f"{self.r}.{name}.tmp")
+        with open(tmp, "w") as f:
+            json.dump(obj, f, default=float)
+        os.replace(tmp, os.path.join(self.ctl, f"{self.r}.{name}.json"))
+
+    def serve(self, report, close, **ops) -> None:
+        """Answer commands with `ops` (name -> function of the command)
+        and the shared ones until SIGTERM; then `report()`, `close()`,
+        and the report written for `RankJob.stop`."""
+        ops = dict(reset=self.reset, profile_start=self.profile_start,
+                   profile_stop=self.profile_stop, report=lambda cmd: report(), **ops)
+        n = 0
+        while not self.stop:
+            path = os.path.join(self.ctl, f"{self.r}.{n}.cmd")
+            if os.path.exists(path):
+                with open(path) as f:
+                    cmd = json.load(f)
+                try:
+                    reply = {"ok": ops[cmd["op"]](cmd)}
+                except Exception as e:  # the script reads it and fails the path
+                    reply = {"error": f"{type(e).__name__}: {e}"}
+                self._write(str(n), reply)
+                n += 1
+            time.sleep(0.005)
+        final = report()
+        close()
+        self._write("final", final)
+
+
 # One rank of path (i)'s job: a port Server on the card, rank `rank` of
 # I_RANKS in one gloo group (the reference's three variables), holding the
 # shards its placement gives it of f and v from the memory-mapped planes
-# the script wrote. Its main thread answers the script's commands (files
-# in the control directory): reset or report the kernels' launch
-# counters, the engine, collective and batcher counters and the leader's
-# span p50s, start or stop a torch.profiler window. On SIGTERM it writes a
-# last report and exits.
+# the script wrote. Besides WorkerCommands' own, it answers `ready` and
+# reports the engine, collective and batcher counters and the leader's
+# span p50s.
 WORKER_I = r"""
-import json, os, signal, sys, time
+import json, os, sys, time
 
 cfg = json.load(open(sys.argv[1]))
 rank = int(sys.argv[2])
@@ -2704,17 +2891,8 @@ from pilosa_tpu_torch.parallel import CollectiveConfig, EngineConfig
 from pilosa_tpu_torch.plan.signature import Leaf
 from pilosa_tpu_torch.server.server import Server
 
-stop = []
-signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
+ctl = cs.WorkerCommands(torch, kernels, cfg, rank)
 device = cfg["device"]  # None: the card; "cpu" rehearses the path without one
-cuda = device != "cpu"
-
-
-def sync():
-    if cuda:
-        torch.cuda.synchronize()
-
-
 hosts = [f"localhost:{p}" for p in cfg["ports"]]
 srv = Server(
     data_dir=None, port=cfg["ports"][rank], cluster_hosts=hosts,
@@ -2744,7 +2922,7 @@ desc = srv.collective._descriptor("count", "big", queries=[])
 mine = desc["slots"][rank]
 for r in range(H.shape[0]):
     srv.collective._global_leaf("big", Leaf("f", "standard", r), mine, desc["k"])
-sync()
+ctl.sync()
 ready = dict(rank=rank, node=srv.node.id, owned=len(owned), slots=len(mine),
              k=desc["k"], fill_s=fill_s, resident_s=time.perf_counter() - t0,
              leaf_gib=srv.collective._leaf_bytes / 2**30)
@@ -2760,95 +2938,42 @@ def spans(limit):
     return {k: (float(np.median(v)) if v else None) for k, v in per.items()}
 
 
-def report(limit=256):
+def report():
     eng = srv.executor._engine
-    sync()
+    ctl.sync()
     return dict(
         launches=dict(kernels.LAUNCHES), plain=dict(kernels.PLAIN_CALLS),
         engine=eng.snapshot() if eng is not None else None,
         collective=srv.collective.snapshot(), batcher=srv.batcher.snapshot(),
         counters=dict(srv.stats.snapshot().get("counters", {})),
-        spans=spans(limit),
-        max_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+        spans=spans(256), max_mem_gib=ctl.max_mem_gib())
 
 
-prof = None
-
-
-def handle(cmd):
-    global prof
-    op = cmd["op"]
-    if op == "ready":
-        return ready
-    if op == "reset":
-        sync()
-        kernels.reset_counters()
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        return {}
-    if op == "report":
-        return report(cmd.get("limit", 256))
-    if op == "profile_start":
-        from torch.profiler import ProfilerActivity, profile
-
-        sync()
-        prof = profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
-        prof.__enter__()
-        return {}
-    if op == "profile_stop":
-        sync()
-        prof.__exit__(None, None, None)
-        us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages())
-        prof = None
-        return {"device_ms": us / 1e3}
-    raise ValueError(op)
-
-
-ctl = cfg["ctl"]
-n = 0
-while not stop:
-    path = os.path.join(ctl, f"{rank}.{n}.cmd")
-    if os.path.exists(path):
-        with open(path) as f:
-            cmd = json.load(f)
-        try:
-            reply = {"ok": handle(cmd)}
-        except Exception as e:  # the script reads it and fails the path
-            reply = {"error": f"{type(e).__name__}: {e}"}
-        tmp = os.path.join(ctl, f"{rank}.{n}.tmp")
-        with open(tmp, "w") as f:
-            json.dump(reply, f, default=float)
-        os.replace(tmp, os.path.join(ctl, f"{rank}.{n}.json"))
-        n += 1
-    time.sleep(0.005)
-final = report()
-srv.close()
-with open(os.path.join(ctl, f"{rank}.final.tmp"), "w") as f:
-    json.dump(final, f, default=float)
-os.replace(os.path.join(ctl, f"{rank}.final.tmp"), os.path.join(ctl, f"{rank}.final.json"))
+ctl.serve(report, srv.close, ready=lambda cmd: ready)
 """
 
 
 class RankJob:
-    """Path (i)'s four rank processes: started together, driven through
-    the control directory, stopped with SIGTERM (or killed) on close."""
+    """Server processes of one path ((i)'s four ranks, (j)'s nodes):
+    started together from `script`, driven through the control directory,
+    stopped with SIGTERM (or killed) on close."""
 
-    def __init__(self, cfg: dict, workdir: str):
+    def __init__(self, cfg: dict, workdir: str, script: str = WORKER_I, n: int = I_RANKS):
         self.cfg = cfg
         self.ctl = cfg["ctl"]
-        self.n = [0] * I_RANKS
-        script = os.path.join(workdir, "rank_worker.py")
-        with open(script, "w") as f:
-            f.write(WORKER_I)
+        self.n = [0] * n
+        path = os.path.join(workdir, "rank_worker.py")
+        with open(path, "w") as f:
+            f.write(script)
         cfg_path = os.path.join(workdir, "job.json")
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
         env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo"}
-        self.logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(I_RANKS)]
-        self.procs = [subprocess.Popen([sys.executable, script, cfg_path, str(r)],
+        self.logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(n)]
+        self.procs = [subprocess.Popen([sys.executable, path, cfg_path, str(r)],
                                        stdout=self.logs[r], stderr=subprocess.STDOUT,
                                        env=env, cwd=HERE)
-                      for r in range(I_RANKS)]
+                      for r in range(n)]
 
     def tail(self, r: int, n: int = 3000) -> str:
         self.logs[r].flush()
@@ -2875,7 +3000,7 @@ class RankJob:
         return reply["ok"]
 
     def all(self, op: str, **kw):
-        return [self.ask(r, op, **kw) for r in range(I_RANKS)]
+        return [self.ask(r, op, **kw) for r in range(len(self.procs))]
 
     def stop(self, timeout: float = 120.0):
         """SIGTERM every rank, wait for each to exit 0; the last reports."""
@@ -2907,8 +3032,25 @@ def sum_launches(reports) -> dict:
     return {k: sum(rep["launches"][k] for rep in reports) for k in reports[0]["launches"]}
 
 
-def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, per_client=512,
-                per_client_c8=256, device=None):
+def write_planes(H, bsi, depth: int, work: str) -> dict:
+    """f's planes and v's BSI planes as .npy files in `work`, written once
+    for the server processes of (i) and (j) to memory-map."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    vals, nn = bsi["vals"], bsi["nn"]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        v_planes = np.stack(list(pool.map(lambda sh: bsi_planes(
+            vals[sh], nn[sh], depth), range(H.shape[1]))))
+    out = dict(f_path=os.path.join(work, "f.npy"), v_path=os.path.join(work, "v.npy"))
+    np.save(out["f_path"], H)
+    np.save(out["v_path"], v_planes)
+    out["write_s"] = time.perf_counter() - t0
+    return out
+
+
+def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, planes,
+                per_client=256, per_client_c8=128, device=None):
     """Path (i): the collective plane on the card. Four server processes,
     each rank r of 4 in one gloo job (PILOSA_JAX_* variables), each with
     cluster_hosts naming all four, replica_n = 2 and the jump hasher,
@@ -2934,22 +3076,14 @@ def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, per_client
     os.makedirs(ctl)
     job = None
     try:
-        t0 = time.perf_counter()
         vals, nn = bsi["vals"], bsi["nn"]
-        with ThreadPoolExecutor(max_workers=8) as pool:
-            v_planes = np.stack(list(pool.map(lambda sh: bsi_planes(
-                vals[sh], nn[sh], depth), range(n_shards))))
-        np.save(os.path.join(work, "f.npy"), H)
-        np.save(os.path.join(work, "v.npy"), v_planes)
-        del v_planes
-        i["write_s"] = time.perf_counter() - t0
+        i["write_s"] = planes["write_s"]
         ports = free_ports(I_RANKS + 1)
         cfg = dict(here=HERE, coordinator=f"localhost:{ports[-1]}", ports=ports[:I_RANKS],
                    replica_n=H_REPLICAS, engine_leaf=5 << 30, engine_stack=3 << 30,
                    timeout_ms=I_TIMEOUT_MS, leaf_budget=I_LEAF_BUDGET,
                    client_timeout=I_CLIENT_TIMEOUT, ctl=ctl,
-                   f_path=os.path.join(work, "f.npy"), v_path=os.path.join(work, "v.npy"),
-                   device=device)
+                   f_path=planes["f_path"], v_path=planes["v_path"], device=device)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         job = RankJob(cfg, work)
@@ -3214,6 +3348,724 @@ def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, per_client
             job.close()
         shutil.rmtree(work, ignore_errors=True)
     out["i"] = i
+
+
+# ------------------------------------------------------------ path (j)
+
+J_NODES = 3          # the cluster before the join; a fourth node joins it
+J_SHARDS = 64        # (j1)-(j2) hold config 5's first 64 shards (a cut: PERF.md §4)
+J_CLIENTS = 8
+J_COUNT_ROWS = 32    # the clients' Counts read rows 0..31 of f
+J_WRITE_EVERY = 4    # every 4th request of a client is a Set or a Clear
+J_WINDOW_S = 3.0     # client load before a move starts and after it ends
+J_MOVE_LIMIT_S = 300  # a join or a leave that takes longer fails the run
+J_THINK_S = 0.05     # each client's pause between requests
+J_EV_SHARDS = 64     # (j3): index ev, 64 shards x 128 rows of f (1 GiB)
+J_EV_OPS = 2048      # (j3): single-bit Sets and Clears recorded by the log
+J_EV_OFF_SETS = 256  # (j3): Sets timed before change capture is enabled
+
+# Path (j)'s clients, one thread each, until the stop file appears: every
+# J_WRITE_EVERY-th request a Set or Clear of the client's own, else a
+# Count, round-robin over the ports. The result file holds, per client,
+# [[t0, latency_s, status, body, kind, k, sends again], ...] and the
+# (status, body) of every refusal it sent again.
+J_CLIENTS_SCRIPT = r"""
+import http.client, json, os, sys, threading, time
+cfg = json.load(open(sys.argv[1]))
+ports, stop, every = cfg["ports"], cfg["stop"], cfg["write_every"]
+out = [None] * len(cfg["counts"])
+
+def run(i):
+    conns = [http.client.HTTPConnection("localhost", p, timeout=600) for p in ports]
+    counts, writes = cfg["counts"][i], cfg["writes"][i]
+    res, j, w, refused = [], 0, 0, []
+    while not os.path.exists(stop) and time.time() < cfg["deadline"]:
+        if j % every == every - 1 and w < len(writes):
+            kind, k, q = "w", w, writes[w]
+            w += 1
+        else:
+            kind, k, q = "c", j % len(counts), counts[j % len(counts)]
+        conn = conns[(i + j) % len(ports)]
+        t0, p0 = time.time(), time.perf_counter()
+        tries = 0
+        while True:
+            try:
+                conn.request("POST", "/index/%s/query" % cfg["index"], body=q.encode())
+                r = conn.getresponse()
+                status, body = r.status, r.read().decode()
+            except (OSError, http.client.HTTPException) as e:
+                conn.close()  # reconnects on the next request
+                status, body = 0, repr(e)
+            # The one refusal a client sends again is the reference's
+            # retryable one: a write that met a cutover past the server's
+            # cutover wait ("shard migrated to a new owner"); Set and
+            # Clear are idempotent. Any other answer but 200, to a read
+            # or a write, is kept as it is and fails the run.
+            if (status == 200 or kind != "w" or "shard migrated to a new owner" not in body
+                    or tries >= 100):
+                break
+            tries += 1
+            refused.append([status, body[:300]])
+            time.sleep(0.05)
+        res.append([t0, time.perf_counter() - p0, status, body, kind, k, tries])
+        j += 1
+        time.sleep(cfg["think_s"])
+    for conn in conns:
+        conn.close()
+    out[i] = [res, refused]
+
+threads = [threading.Thread(target=run, args=(i,)) for i in range(len(out))]
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+json.dump(out, open(cfg["result"], "w"))
+"""
+
+
+# One node of path (j): processes 0..J_NODES-1 open a data directory and
+# fill it with their placement of f, v and s, as (h)'s nodes do; the last
+# process joins through `join_addr` on the `join` command. Besides
+# WorkerCommands' own, each answers `ready`, `status` (membership, state,
+# a move in progress) and `holds` (which of the given shards of f it
+# holds) and reports its engine and rebalance counters and pauses.
+WORKER_J = r"""
+import json, os, sys, time
+
+cfg = json.load(open(sys.argv[1]))
+r = int(sys.argv[2])
+sys.path.insert(0, cfg["here"])
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from pilosa_tpu_torch.logger import Logger
+from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.parallel import EngineConfig
+from pilosa_tpu_torch.server.server import Server
+
+ctl = cs.WorkerCommands(torch, kernels, cfg, r)
+device = cfg["device"]  # None: the card; "cpu" rehearses the path without one
+hosts = [f"localhost:{p}" for p in cfg["ports"]]
+n_base = len(hosts) - 1  # the last process joins later
+
+
+def make(**kw):
+    return Server(
+        data_dir=os.path.join(cfg["work"], f"n{r}"), port=cfg["ports"][r],
+        replica_n=cfg["replica_n"], cache_flush_interval=0, anti_entropy_interval=0,
+        member_monitor_interval=0, logger=Logger(stream=sys.stderr),
+        engine_config=EngineConfig(leaf_cache_bytes=cfg["engine_leaf"],
+                                   stack_cache_bytes=cfg["engine_stack"]),
+        device=device, **kw)
+
+
+srv = None
+ready = {"node": hosts[r]}
+if r < n_base:
+    srv = make(cluster_hosts=hosts[:n_base], is_coordinator=r == 0)
+    srv.open()
+    t0 = time.perf_counter()
+    S = np.load(cfg["s_path"])
+    n_shards = cfg["n_shards"]
+    owned = cs.fill_node(srv, np.load(cfg["f_path"], mmap_mode="r")[:, :n_shards],
+                         np.load(cfg["v_path"], mmap_mode="r")[:n_shards], (S[0], S[1]),
+                         n_shards)
+    ready.update(owned=len(owned), fill_s=time.perf_counter() - t0)
+
+
+def status(cmd):
+    return dict(nodes=[n.id for n in srv.cluster.nodes], state=srv.cluster.state,
+                moving=srv.cluster.next_nodes is not None)
+
+
+def report():
+    eng = srv.executor._engine if srv is not None else None
+    ctl.sync()
+    return dict(
+        node=hosts[r], launches=dict(kernels.LAUNCHES), plain=dict(kernels.PLAIN_CALLS),
+        engine=eng.snapshot() if eng is not None else None,
+        rebalance=srv.rebalance_stats.snapshot() if srv is not None else None,
+        pauses=list(srv.rebalance_stats._pauses) if srv is not None else [],
+        max_mem_gib=ctl.max_mem_gib())
+
+
+def join(cmd):
+    global srv
+    srv = make(join_addr=hosts[0], is_coordinator=False)
+    srv.open()  # returns once the coordinator admitted this node
+    return {}
+
+
+def holds(cmd):
+    return [s for s in cmd["shards"]
+            if srv.holder.fragment("big", "f", "standard", s) is not None]
+
+
+ctl.serve(report, lambda: srv is not None and srv.close(), ready=lambda cmd: ready,
+          join=join, status=status, holds=holds)
+"""
+
+
+def j_fill_ev(srv, H, n_shards: int) -> None:
+    """(j3)'s index ev: field f holding the first n_shards shards of H
+    (every row), each fragment written to its file once. Serial: the
+    snapshot is Python work under the GIL, which a thread pool only
+    contends for."""
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+    from pilosa_tpu_torch.storage.bitmap import Container
+
+    view = srv.holder.create_index("ev").create_field("f") \
+        .create_view_if_not_exists("standard")
+    n_rows, n_containers = H.shape[0], SHARD_WIDTH >> 16
+
+    def one(shard):
+        frag = view.create_fragment_if_not_exists(shard, broadcast=False)
+        words = H[:, shard].view(np.uint64).reshape(n_rows, n_containers, 1024).copy()
+        counts = np.bitwise_count(words).sum(axis=2)
+        for row in range(n_rows):
+            for ci in range(n_containers):
+                frag.storage.containers[row * n_containers + ci] = Container(
+                    bits=words[row, ci], n=int(counts[row, ci]))
+            frag.cache.bulk_add(row, int(counts[row].sum()))
+        frag.cache.invalidate(force=True)
+        frag.snapshot()
+
+    for shard in range(n_shards):
+        one(shard)
+
+
+def load_window(job, work: str, label: str, ports, pairs, want_pairs, writes, cursor,
+                written: set, wr: int, action, done, window_s: float = J_WINDOW_S,
+                think_s: float = J_THINK_S, limit_s: float = J_MOVE_LIMIT_S) -> dict:
+    """Path (j)'s load around a move of the server processes of `job`:
+    clients (J_CLIENTS_SCRIPT, a process of their own, one client per
+    entry of `writes`) run Count(Intersect) over `pairs` and client i's
+    Sets and Clears of row `wr` from writes[i][cursor[i]:], round-robin
+    over `ports`, for window_s; then `action()`, until `done()`, then
+    window_s more. Every Count must equal `want_pairs` and every answer
+    be 200; a write refused at a cutover is sent again and counted. The
+    acknowledged writes are applied to `written` and advance `cursor`.
+    Returns the window's numbers."""
+    n_clients = len(writes)
+    cfg_path = os.path.join(work, f"clients-{label}.json")
+    res_path = os.path.join(work, f"result-{label}.json")
+    stop = os.path.join(work, f"stop-{label}")
+    counts = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in
+               np.roll(pairs, -37 * i, axis=0)] for i in range(n_clients)]
+    wq = [[f"{op}({c}, f={wr})" for op, c in writes[i][cursor[i]:]]
+          for i in range(n_clients)]
+    with open(cfg_path, "w") as f:
+        json.dump({"ports": ports, "index": "big", "stop": stop,
+                   "write_every": J_WRITE_EVERY, "think_s": think_s,
+                   "counts": counts,
+                   "writes": wq, "result": res_path,
+                   "deadline": time.time() + 600}, f)
+    proc = subprocess.Popen([sys.executable, "-c", J_CLIENTS_SCRIPT, cfg_path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    marks = {}
+    try:
+        with GcPauses() as gcp:
+            job.all("profile_start")
+            time.sleep(window_s)
+            marks["begin"] = time.time()
+            action()
+            t_end, t_log = time.time() + limit_s, time.time() + 10
+            while not done():
+                assert time.time() < t_end, f"{label}: the move did not end"
+                if time.time() > t_log:
+                    t_log += 10
+                    rb = job.ask(0, "report")["rebalance"]
+                    log(f"(j1) {label}: {time.time() - marks['begin']:.0f} s, "
+                        f"coordinator {rb}")
+                time.sleep(0.2)
+            marks["end"] = time.time()
+            time.sleep(window_s)
+            open(stop, "w").close()
+            dev = [r["device_ms"] for r in job.all("profile_stop")]
+    finally:
+        open(stop, "w").close()
+        _, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-3000:]
+    with open(res_path) as f:
+        clients, refused = zip(*json.load(f))
+    # What the retried writes were refused with: each distinct
+    # (status, body) and how often.
+    why = {}
+    for st, body in (x for r in refused for x in r):
+        why[f"{st} {body}"] = why.get(f"{st} {body}", 0) + 1
+
+    def win_of(t_req):
+        return ("before" if t_req < marks["begin"] else
+                "during" if t_req < marks["end"] else "after")
+
+    lat = {"before": [], "during": [], "after": []}
+    wlat = {"before": [], "during": [], "after": []}
+    retried = {w: 0 for w in lat}  # writes sent again, by window
+    n_win = {k: 0 for k in lat}
+    for i, res in enumerate(clients):
+        for t_req, dt, status_, body, kind, k, tries in res:
+            assert status_ == 200, (label, kind, status_, body[:500])
+            win = win_of(t_req)
+            retried[win] += tries
+            got = json.loads(body)["results"]
+            if kind == "c":
+                assert got == [want_pairs[(k + 37 * i) % len(pairs)]], (
+                    label, win, k, got)
+                lat[win].append(dt)
+                n_win[win] += 1
+            else:
+                op, c = writes[i][cursor[i] + k]
+                (written.add if op == "Set" else written.discard)(c)
+                wlat[win].append(dt)
+        cursor[i] += sum(1 for r in res if r[4] == "w")
+    first = min(r[0] for res in clients for r in res)
+    last = max(r[0] + r[1] for res in clients for r in res)
+    span = {"before": marks["begin"] - first,
+            "during": marks["end"] - marks["begin"], "after": last - marks["end"]}
+    wall = last - first
+    dev_ms = sum(d for d in dev if d) or None
+    return dict(
+        move_s=marks["end"] - marks["begin"], wall_s=wall,
+        counts={w: dict(n=n_win[w], qps=n_win[w] / span[w],
+                        p50_ms=pct(lat[w], 50) if lat[w] else None,
+                        p99_ms=pct(lat[w], 99) if lat[w] else None)
+                for w in lat},
+        writes={w: dict(n=len(wlat[w]), p50_ms=pct(wlat[w], 50) if wlat[w] else None,
+                        p99_ms=pct(wlat[w], 99) if wlat[w] else None)
+                for w in wlat},
+        retried=retried, refused=why, device_ms=dev_ms, gc_gen2=gcp.n, gc_gen2_ms=gcp.ms,
+        idle_share=(1.0 - dev_ms / (wall * 1e3)) if dev_ms else None)
+
+
+def rebalance_numbers(reps, before) -> dict:
+    """The rebalance counters that the processes' reports `reps` gained
+    since `before`, and the cutover pauses recorded since (p50, max)."""
+    tot = {k: sum((r["rebalance"] or {}).get(k, 0) for r in reps)
+           - sum((b["rebalance"] or {}).get(k, 0) for b in before)
+           for k in ("bytes_streamed", "fragments_moved", "shards_cut_over",
+                     "jobs_completed", "jobs_aborted", "catchup_rounds",
+                     "cutover_pause_overruns", "stale_epoch_reroutes")}
+    pauses = sorted(p for r, b in zip(reps, before) for p in r["pauses"][len(b["pauses"]):])
+    tot["cutover_pause_ms_p50"] = pct(pauses, 50) if pauses else None
+    tot["cutover_pause_ms_max"] = max(pauses) * 1e3 if pauses else None
+    return tot
+
+
+def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases, planes,
+                device=None):
+    """Path (j): a cluster that changes shape, and the change stream, on
+    one card. (j1) three server processes (data directories, replica_n =
+    2, the jump hasher, live rebalance) hold the first J_SHARDS shards of
+    f, v and s as (h)'s nodes hold all of them; a fourth server process
+    joins through `join_addr` while 8 clients
+    run Counts and Sets/Clears round-robin over the first three, and the
+    coordinator's live rebalance moves its shards; (j2) every node's
+    Counts, Rows, TopN and Sum/Min/Max equal numpy on the state the
+    writes produced, and the joined node counts with K1 over the shards
+    it received; /cluster/resize/remove-node then takes it out under the
+    same load, its shards move back, and (j2) holds again. (j3) one
+    Server with change capture over index ev (64 shards of f, filled
+    before capture): recorded Sets and Clears, point-in-time Counts
+    against a numpy replay (planes on the card, K2), the change stream
+    from the start, and a standing Count that re-pushes only on a real
+    change."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    from pilosa_tpu_torch.cdc import CdcConfig
+    from pilosa_tpu_torch.cdc.log import decode_cdc_records
+    from pilosa_tpu_torch.cluster.node import Cluster, Node
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+    from pilosa_tpu_torch.server.server import Server
+    from pilosa_tpu_torch.storage import FSYNC_NEVER, StorageConfig
+
+    H = H[:, :J_SHARDS]
+    vals, nn = bsi["vals"][:J_SHARDS], bsi["nn"][:J_SHARDS]
+    n_rows, n_shards, n_words = H.shape
+    wr = n_rows  # the clients write row n_rows of f: absent from H, so
+    # TopN(f) and the Counts over rows 0..J_COUNT_ROWS-1 keep H's answers
+    j = {"nodes": J_NODES, "replica_n": H_REPLICAS, "smi": smi}
+    work = tempfile.mkdtemp(prefix="pilosa-torch-j-")
+    ctl = os.path.join(work, "ctl")
+    os.makedirs(ctl)
+    # The joining node's id (host:port) sorts after the others': jump hash
+    # then gives it a quarter of the placements, 36 of 128 here, whatever
+    # ports the run gets (an id sorting first re-keys every replica pair).
+    ports = sorted(free_ports(J_NODES + 1), key=lambda p: f"localhost:{p}")
+    hosts = [f"localhost:{p}" for p in ports]
+    joiner = J_NODES  # the process index of the joining node
+    srows = np.repeat(np.arange(H_SPARSE_ROWS, dtype=np.uint64), H_SPARSE_BITS)
+    scols = np.concatenate([np.sort(rng.choice(n_shards * SHARD_WIDTH, H_SPARSE_BITS,
+                                               replace=False)).astype(np.uint64)
+                            for _ in range(H_SPARSE_ROWS)])
+    job = None
+    try:
+        np.save(os.path.join(work, "s.npy"), np.stack([srows, scols]))
+        cfg = dict(here=HERE, work=work, ports=ports, replica_n=H_REPLICAS,
+                   engine_leaf=5 << 30, engine_stack=3 << 30, ctl=ctl,
+                   f_path=planes["f_path"], v_path=planes["v_path"],
+                   s_path=os.path.join(work, "s.npy"), n_shards=n_shards, device=device)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        job = RankJob(cfg, work, script=WORKER_J, n=J_NODES + 1)
+        ready = job.all("ready", timeout=900)
+        j["start_s"] = time.perf_counter() - t0
+        j["shards_per_node_before"] = {r["node"]: r.get("owned") for r in ready[:J_NODES]}
+        log(f"main (j) [{smi}]: {J_NODES} server processes on {torch.cuda.get_device_name(0)} "
+            f"with data directories (replica_n {H_REPLICAS}, jump hash) and one to join, "
+            f"config 5's first {n_shards} shards; up and filled in {j['start_s']:.1f} s, "
+            f"shards per node {j['shards_per_node_before']}")
+
+        # ---- what numpy says
+        pairs = unordered_pairs(rng, J_COUNT_ROWS)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            want_pairs = list(pool.map(
+                lambda p: np_count(np.bitwise_and(H[p[0]], H[p[1]])), pairs))
+            cache = np.stack(list(pool.map(
+                lambda r: np.bitwise_count(H[r]).sum(axis=1, dtype=np.int64), range(n_rows))))
+        want_topn = replay_topn(cache, cache, 10)
+        fa = int(rng.integers(J_COUNT_ROWS, n_rows))
+        sr = int(rng.integers(H_SPARSE_ROWS))
+        fbits_flat = np.unpackbits(H[fa].view(np.uint8), axis=1,
+                                   bitorder="little").reshape(-1).view(bool)
+        fbits = fbits_flat.reshape(n_shards, -1)
+        s_cols = scols[srows == sr].astype(np.int64)
+        want_s_and_f = s_cols[fbits_flat[s_cols]]
+        sel = vals[nn & fbits]
+        want_sum = (int(sel.sum(dtype=np.int64)), int(sel.size))
+        del sel
+        # Each client writes its own columns of row wr over every shard:
+        # Sets, and every third op a Clear of the column set before.
+        wcols = rng.permutation(np.unique(rng.integers(
+            0, n_shards * SHARD_WIDTH, J_CLIENTS * 4000)))[:J_CLIENTS * 3000]
+        writes = []
+        for i in range(J_CLIENTS):
+            mine = [int(c) for c in wcols[i::J_CLIENTS]]
+            ops = []
+            for k, c in enumerate(mine):
+                ops.append(("Set", c))
+                if k % 3 == 2:
+                    ops.append(("Clear", mine[k - 1]))
+            writes.append(ops)
+        written = set()  # row wr's columns after the acknowledged writes
+        cursor = [0] * J_CLIENTS  # each client's next write across windows
+
+        def begin(name):
+            job.all("reset")
+            return name
+
+        def finish(name, *need, none=()):
+            """Every process's launches over the path, summed into
+            `phases`; `need` kernels launched, `none` not, no plain twin
+            on the card, and no ladder or host rung on any engine."""
+            reps = job.all("report")
+            got = {"launches": {k: sum(r["launches"][k] for r in reps)
+                                for k in kernels.LAUNCHES},
+                   "plain_calls": {k: sum(r["plain"][k] for r in reps)
+                                   for k in kernels.PLAIN_CALLS}}
+            phases[name] = got
+            log(f"counters {name}: launches {got['launches']}, plain twins "
+                f"{got['plain_calls']}")
+            ran = got["plain_calls"] if device == "cpu" else got["launches"]
+            assert device == "cpu" or not any(got["plain_calls"].values()), (name, got)
+            for k in need:
+                assert ran[k] > 0, (name, k, got)
+            for k in none:
+                assert ran[k] == 0, (name, k, got)
+            for r, rep in enumerate(reps):
+                snap = rep["engine"] or {}
+                bad = {k: snap[k] for k in LADDER if snap.get(k)}
+                assert not bad, (name, r, bad)
+            return reps
+
+        def status(r):
+            return job.ask(r, "status")
+
+        def members():
+            """The coordinator's membership as a Cluster of this process
+            (the jump hasher, replica_n), for placement-dependent wants."""
+            ids = status(0)["nodes"]
+            nodes = [Node(id=h, uri=h) for h in sorted(ids)]
+            return nodes, {n.id: SimpleNamespace(node=n, cluster=Cluster(
+                node=n, nodes=nodes, replica_n=H_REPLICAS)) for n in nodes}
+
+        def k1_per_node(reps, before):
+            return {r["node"]: (r["engine"] or {}).get("count_dispatches", 0)
+                    - (b["engine"] or {}).get("count_dispatches", 0)
+                    for r, b in zip(reps, before)}
+
+        def check_every(node_idx, label):
+            """(j2): every node's answers against numpy."""
+            nodes, view = members()
+            assert sorted(n.id for n in nodes) == sorted(hosts[r] for r in node_idx), nodes
+            want_w = len(written)
+            want_w_and_f = sum(1 for c in written if fbits_flat[c])
+            for r in node_idx:
+                port = ports[r]
+                for k in range(0, len(pairs), len(pairs) // 4):
+                    a, b = (int(x) for x in pairs[k])
+                    got = query(port, "big", f"Count(Intersect(Row(f={a}), Row(f={b})))")
+                    assert got == [want_pairs[k]], (label, hosts[r], a, b, got)
+                assert query(port, "big", f"Count(Row(f={wr}))") == [want_w], label
+                assert query(port, "big", f"Count(Intersect(Row(f={wr}), Row(f={fa})))") \
+                    == [want_w_and_f], label
+                got = query(port, "big", f"Row(s={sr})")[0]
+                assert got["columns"] == s_cols.tolist(), (label, hosts[r])
+                got = query(port, "big", f"Intersect(Row(s={sr}), Row(f={fa}))")[0]
+                assert got["columns"] == want_s_and_f.tolist(), (label, hosts[r])
+                got = query(port, "big", "TopN(f, n=10)")[0]
+                assert [(p["id"], p["count"]) for p in got] == want_topn, (label, got)
+                got = query(port, "big", f"Sum(Row(f={fa}), field=v)")[0]
+                assert (got["value"], got["count"]) == want_sum, (label, got)
+                for kind in ("min", "max"):
+                    got = query(port, "big", f"{kind.title()}(Row(f={fa}), field=v)")[0]
+                    want_k = fold_val_count(view[hosts[r]], kind, vals, nn & fbits, n_shards)
+                    assert (got["value"], got["count"]) == want_k, (label, kind, got, want_k)
+
+        # ---- (j1) join under load
+        for r in range(J_NODES):  # each node's Count leaves resident before the clock
+            for a, b in pairs[:J_COUNT_ROWS]:
+                query(ports[r], "big", f"Count(Intersect(Row(f={a}), Row(f={b})))")
+
+        def join():
+            job.ask(joiner, "join", timeout=J_MOVE_LIMIT_S)
+
+        def joined():
+            st = status(0)
+            return (len(st["nodes"]) == J_NODES + 1 and not st["moving"]
+                    and all(status(r)["state"] == "NORMAL" for r in range(J_NODES + 1)))
+
+        ph = begin("j1_join")
+        before = job.all("report")
+        jw = load_window(job, work, "join", ports[:J_NODES], pairs, want_pairs, writes,
+                         cursor, written, wr, join, joined)
+        reps = finish(ph, "gather_expr_count")
+        jw["rebalance"] = rebalance_numbers(reps, before)
+        jw["k1_per_node"] = k1_per_node(reps, before)
+        assert jw["rebalance"]["jobs_completed"] == 1, jw["rebalance"]
+        got_j = reps[joiner]["engine"]
+        assert got_j["count_dispatches"] > 0 and got_j["leaf_misses"] > 0, got_j
+        j["join"] = jw
+        nodes, view = members()
+        mine = [s for s in range(n_shards) if any(
+            n.id == hosts[joiner] for n in view[hosts[0]].cluster.shard_nodes("big", s))]
+        assert mine and job.ask(joiner, "holds", shards=mine) == mine
+        j["joiner_shards"] = len(mine)
+        log(f"main (j1) [{smi}]: {hosts[joiner]} joined {J_NODES} nodes on "
+            f"{torch.cuda.get_device_name(0)} under {J_CLIENTS} clients: rebalance "
+            f"{jw['move_s']:.2f} s, {jw['rebalance']}; Counts before/during/after "
+            f"{jw['counts']}; writes {jw['writes']}, sent again {jw['retried']} after "
+            f"{jw['refused']}; K1 launches "
+            f"per node {jw['k1_per_node']}; device {jw['device_ms']} ms, idle share "
+            f"{jw['idle_share']}; gen-2 GCs in this process {jw['gc_gen2']} "
+            f"({jw['gc_gen2_ms']:.1f} ms); every answer equal numpy")
+
+        # ---- (j2) after the join: the joiner's own Count, then every node
+        ph = begin("j2_joined_count")
+        a, b = (int(x) for x in pairs[1])
+        status_, got = http(ports[joiner], "POST", "/index/big/query?remote=true",
+                            {"query": f"Count(Intersect(Row(f={a}), Row(f={b})))",
+                             "shards": mine})
+        assert status_ == 200, got
+        want_mine = np_count(np.bitwise_and(H[a][mine], H[b][mine]))
+        assert got["results"][0]["value"] == want_mine, (got, want_mine)
+        reps = finish(ph, "gather_expr_count")
+        assert reps[joiner]["launches"]["gather_expr_count"] > 0 or device == "cpu", reps[joiner]
+        ph = begin("j2_after_join")
+        t0 = time.perf_counter()
+        check_every(range(J_NODES + 1), "after the join")
+        j["check_join_s"] = time.perf_counter() - t0
+        finish(ph, "gather_expr_count", "masked_plane_counts", "bsi_minmax")
+        log(f"main (j2) [{smi}]: after the join, {hosts[joiner]} counted its {len(mine)} "
+            f"received shards with K1 (equal numpy); from all {J_NODES + 1} nodes Counts, "
+            f"Count(Row(f={wr})) = {len(written)} written bits, Rows, TopN(f, n=10) and "
+            f"Sum/Min/Max equal numpy in {j['check_join_s']:.1f} s")
+
+        # ---- (j1) leave under load: remove-node, shards move back
+        def leave():
+            status_, got = http(ports[0], "POST", "/cluster/resize/remove-node",
+                                {"id": hosts[joiner]})
+            assert status_ == 200, got
+
+        def left():
+            st = status(0)
+            return (len(st["nodes"]) == J_NODES and not st["moving"]
+                    and all(status(r)["state"] == "NORMAL" for r in range(J_NODES)))
+
+        ph = begin("j1_leave")
+        before = job.all("report")
+        lw = load_window(job, work, "leave", ports[:J_NODES], pairs, want_pairs, writes,
+                         cursor, written, wr, leave, left)
+        reps = finish(ph, "gather_expr_count")
+        lw["rebalance"] = rebalance_numbers(reps, before)
+        lw["k1_per_node"] = k1_per_node(reps, before)
+        assert lw["rebalance"]["jobs_completed"] == 1, lw["rebalance"]
+        j["leave"] = lw
+        log(f"main (j1) [{smi}]: {hosts[joiner]} removed under {J_CLIENTS} clients: "
+            f"rebalance {lw['move_s']:.2f} s, {lw['rebalance']}; Counts before/during/after "
+            f"{lw['counts']}; writes {lw['writes']}, sent again {lw['retried']} after "
+            f"{lw['refused']}; K1 launches "
+            f"per node {lw['k1_per_node']}; device {lw['device_ms']} ms, idle share "
+            f"{lw['idle_share']}; every answer equal numpy")
+        ph = begin("j2_after_leave")
+        t0 = time.perf_counter()
+        check_every(range(J_NODES), "after the leave")
+        j["check_leave_s"] = time.perf_counter() - t0
+        reps = finish(ph, "gather_expr_count", "masked_plane_counts", "bsi_minmax")
+        j["engines"] = {r["node"]: r["engine"] for r in reps}
+        j["max_memory_allocated_gib"] = [r["max_mem_gib"] for r in reps]
+        log(f"main (j2) [{smi}]: after the leave, from all {J_NODES} nodes the same answers "
+            f"equal numpy ({len(written)} written bits) in {j['check_leave_s']:.1f} s; peak "
+            f"device memory per process over (j1)-(j2) "
+            f"{j['max_memory_allocated_gib']} GiB")
+        finals = job.stop()
+        j["final_launches"] = [f["launches"] for f in finals]
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    finally:
+        if job is not None:
+            job.close()
+
+    # ---- (j3) change capture on one node
+    ev_dir = os.path.join(work, "ev")
+    ev_port = free_ports(1)[0]
+    a_ev, b_ev, c_ev = (int(x) for x in rng.choice(n_rows, 3, replace=False))
+    kw = dict(data_dir=ev_dir, port=ev_port, cache_flush_interval=0,
+              anti_entropy_interval=0, member_monitor_interval=0, device=device)
+    # The fill is set-up: its files are written without fsync (the reopens
+    # below read them back through the page cache).
+    srv = Server(storage_config=StorageConfig(fsync=FSYNC_NEVER), **kw).open()
+    try:
+        t0 = time.perf_counter()
+        j_fill_ev(srv, H, J_EV_SHARDS)
+        j["ev_fill_s"] = time.perf_counter() - t0
+    finally:
+        srv.close()
+    srv = Server(**kw).open()
+    try:
+        # Sets timed without capture, on row c_ev (never read below).
+        off_cols = rng.choice(J_EV_SHARDS * SHARD_WIDTH, J_EV_OFF_SETS, replace=False)
+        off_lat = []
+        for col in off_cols:
+            t0 = time.perf_counter()
+            query(ev_port, "ev", f"Set({int(col)}, f={c_ev})")
+            off_lat.append(time.perf_counter() - t0)
+    finally:
+        srv.close()
+    t0 = time.perf_counter()
+    srv = Server(cdc_config=CdcConfig(enabled=True, standing_interval=0,
+                                      pit_cache=J_EV_SHARDS + 8), **kw).open()
+    try:
+        j["ev_capture_open_s"] = time.perf_counter() - t0
+        assert srv.cdc.log("ev").last_pos == 0
+        live = f"Count(Intersect(Row(f={a_ev}), Row(f={b_ev})))"
+        bits = {r: np.unpackbits(H[r, :J_EV_SHARDS].view(np.uint8), axis=1,
+                                 bitorder="little").reshape(-1).astype(bool)
+                for r in (a_ev, b_ev)}
+        status, reg = http(ev_port, "POST", "/cdc/standing",
+                           {"index": "ev", "query": f"Count(Row(f={a_ev}))"})
+        assert status == 200 and reg["created"], reg
+        sid = reg["id"]
+        srv.cdc.standing.evaluate_once()
+        status, st = http(ev_port, "GET", f"/cdc/standing/{sid}/poll?version=0&timeout=5")
+        assert st["version"] == 1 and st["result"] == int(bits[a_ev].sum()), st
+
+        # 2048 single-bit writes that each change a bit (so each takes one
+        # position): Sets of clear bits and Clears of set bits in rows a, b.
+        ph = start("j3_cdc_writes")
+        ops, on_lat, positions, checkpoints = [], [], [], {}
+        for k in range(J_EV_OPS):
+            r = (a_ev, b_ev)[k % 2]
+            col = int(rng.integers(J_EV_SHARDS * SHARD_WIDTH))
+            op = "Clear" if bits[r][col] else "Set"
+            t0 = time.perf_counter()
+            assert query(ev_port, "ev", f"{op}({col}, f={r})") == [True], (op, col, r)
+            on_lat.append(time.perf_counter() - t0)
+            bits[r][col] = op == "Set"
+            positions.append(srv.cdc.log("ev").last_pos)
+            ops.append((op, r, col))
+            if (k + 1) % (J_EV_OPS // 4) == 0:
+                checkpoints[positions[-1]] = int(np.count_nonzero(bits[a_ev] & bits[b_ev]))
+        assert positions == list(range(1, J_EV_OPS + 1)), positions[:8]
+        end(ph, quiet=[])
+        status, data = http_raw(ev_port, f"/cdc/stream?index=ev&from=0&timeout=0"
+                                         f"&max-bytes={64 << 20}")
+        assert status == 200
+        recs = [rec for rec, _ in decode_cdc_records(data)]
+        assert [rec.position for rec in recs] == positions, len(recs)
+        assert [rec.shard for rec in recs] == [col // SHARD_WIDTH for _, _, col in ops]
+
+        # Point-in-time Counts at 4 positions against the numpy replay.
+        live_eng = srv.executor.engine
+        with live_eng.memos_off():
+            live_lat = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                assert query(ev_port, "ev", live) == [checkpoints[J_EV_OPS]]
+                live_lat.append(time.perf_counter() - t0)
+        ph = start("j3_point_in_time")
+        e0 = live_eng.snapshot()
+        pit_lat, pit_first = [], []
+        for pos, want in checkpoints.items():
+            for rep in range(3):
+                t0 = time.perf_counter()
+                status, got = http(ev_port, "POST", "/index/ev/query", live,
+                                   headers={"X-Pilosa-At-Position": str(pos)})
+                (pit_lat if rep else pit_first).append(time.perf_counter() - t0)
+                assert status == 200 and got["results"] == [want], (pos, got, want)
+        hist = srv.cdc.historical_fragment("ev", "f", "standard", 0, min(checkpoints))
+        assert hist.plane(a_ev).is_cuda == (srv.holder.device.type == "cuda")
+        pit_k2 = kernels.LAUNCHES["masked_plane_counts"]
+        end(ph, "masked_plane_counts", none=("gather_expr_count", "bsi_minmax"),
+            quiet=[live_eng])
+        assert live_eng.snapshot() == e0, "a point-in-time read touched the live engine"
+
+        # The standing Count(Row(f=a)): a write to row b re-evaluates
+        # without a push, a write to row a re-pushes.
+        ph = start("j3_standing")
+        sq = srv.cdc.standing.get(sid)
+        srv.cdc.standing.evaluate_once()  # the 2048 writes changed row a
+        version, pushes = sq.version, sq.pushes
+        assert sq.to_dict()["result"] == int(bits[a_ev].sum()), sq.to_dict()
+        col = int(np.flatnonzero(~bits[b_ev])[0])
+        query(ev_port, "ev", f"Set({col}, f={b_ev})")
+        assert srv.cdc.standing.evaluate_once() == 1  # re-evaluated ...
+        assert (sq.version, sq.pushes) == (version, pushes), sq.to_dict()  # ... no push
+        col = int(np.flatnonzero(~bits[a_ev])[0])
+        query(ev_port, "ev", f"Set({col}, f={a_ev})")
+        srv.cdc.standing.evaluate_once()
+        status, st = http(ev_port, "GET",
+                          f"/cdc/standing/{sid}/poll?version={version}&timeout=5")
+        assert st["version"] == version + 1 and st["result"] == int(bits[a_ev].sum()) + 1, st
+        end(ph, "gather_expr_count", quiet=[live_eng])
+        j["cdc"] = dict(
+            set_p50_ms_capture_off=pct(off_lat, 50), set_p50_ms_capture_on=pct(on_lat, 50),
+            set_p99_ms_capture_on=pct(on_lat, 99), ops=J_EV_OPS, stream_bytes=len(data),
+            pit_first_ms=[x * 1e3 for x in pit_first], pit_p50_ms=pct(pit_lat, 50),
+            live_p50_ms=pct(live_lat, 50), pit_k2_launches=pit_k2,
+            positions=sorted(checkpoints))
+        log(f"main (j3) [{smi}]: index ev ({J_EV_SHARDS} shards x {n_rows} rows of f) filled "
+            f"in {j['ev_fill_s']:.1f} s, reopened with change capture in "
+            f"{j['ev_capture_open_s']:.1f} s (base images cut); {J_EV_OPS} Sets/Clears at "
+            f"positions 1..{J_EV_OPS}, Set p50 {j['cdc']['set_p50_ms_capture_on']:.3f} ms with "
+            f"capture, {j['cdc']['set_p50_ms_capture_off']:.3f} ms without; /cdc/stream from 0 "
+            f"gave every op ({len(data)} bytes); point-in-time Counts at positions "
+            f"{sorted(checkpoints)} equal the numpy replay (planes on "
+            f"{hist.plane(a_ev).device}, K2 {pit_k2} launches, K1 none, the live engine "
+            f"untouched): first {['%.1f' % (x * 1e3) for x in pit_first]} ms, then p50 "
+            f"{j['cdc']['pit_p50_ms']:.3f} ms against a live Count's "
+            f"{j['cdc']['live_p50_ms']:.3f} ms; the standing Count re-pushed only on row "
+            f"{a_ev}'s write")
+    finally:
+        srv.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["j"] = j
 
 
 def cli_server_flow(device=None):

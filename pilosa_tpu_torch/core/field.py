@@ -137,6 +137,7 @@ class Field:
         storage_config=None,
         snapshotter=None,
         delta_journal_ops=None,
+        cdc=None,
         device=None,
     ):
         validate_name(name)
@@ -150,6 +151,7 @@ class Field:
         self.storage_config = storage_config
         self.snapshotter = snapshotter
         self.delta_journal_ops = delta_journal_ops
+        self.cdc = cdc
         self.device = device
         self.views: Dict[str, View] = {}
         self.bsi_groups: List[BSIGroup] = []
@@ -228,6 +230,7 @@ class Field:
             storage_config=self.storage_config,
             snapshotter=self.snapshotter,
             delta_journal_ops=self.delta_journal_ops,
+            cdc=self.cdc,
             device=self.device,
         )
 

@@ -194,6 +194,7 @@ class Fragment:
         storage_config: Optional[StorageConfig] = None,
         delta_journal_ops: Optional[int] = None,
         snapshotter=None,
+        cdc=None,
         device=None,
     ):
         self.path = path
@@ -227,8 +228,12 @@ class Fragment:
         # snapshot inline (standalone fragments keep today's synchronous
         # semantics; tests rely on them).
         self._snapshotter = snapshotter
-        # The JAX fragment's CDC hook (`cdc`) comes with the port's CDC
-        # slice, which reads it.
+        # CDC change-stream manager (cdc/manager.py), threaded down
+        # Holder -> Index -> Field -> View like the snapshotter. Every
+        # WAL-codec op record appended here is also handed to the CDC
+        # log, stamped with the per-index position, under this same
+        # mutex (lock order is always fragment._mu -> cdc log lock).
+        self.cdc = cdc
         self.device = device
         # Bumped by every COMPLETED storage-file rewrite. A background
         # snapshot records it at handoff and aborts its rename if an
@@ -638,7 +643,8 @@ class Fragment:
 
     def _append_op(self, typ: int, pos: int) -> None:
         rec = None
-        if self._wal or getattr(_hint_capture, "into", None) is not None:
+        if self._wal or self.cdc is not None \
+                or getattr(_hint_capture, "into", None) is not None:
             rec = encode_op(typ, pos)
             _capture_op(self, rec)
         if self._wal:
@@ -653,6 +659,11 @@ class Fragment:
                 self.wal_since = time.monotonic()
             self.wal_bytes += OP_SIZE
             self._fsync_policy()
+        if self.cdc is not None:
+            # After the WAL write: the stream only ever carries ops the
+            # local WAL accepted. Still under _mu, so per-fragment CDC
+            # order matches apply order.
+            self.cdc.append(self, rec)
         self.op_n += 1
         self._maybe_snapshot()
 
@@ -686,7 +697,8 @@ class Fragment:
         safety comes from record replay at reopen (torn tails truncate,
         exactly like point ops)."""
         rec = None
-        if self._wal or getattr(_hint_capture, "into", None) is not None:
+        if self._wal or self.cdc is not None \
+                or getattr(_hint_capture, "into", None) is not None:
             rec = encode_bulk_op(adds, removes)
             _capture_op(self, rec)
         if self._wal:
@@ -712,6 +724,8 @@ class Fragment:
                 # pilint: allow-blocking(WAL durability is ordered with the mutation: the record must be on disk before the mutex releases the ack)
                 os.fsync(self._wal.fileno())
                 self._unsynced_ops = 0
+        if self.cdc is not None:
+            self.cdc.append(self, rec)
         self.op_n += 1
 
     def _fsync_policy(self) -> None:

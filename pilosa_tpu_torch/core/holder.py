@@ -42,7 +42,7 @@ def resolve_device(device=None) -> torch.device:
 
 class Holder:
     def __init__(self, path: Optional[str] = None, stats=None, broadcast_shard=None,
-                 storage_config=None, delta_journal_ops=None,
+                 storage_config=None, delta_journal_ops=None, cdc=None,
                  device=None):
         device = resolve_device(device)
         self.path = path
@@ -50,6 +50,10 @@ class Holder:
         self.broadcast_shard = broadcast_shard
         self.storage_config = storage_config
         self.delta_journal_ops = delta_journal_ops
+        # CDC change-stream manager (cdc/manager.py), threaded down
+        # Holder -> Index -> Field -> View -> Fragment like the
+        # snapshotter. None = change capture off (the default).
+        self.cdc = cdc
         self.device = device
         self.indexes: Dict[str, Index] = {}
         self._lock = threading.RLock()
@@ -88,10 +92,15 @@ class Holder:
                     storage_config=self.storage_config,
                     snapshotter=self.snapshotter,
                     delta_journal_ops=self.delta_journal_ops,
+                    cdc=self.cdc,
                     device=self.device,
                 )
                 index.open()
                 self.indexes[name] = index
+                if self.cdc is not None:
+                    # Cut/refresh point-in-time base images for data that
+                    # predates change capture (cdc/log.py base model).
+                    self.cdc.register_index(index)
         if self.snapshotter is not None:
             self.snapshotter.start()
         self.opened = True
@@ -140,11 +149,14 @@ class Holder:
             storage_config=self.storage_config,
             snapshotter=self.snapshotter,
             delta_journal_ops=self.delta_journal_ops,
+            cdc=self.cdc,
             device=self.device,
         )
         index.open()
         index.save_meta()
         self.indexes[name] = index
+        if self.cdc is not None:
+            self.cdc.register_index(index)
         return index
 
     def delete_index(self, name: str) -> None:
@@ -155,6 +167,11 @@ class Holder:
             index.close()
             if index.path and os.path.isdir(index.path):
                 shutil.rmtree(index.path)
+            if self.cdc is not None:
+                # Drop the change log WITH the index: a recreated index
+                # gets a fresh incarnation, so a consumer's stale cursor
+                # can never alias the new position sequence (410 instead).
+                self.cdc.drop_index(name)
 
     def index_names(self) -> List[str]:
         return sorted(self.indexes)

@@ -42,6 +42,7 @@ class Index:
         storage_config=None,
         snapshotter=None,
         delta_journal_ops=None,
+        cdc=None,
         device=None,
     ):
         validate_name(name)
@@ -53,6 +54,7 @@ class Index:
         self.storage_config = storage_config
         self.snapshotter = snapshotter
         self.delta_journal_ops = delta_journal_ops
+        self.cdc = cdc
         self.device = device
         # Index-wide write epoch: every fragment mutation in this index
         # bumps it (core/fragment.py WriteEpoch). The query micro-batcher
@@ -93,6 +95,7 @@ class Index:
                     storage_config=self.storage_config,
                     snapshotter=self.snapshotter,
                     delta_journal_ops=self.delta_journal_ops,
+                    cdc=self.cdc,
                     device=self.device,
                 )
                 field.open()
@@ -143,6 +146,7 @@ class Index:
             storage_config=self.storage_config,
             snapshotter=self.snapshotter,
             delta_journal_ops=self.delta_journal_ops,
+            cdc=self.cdc,
             device=self.device,
         )
         field.open()

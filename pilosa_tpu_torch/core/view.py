@@ -32,6 +32,7 @@ class View:
         storage_config=None,
         snapshotter=None,
         delta_journal_ops=None,
+        cdc=None,
         device=None,
     ):
         self.path = path
@@ -47,6 +48,7 @@ class View:
         self.storage_config = storage_config
         self.snapshotter = snapshotter
         self.delta_journal_ops = delta_journal_ops
+        self.cdc = cdc
         self.device = device
         self.fragments: Dict[int, Fragment] = {}
         self._lock = threading.RLock()
@@ -89,6 +91,7 @@ class View:
             storage_config=self.storage_config,
             snapshotter=self.snapshotter,
             delta_journal_ops=self.delta_journal_ops,
+            cdc=self.cdc,
             device=self.device,
         )
 

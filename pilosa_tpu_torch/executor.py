@@ -115,6 +115,31 @@ def not_ported(what: str) -> QueryError:
     return QueryError(f"{what} is not ported to the PyTorch/CUDA executor yet")
 
 
+class _NoDeviceEngine:
+    """Engine stub installed on the point-in-time shadow executor
+    (_execute_at_position): refuses every fast-path gate and routes every
+    signature to the per-shard walk. Historical fragments are pathless
+    one-shot materializations — pushing them through the device engine
+    would enroll frozen snapshots in resident-stack/generation tracking
+    keyed by (index, field, view, shard), colliding with the LIVE
+    fragments of the same coordinates."""
+
+    @staticmethod
+    def supports(call, index=None):
+        return False
+
+    @staticmethod
+    def host_supports(call):
+        return False
+
+    @staticmethod
+    def route(sig=None):
+        return "shard"
+
+
+_NO_DEVICE_ENGINE = _NoDeviceEngine()
+
+
 def _is_node_failure(e) -> bool:
     """True when a ClientError indicates the NODE failed (connect/transport
     error carries status 0, server fault is 5xx) rather than the REQUEST
@@ -278,9 +303,6 @@ class Executor:
             # The anchor of the forwarded execution's post-gather re-check
             # (_fan_out): taken before the stale-epoch gate below.
             opt.entry_epoch = self.cluster.routing_epoch
-        if opt.at_position is not None:
-            raise not_ported("point-in-time reads (at_position, CDC; "
-                             "ROADMAP Queue 1 item 4)")
         if opt.max_staleness is not None and self.geo is not None:
             self.geo.check_staleness(opt.max_staleness)
         if self.geo is not None and not opt.remote and query.write_calls():
@@ -303,7 +325,52 @@ class Executor:
                         f"shard {shard} of {index} no longer served here "
                         f"(request epoch {opt.epoch} < local "
                         f"{self.cluster.routing_epoch})")
+        if opt.at_position is not None:
+            return self._execute_at_position(index, idx, query, shards, opt)
         results = [self._execute_call(index, call, shards, opt)
+                   for call in query.calls]
+        return [self._translate_result(index, idx, call, r)
+                for call, r in zip(query.calls, results)]
+
+    def _execute_at_position(self, index: str, idx, query, shards, opt):
+        """Point-in-time execution: the whole call tree runs against a
+        SHADOW executor whose holder materializes every fragment at the
+        requested CDC position (cdc/pit.py HistoricalHolder). The shadow
+        is a shallow copy with the engine, the collective plane, the
+        batcher and the hints stubbed out: materialized fragments live
+        outside the engine's resident stacks, memos and generation
+        tracking (keyed by the live fragments' coordinates), and
+        coalescing a frozen-past query with live ones would poison the
+        batcher's epoch-keyed groups. The shadow takes the per-shard walk
+        on the fragments' own device (the holder's: on the card a Count
+        reaches K2 through Row.count). Per-shard dispatch still uses the
+        shared thread pool: every closure binds the shadow, so pool
+        threads see the historical holder too."""
+        import copy as _copy
+
+        from .cdc.pit import HistoricalHolder
+
+        cdc = getattr(self.holder, "cdc", None)
+        if cdc is None:
+            raise QueryError(
+                "at-position reads require change capture (cdc.enabled)")
+        if query.write_calls():
+            raise QueryError("at-position queries must be read-only")
+        if opt.remote or len(self.cluster.nodes) > 1:
+            # Positions are per-index but assigned per-node: another
+            # node's fragments carry DIFFERENT position stamps, so a
+            # fanned-out at-position read would mix timelines.
+            raise QueryError("at-position reads are node-local")
+        # Fast 410 gate before any materialization work.
+        cdc.check_position(index, opt.at_position)
+        shadow = _copy.copy(self)
+        shadow.holder = HistoricalHolder(
+            self.holder, cdc, index, opt.at_position)
+        shadow.collective = None
+        shadow.batcher = None
+        shadow.hints = None
+        shadow._engine = _NO_DEVICE_ENGINE
+        results = [shadow._execute_call(index, call, shards, opt)
                    for call in query.calls]
         return [self._translate_result(index, idx, call, r)
                 for call, r in zip(query.calls, results)]
@@ -381,10 +448,15 @@ class Executor:
         down peer whose backoff elapsed is admitted for its WHOLE shard
         batch: that one batched request is the half-open probe, and its
         outcome (recorded by the fan-out) decides re-close vs re-open."""
-        if len(self.cluster.nodes) == 1 and self.node.id not in exclude:
-            # One node owns every shard: skip the per-shard placement hash
-            # (~1.4 ms of host time per 256-shard query on the H100's host,
-            # chip_smoke.py (g2)'s profile).
+        if (len(self.cluster.nodes) == 1
+                and self.cluster.nodes[0].id == self.node.id
+                and self.node.id not in exclude):
+            # This node alone owns every shard: skip the per-shard
+            # placement hash (~1.4 ms of host time per 256-shard query on
+            # the H100's host, chip_smoke.py (g2)'s profile). A one-node
+            # membership naming another node (a cluster-status that
+            # replaced this node's) takes the placement walk, as in the
+            # JAX package.
             return list(shards), {}
         health = self.cluster.health
         admitted: Dict[str, bool] = {}
@@ -504,6 +576,7 @@ class Executor:
         result = None
         failed: set = set()
         app_error = None
+        reroute_until = None  # set by the first 409 (a routing conflict)
         pending = list(shards)
         while pending:
             # The epoch BEFORE the placement read: the dispatch stamp and
@@ -535,6 +608,16 @@ class Executor:
                     result = v if result is None else reduce_fn(result, v)
             for node_id, node_shards in remote.items():
                 node = self.cluster.node_by_id(node_id)
+                if node is None:
+                    # The node left the cluster after this batch was
+                    # assigned (a leave committed in between): re-route
+                    # its shards on the refreshed placement. Not in the
+                    # JAX package, whose dispatch to the departed node
+                    # fails with a 500.
+                    self._count_stat("DepartedNodeReroute")
+                    failed.add(node_id)
+                    pending.extend(node_shards)
+                    continue
                 kw = {}
                 if epoch_at_assign:
                     kw["epoch"] = epoch_at_assign
@@ -559,13 +642,26 @@ class Executor:
                         # surfacing it: it may be transient schema lag.
                         self.health.record_success(node_id)
                         app_error = app_error or e
-                        failed.add(node_id)
                         if getattr(e, "status", 0) == 409:
                             # A routing conflict: one free re-route on
                             # refreshed placement, outside the budget.
+                            # The peer applied cutover commits this node
+                            # has not: wait (up to cutover_wait over the
+                            # fan-out, as a write does) for this node's
+                            # epoch to move, then re-route on it with the
+                            # peer still eligible for the shards it does
+                            # serve. Not in the JAX package, which
+                            # re-routes at once on the same placement and
+                            # without the peer, and can fail the read
+                            # when every owner left to it has moved.
                             self._count_stat("StaleEpochReroute")
+                            if reroute_until is None:
+                                reroute_until = _time.monotonic() + max(self.cutover_wait, 0.0)
+                            if not self._await_epoch_past(epoch_at_assign, reroute_until):
+                                failed.add(node_id)
                             pending.extend(node_shards)
                             continue
+                        failed.add(node_id)
                         if not self.health.try_spend_retry():
                             raise app_error
                         pending.extend(node_shards)
@@ -586,6 +682,15 @@ class Executor:
                          (_time.monotonic() - t_fanout) * 1000.0, shards=len(shards))
             trace.record("reduce", reduce_acc[0] * 1000.0)
         return result
+
+    def _await_epoch_past(self, epoch: int, until: float) -> bool:
+        """Wait until this node's routing epoch has moved past `epoch` or
+        the monotonic clock reaches `until`; True if the epoch moved."""
+        while self.cluster.routing_epoch == epoch:
+            if _time.monotonic() >= until:
+                return False
+            _time.sleep(0.02)
+        return True
 
     def _on_device(self, v):
         """A peer's answer with its Row segments on this node's device

@@ -5,16 +5,20 @@ background loops (anti-entropy, cache flush, hint delivery, member
 monitor, runtime metrics, diagnostics). A copy of
 pilosa_tpu/server/server.py: the constructor keeps the reference's
 parameters and construction order and threads `device` (the card unless
-the caller asks for the CPU) to the Holder. Cluster membership is static
-by config, as in the reference: `cluster_hosts` names every node (node id
-equals URI), `replica_n` places each shard on that many of them, and any
-node answers a query by fanning it out to the owners of the shards it
-does not hold. Refused with the typed not-ported error: a membership
-change (join_addr, and the node-join, node-leave, resize, rebalance and
-foreign cluster-status messages), a primary translate store, CDC, geo
-replication, the mux transport and the autoscaler (ROADMAP Queue 1 item
-4), and an engine mesh wider than one device (a difference by design:
-one process drives one device).
+the caller asks for the CPU) to the Holder. Cluster membership starts
+from `cluster_hosts` (node id equals URI) and changes as in the
+reference: a node joins through `join_addr`, the coordinator admits it,
+and a live rebalance (cluster/rebalance.py; the legacy stop-the-world
+resize, cluster/resize.py, when `rebalance_config.online` is false)
+moves shards to their new owners while writes continue; a node leaves
+through `/cluster/resize/remove-node`. `replica_n` places each shard on
+that many nodes, and any node answers a query by fanning it out to the
+owners of the shards it does not hold. A replica follows a primary
+translate store, and CDC (cdc/) streams changes, answers point-in-time
+reads and pushes standing queries. Refused with the typed not-ported
+error: geo replication, the mux transport and the autoscaler (ROADMAP
+Queue 1 item 4, steps 5-7), and an engine mesh wider than one device (a
+difference by design: one process drives one device).
 
 The collective plane: `open()` joins the torch.distributed job the
 reference's variables describe (parallel/distributed.py; the reference
@@ -105,8 +109,7 @@ class Server:
         # raises before anything is built.
         self.device = resolve_device(device)
         self._refuse_peer_settings(
-            join_addr, primary_translate_store_url, cdc_config, geo_config,
-            transport_config, autoscale_config, engine_config)
+            geo_config, transport_config, autoscale_config, engine_config)
         self.data_dir = data_dir
         self.host = host
         self.port = port
@@ -216,6 +219,7 @@ class Server:
             storage_config=storage_config,
             delta_journal_ops=(
                 engine_config.delta_journal_ops if engine_config else None),
+            cdc=self.cdc,
             device=self.device,
         )
         if self.cdc is not None:
@@ -424,26 +428,22 @@ class Server:
         self.opened = False
 
     @staticmethod
-    def _refuse_peer_settings(join_addr, primary_translate_store_url,
-                              cdc_config, geo_config, transport_config,
+    def _refuse_peer_settings(geo_config, transport_config,
                               autoscale_config, engine_config) -> None:
-        """A static cluster only: each setting that would start other peer
-        machinery raises the typed not-ported error naming it and the
-        ROADMAP item that lifts it (or, for an engine mesh, why none
+        """Each setting that would start peer machinery the port does not
+        have yet raises the typed not-ported error naming it and the
+        ROADMAP step that lifts it (or, for an engine mesh, why none
         will)."""
         refused = [
-            (join_addr, "join_addr (ROADMAP Queue 1 item 4)"),
-            (primary_translate_store_url,
-             "primary_translate_store_url (ROADMAP Queue 1 item 4)"),
-            (cdc_config is not None and cdc_config.enabled,
-             "cdc_config.enabled (ROADMAP Queue 1 item 4)"),
             (geo_config is not None and geo_config.role != "none",
              f"geo_config.role = {getattr(geo_config, 'role', None)!r} "
-             "(ROADMAP Queue 1 item 4)"),
+             "(ROADMAP Queue 1 item 4, step 5: geo replication)"),
             (transport_config is not None and transport_config.enabled,
-             "transport_config.enabled (ROADMAP Queue 1 item 4)"),
+             "transport_config.enabled (ROADMAP Queue 1 item 4, step 6: "
+             "the mux transport)"),
             (autoscale_config is not None and autoscale_config.interval > 0,
-             "autoscale_config.interval > 0 (ROADMAP Queue 1 item 4)"),
+             "autoscale_config.interval > 0 (ROADMAP Queue 1 item 4, "
+             "step 7: autoscale)"),
         ]
         for hit, what in refused:
             if hit:
@@ -454,13 +454,6 @@ class Server:
                 "ported, by design: one process drives one device (ROADMAP "
                 "Queue 3), and several devices serve as ranks of the "
                 "collective plane")
-
-    @staticmethod
-    def _refuse_membership(what: str) -> None:
-        """Membership stays static until ROADMAP Queue 1 item 4 lands: a
-        message or request that would change the node set raises the
-        typed not-ported error."""
-        raise not_ported(f"{what}: membership changes (ROADMAP Queue 1 item 4)")
 
     # ------------------------------------------------------------ lifecycle
 
@@ -742,9 +735,7 @@ class Server:
             self.handle_node_join(rejoined)
 
     def handle_node_join(self, node: Node) -> None:
-        """Coordinator-side admission (cluster.go:1638 nodeJoin): refused
-        in the port's static cluster."""
-        self._refuse_membership(f"node-join of {node.id}")
+        """Coordinator-side admission (cluster.go:1638 nodeJoin)."""
         if not self.node.is_coordinator:
             coordinator = self.cluster.coordinator_node()
             if coordinator is None:
@@ -803,9 +794,7 @@ class Server:
     def handle_node_leave(self, node_id: str) -> None:
         """Coordinator-side removal (api.go:777 RemoveNode): shards the
         leaving node exclusively held are re-fetched by new owners before
-        the status flips (it stays reachable as a source during the job).
-        Refused in the port's static cluster."""
-        self._refuse_membership(f"node-leave of {node_id}")
+        the status flips (it stays reachable as a source during the job)."""
         if not self.node.is_coordinator:
             coordinator = self.cluster.coordinator_node()
             if coordinator is None:
@@ -1267,10 +1256,6 @@ class Server:
         from ..core.index import IndexOptions
 
         typ = msg.get("type")
-        if typ in ("resize-instruction", "rebalance-begin"):
-            # The resize and live-rebalance jobs move shards between
-            # members; their branches below stay inert until item 4.
-            self._refuse_membership(f"a {typ} message")
         if typ == "create-index":
             self.holder.create_index_if_not_exists(
                 msg["index"], IndexOptions.from_dict(msg.get("options", {}))
@@ -1313,10 +1298,6 @@ class Server:
         elif typ == "schema":
             self.holder.apply_schema(msg["schema"])
         elif typ == "cluster-status":
-            named = {n.get("id") for n in msg.get("nodes", [])}
-            if named != {n.id for n in self.cluster.nodes}:
-                self._refuse_membership(
-                    f"a cluster-status naming nodes {sorted(named)}")
             prev_state = self.cluster.state
             self.cluster.state = msg.get("state", self.cluster.state)
             self.cluster.nodes = [Node.from_dict(n) for n in msg.get("nodes", [])]

@@ -1,8 +1,8 @@
 """tests/test_cluster.py against the port: placement math, replication,
-anti-entropy sync and the resize planner's fragment sources, with port
-servers on the CPU. The coordinator-driven resize of a live cluster
-(test_resize_add_node_moves_data) waits for membership changes (ROADMAP
-Queue 1 item 4), which the port's static cluster refuses."""
+anti-entropy sync, the resize planner's fragment sources and the
+coordinator-driven resize of a live cluster, with port servers on the
+CPU; plus tests/test_server.py's keyed import through a translation
+replica (translate replication)."""
 
 import socket
 import time
@@ -12,8 +12,9 @@ import pytest
 
 from pilosa_tpu_torch.cluster.hash import JmpHasher, ModHasher, jump_hash, partition
 from pilosa_tpu_torch.cluster.node import Cluster, Node
-from pilosa_tpu_torch.cluster.resize import fragment_sources
+from pilosa_tpu_torch.cluster.resize import ResizeCoordinator, fragment_sources
 from pilosa_tpu_torch.cluster.syncer import HolderSyncer
+from pilosa_tpu_torch.constants import SHARD_WIDTH
 from pilosa_tpu_torch.server.client import InternalClient
 from pilosa_tpu_torch.server.server import Server as _Server
 
@@ -378,3 +379,108 @@ def test_keyed_cluster_end_to_end(tmp_path):
     finally:
         for s in servers:
             s.close()
+
+
+def test_resize_add_node_moves_data(tmp_path):
+    """Add a third node to a 2-node cluster with data; moved shards must be
+    queryable from the new topology (reference ClusterResize_AddNode)."""
+    ports = [free_port() for _ in range(3)]
+    hosts = [f"localhost:{p}" for p in ports]
+    servers = []
+    for i in range(2):
+        s = Server(
+            data_dir=str(tmp_path / f"node{i}"),
+            port=ports[i],
+            cluster_hosts=hosts[:2],
+            hasher=ModHasher(),
+            cache_flush_interval=0,
+            executor_workers=0,
+        )
+        s.open()
+        servers.append(s)
+    client = InternalClient()
+    h0 = hosts[0]
+    try:
+        client.create_index(h0, "rz")
+        client.create_field(h0, "rz", "f")
+        time.sleep(0.05)
+        cols = [1, SHARD_WIDTH + 2, 2 * SHARD_WIDTH + 3, 3 * SHARD_WIDTH + 4]
+        for col in cols:
+            client.query(h0, "rz", f"Set({col}, f=1)")
+        assert client.query(h0, "rz", "Count(Row(f=1))")["results"][0] == 4
+
+        # Boot node2 (empty, same static membership limited to itself for now).
+        s2 = Server(
+            data_dir=str(tmp_path / "node2"),
+            port=ports[2],
+            cluster_hosts=[hosts[2]],
+            hasher=ModHasher(),
+            cache_flush_interval=0,
+            executor_workers=0,
+        )
+        s2.open()
+        servers.append(s2)
+
+        # Coordinator (node0) runs the resize to the 3-node topology.
+        coordinator = ResizeCoordinator(servers[0])
+        servers[0].resize_coordinator = coordinator
+        new_nodes = [Node(id=h, uri=h) for h in hosts]
+        coordinator.begin(new_nodes)
+        deadline = time.time() + 10
+        while coordinator.job is not None and time.time() < deadline:
+            time.sleep(0.05)
+        assert coordinator.job is None, "resize did not complete"
+        assert servers[0].cluster.state == "NORMAL"
+        assert len(servers[0].cluster.nodes) == 3
+
+        # All data still answerable through node0 with the new placement.
+        assert client.query(h0, "rz", "Count(Row(f=1))")["results"][0] == 4
+        row = client.query(h0, "rz", "Row(f=1)")
+        assert row["results"][0]["columns"] == cols
+        # node2 actually received the shards it now owns.
+        owned = [
+            s for s in range(4)
+            if any(n.id == hosts[2] for n in servers[0].cluster.shard_nodes("rz", s))
+        ]
+        got = [
+            s for s in owned
+            if servers[2].holder.fragment("rz", "f", "standard", s) is not None
+        ]
+        assert got == owned
+    finally:
+        for s in servers:
+            s.close()
+
+
+def test_key_import_forwarding_to_translation_primary(tmp_path):
+    """Key-mode bit AND value imports against a translation replica are
+    forwarded to the primary (reference PrimaryTranslateStore semantics)."""
+    primary = Server(data_dir=str(tmp_path / "pri"), cache_flush_interval=0)
+    primary.open()
+    c = InternalClient()
+    try:
+        c.create_index(f"localhost:{primary.port}", "ki", {"keys": True})
+        c.create_field(f"localhost:{primary.port}", "ki", "b", {"keys": True})
+        c.create_field(f"localhost:{primary.port}", "ki", "v", {"type": "int", "min": 0, "max": 100})
+        replica = Server(
+            data_dir=str(tmp_path / "rep"), cache_flush_interval=0,
+            primary_translate_store_url=f"http://{f"localhost:{primary.port}"}",
+        )
+        replica.open()
+        try:
+            assert replica.translate_store.read_only
+            # Schema must exist on the replica too (it forwards, but the
+            # field lookup happens first).
+            c.create_index(f"localhost:{replica.port}", "ki", {"keys": True})
+            c.create_field(f"localhost:{replica.port}", "ki", "b", {"keys": True})
+            c.create_field(f"localhost:{replica.port}", "ki", "v", {"type": "int", "min": 0, "max": 100})
+            c.import_bits(f"localhost:{replica.port}", "ki", "b", [("r1", "alice"), ("r1", "bob")])
+            c.import_values(f"localhost:{replica.port}", "ki", "v", [("alice", 42), ("bob", 58)])
+            resp = c.query(f"localhost:{primary.port}", "ki", 'Count(Row(b="r1"))')
+            assert resp["results"][0] == 2
+            resp = c.query(f"localhost:{primary.port}", "ki", "Sum(field=v)")
+            assert resp["results"][0] == {"value": 100, "count": 2}
+        finally:
+            replica.close()
+    finally:
+        primary.close()

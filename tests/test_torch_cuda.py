@@ -850,3 +850,110 @@ def test_collective_plane_on_card_matches_cpu(cuda_device):
         for h, backend, _ in pods:
             backend.close()
             h.close()
+
+
+def test_point_in_time_planes_on_card_count_through_k2(cuda_device, tmp_path):
+    """A point-in-time read on a CUDA server: the historical fragments
+    are built on the card, a PIT Count counts their planes through K2
+    (equal to its twin), the live engine launches no K1 for it, and the
+    answers equal a replay of the writes up to each position."""
+    from pilosa_tpu_torch.cdc import CdcConfig
+    from pilosa_tpu_torch.ops import bitplane as bp
+    from pilosa_tpu_torch.server.server import Server
+
+    s = Server(data_dir=str(tmp_path / "pit"), cache_flush_interval=0,
+               cdc_config=CdcConfig(enabled=True, standing_interval=0))
+    s.holder.open()
+    try:
+        s.api.create_index("i")
+        s.api.create_field("i", "f")
+        r = np.random.default_rng(17)
+        state = {1: set(), 2: set()}
+        checkpoints = {}
+        for k in range(200):
+            row, col = int(r.integers(1, 3)), int(r.integers(0, 3 * SHARD_WIDTH))
+            if k % 5 == 4 and state[row]:
+                col = sorted(state[row])[0]
+                s.api.query("i", f"Clear({col}, f={row})")
+                state[row].discard(col)
+            else:
+                s.api.query("i", f"Set({col}, f={row})")
+                state[row].add(col)
+            if k % 50 == 49:
+                checkpoints[s.cdc.log("i").last_pos] = (set(state[1]), set(state[2]))
+        s.api.query("i", "Count(Row(f=1))")  # the live engine is built
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        launches = dict(kernels.LAUNCHES)
+        for pos, (one, two) in checkpoints.items():
+            got = s.api.query("i", "Count(Intersect(Row(f=1), Row(f=2)))",
+                              at_position=pos)
+            assert got == [len(one & two)]
+            assert s.api.query("i", "Count(Row(f=1))", at_position=pos) == [len(one)]
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["masked_plane_counts"] > launches["masked_plane_counts"]
+        assert kernels.LAUNCHES["gather_expr_count"] == launches["gather_expr_count"]
+        assert not any(kernels.PLAIN_CALLS.values())
+        pos = max(checkpoints)
+        hist = s.cdc.historical_fragment("i", "f", "standard", 0, pos)
+        plane = hist.plane(1)
+        assert plane.is_cuda
+        stack = plane.reshape(1, 1, -1)
+        assert torch.equal(kernels.masked_plane_counts(stack, None),
+                           kernels.masked_plane_counts_plain(stack, None))
+        assert int(bp.popcount(plane)) == len([c for c in checkpoints[pos][0]
+                                               if c < SHARD_WIDTH])
+    finally:
+        s.cdc.close()
+        s.holder.close()
+
+
+def test_count_after_migrate_install_on_card(cuda_device):
+    """A fragment replaced wholesale by a migration image (and then by
+    catch-up ops) on a CUDA holder: the next Count regathers and launches
+    K1 over the new planes, never a delta of the old ones, and equals
+    numpy."""
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.storage.bitmap import encode_op, OP_ADD
+
+    h = pilosa_tpu_torch.Holder(None)
+    h.open()
+    ex = pilosa_tpu_torch.Executor(h)
+    try:
+        fld = h.create_index("i").create_field("f")
+        r = np.random.default_rng(23)
+        cols = {row: set(int(c) for c in r.choice(2 * SHARD_WIDTH, 500, replace=False))
+                for row in (1, 2)}
+        for row, cs in cols.items():
+            fld.import_bits([row] * len(cs), sorted(cs))
+        q = "Count(Intersect(Row(f=1), Row(f=2)))"
+        assert ex.execute("i", q) == [len(cols[1] & cols[2])]
+        # The image another node would ship: shard 0 with other bits.
+        src = Fragment(None, "i", "f", "standard", 0)
+        src.open()
+        new0 = {row: set(int(c) for c in r.choice(SHARD_WIDTH, 400, replace=False))
+                for row in (1, 2)}
+        for row, cs in new0.items():
+            for c in cs:
+                src.set_bit(row, c)
+        frag = h.fragment("i", "f", "standard", 0)
+        frag.migrate_install(src.storage.to_bytes())
+        extra = int(r.integers(0, SHARD_WIDTH))
+        frag.migrate_apply_ops(encode_op(OP_ADD, 1 * SHARD_WIDTH + extra)
+                               + encode_op(OP_ADD, 2 * SHARD_WIDTH + extra))
+        frag.migrate_seal()
+        for row in (1, 2):
+            cols[row] = {c for c in cols[row] if c >= SHARD_WIDTH} | new0[row] | {extra}
+        kernels.reset_counters()
+        eng = ex.engine
+        before = eng.snapshot()
+        assert ex.execute("i", q) == [len(cols[1] & cols[2])]
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["gather_expr_count"] >= 1
+        assert not any(kernels.PLAIN_CALLS.values())
+        after = eng.snapshot()
+        assert after["memo_hits"] == before["memo_hits"]
+        assert after["full_refresh_bytes"] > before["full_refresh_bytes"]
+    finally:
+        ex.close()
+        h.close()

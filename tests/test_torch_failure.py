@@ -1,6 +1,6 @@
 """tests/test_failure.py against the port (servers on the CPU): failure
-detection + query-time replica retry. The topology-solicit test waits for
-membership changes (ROADMAP Queue 1 item 4).
+detection + query-time replica retry, and a legacy topology file that
+still lets a restarting coordinator solicit its prior members.
 
 Model: reference executor.go:1498-1508 (mapReduce retry on replicas) and
 memberlist gossip failure surfacing. A 3-node replica_n=2 cluster keeps
@@ -432,3 +432,21 @@ def test_write_forward_counters_survive_statsless_holder():
                                lambda e: None)
     assert res is None
     assert errors and "breaker open" in errors[0]
+
+
+def test_legacy_topology_without_node_records_still_solicits():
+    """ADVICE r3: topology files that predate full node records (nodeIDs
+    only) must still let a restarting coordinator dial prior members —
+    ids are URIs in static mode."""
+    import json
+    import tempfile
+
+    from pilosa_tpu_torch.cluster.topology import Topology
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/.topology"
+        with open(path, "w") as f:
+            json.dump({"nodeIDs": ["localhost:1001", "localhost:1002"]}, f)
+        t = Topology.load(path)
+        assert [n.id for n in t.nodes] == ["localhost:1001", "localhost:1002"]
+        assert [n.uri for n in t.nodes] == ["localhost:1001", "localhost:1002"]

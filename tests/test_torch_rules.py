@@ -60,7 +60,10 @@ def test_scan_covers_the_package():
     for must in ("executor.py", "parallel/engine.py", "ops/kernels.py",
                  "core/fragment.py", "core/holder.py", "server/server.py",
                  "sched/batcher.py", "translate.py", "cluster/syncer.py",
-                 "parallel/collective.py", "parallel/distributed.py"):
+                 "parallel/collective.py", "parallel/distributed.py",
+                 "cdc/log.py", "cdc/manager.py", "cdc/pit.py",
+                 "cdc/standing.py", "cluster/rebalance.py",
+                 "cluster/resize.py", "cluster/topology.py"):
         assert must in names
 
 

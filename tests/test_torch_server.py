@@ -267,7 +267,7 @@ def test_route_answers_like_the_reference_node(walked, route):
         assert tstatus == 400 and "not ported" in tbody["error"], (jstatus, jbody, tbody)
 
 
-# ------------------------------------------------------- refused settings
+# ------------------------------------------------ refused and lifted settings
 
 
 @pytest.mark.parametrize("kw", [
@@ -279,14 +279,20 @@ def test_route_answers_like_the_reference_node(walked, route):
     {"autoscale_config": "interval"},
     {"engine_config": "mesh"},
 ], ids=lambda kw: next(iter(kw)))
-def test_peer_settings_are_refused(kw):
+def test_peer_settings_are_refused(tmp_path, kw):
+    """Geo, the mux transport and autoscale (ROADMAP Queue 1 item 4, steps
+    5-7) and an engine mesh (by design) raise the typed not-ported error
+    naming the setting. The membership, translate-replication and CDC
+    settings are lifted: the server builds and the setting does what it
+    does on pilosa_tpu (a joining node is admitted by its seed, a replica
+    opens its key store read-only, a Set gets CDC position 1)."""
     from pilosa_tpu_torch.cdc import CdcConfig
     from pilosa_tpu_torch.cluster.autoscale import AutoscaleConfig
     from pilosa_tpu_torch.geo import GeoConfig
     from pilosa_tpu_torch.parallel import EngineConfig
     from pilosa_tpu_torch.server.mux import TransportConfig
 
-    made = {"cdc_config": lambda: CdcConfig(enabled=True),
+    made = {"cdc_config": lambda: CdcConfig(enabled=True, standing_interval=0),
             "geo_config": lambda: GeoConfig(role="follower", leader="localhost:1"),
             "transport_config": lambda: TransportConfig(enabled=True),
             "autoscale_config": lambda: AutoscaleConfig(interval=5.0),
@@ -294,9 +300,50 @@ def test_peer_settings_are_refused(kw):
     (name, value), = kw.items()
     if name in made:
         value = made[name]()
+    if name == "join_addr":
+        seed = TServer(data_dir=str(tmp_path / "seed"), port=free_port(),
+                       device="cpu", cache_flush_interval=0,
+                       member_monitor_interval=0).open()
+        try:
+            port = free_port()
+            node = TServer(data_dir=str(tmp_path / "n"), port=port,
+                           device="cpu", cache_flush_interval=0,
+                           member_monitor_interval=0,
+                           join_addr=f"localhost:{seed.port}").open()
+            try:
+                assert sorted(n.id for n in seed.cluster.nodes) == sorted(
+                    [seed.node.id, f"localhost:{port}"])
+                assert sorted(n.id for n in node.cluster.nodes) == sorted(
+                    n.id for n in seed.cluster.nodes)
+            finally:
+                node.close()
+        finally:
+            seed.close()
+        return
+    if name == "primary_translate_store_url":
+        s = TServer(data_dir=str(tmp_path / "r"), port=1, device="cpu",
+                    primary_translate_store_url=value)
+        assert s.translate_store.read_only
+        s.close()
+        return
+    if name == "cdc_config":
+        s = TServer(data_dir=str(tmp_path / "c"), device="cpu",
+                    cache_flush_interval=0, cdc_config=value)
+        s.holder.open()
+        try:
+            s.api.create_index("i")
+            s.api.create_field("i", "f")
+            s.api.query("i", "Set(5, f=1)")
+            assert s.cdc.log("i").last_pos == 1
+        finally:
+            s.cdc.close()
+            s.holder.close()
+        return
     with pytest.raises(QueryError, match=f"not ported.*|{name}") as ei:
         TServer(data_dir=None, port=1, device="cpu", **{name: value})
     assert "not ported" in str(ei.value) and name in str(ei.value)
+    if name != "engine_config":
+        assert "ROADMAP Queue 1 item 4, step" in str(ei.value)
 
 
 def free_port():
@@ -354,33 +401,54 @@ def test_cluster_settings_are_accepted(setting):
     {"type": "cluster-status", "state": "NORMAL",
      "nodes": [{"id": "localhost:1", "uri": "localhost:1"}]},
     {"type": "rebalance-begin"},
-    {"type": "resize-instruction"},
+    {"type": "resize-instruction", "jobID": "j1", "sources": [],
+     "coordinatorID": "<self>"},
     {"type": "collective-exec", "seq": 1, "kind": "count", "index": "i",
      "queries": ["Row(f=1)"], "slots": [[0]], "k": 1, "processes": 1,
      "timeoutMs": 1000, "epoch": 0},
 ], ids=lambda m: m["type"])
 def test_membership_and_collective_messages_are_refused(tmp_path, msg):
-    """A message that would change the static node set answers the typed
-    not-ported error (400), and the node keeps serving as before. A
-    collective-exec descriptor is served as the reference serves it: the
-    peer side enqueues it for its runner (200)."""
-    s = TServer(data_dir=str(tmp_path / "d"), device="cpu", cache_flush_interval=0)
-    s.open()
-    try:
-        request(s.port, "POST", "/index/i", "{}")
-        request(s.port, "POST", "/index/i/field/f", "{}")
-        request(s.port, "POST", "/index/i/query", "Set(5, f=1)")
-        status, body = request(s.port, "POST", "/internal/cluster/message", json.dumps(msg))
-        if msg["type"] == "collective-exec":
+    """The membership messages apply as they do on a pilosa_tpu node
+    holding the same data: the same status, the same membership (this
+    node plus or minus the named one), the same state, and the same
+    answer (or error) to the next Count. A collective-exec descriptor is
+    served as the reference serves it: the peer side enqueues it for its
+    runner (200)."""
+    if msg["type"] == "collective-exec":
+        s = TServer(data_dir=str(tmp_path / "d"), device="cpu", cache_flush_interval=0)
+        s.open()
+        try:
+            request(s.port, "POST", "/index/i", "{}")
+            request(s.port, "POST", "/index/i/field/f", "{}")
+            request(s.port, "POST", "/index/i/query", "Set(5, f=1)")
+            status, body = request(s.port, "POST", "/internal/cluster/message",
+                                   json.dumps(msg))
             assert status == 200, (status, body)
-        else:
-            assert status == 400 and "not ported" in body["error"], (status, body)
-        assert [n.id for n in s.cluster.nodes] == [s.node.id]
-        assert s.cluster.state == "NORMAL"
-        assert request(s.port, "POST", "/index/i/query", "Count(Row(f=1))") == (
-            200, {"results": [1]})
-    finally:
-        s.close()
+            assert [n.id for n in s.cluster.nodes] == [s.node.id]
+            assert request(s.port, "POST", "/index/i/query", "Count(Row(f=1))") == (
+                200, {"results": [1]})
+        finally:
+            s.close()
+        return
+    seen = []
+    for name, S, kw in (("jax", JServer, {}), ("torch", TServer, {"device": "cpu"})):
+        s = S(data_dir=str(tmp_path / name), cache_flush_interval=0,
+              member_monitor_interval=0, **kw)
+        s.open()
+        try:
+            request(s.port, "POST", "/index/i", "{}")
+            request(s.port, "POST", "/index/i/field/f", "{}")
+            request(s.port, "POST", "/index/i/query", "Set(5, f=1)")
+            body = json.dumps(msg).replace("<self>", s.node.id)
+            status, _ = request(s.port, "POST", "/internal/cluster/message", body)
+            nodes = sorted("self" if n.id == s.node.id else n.id
+                           for n in s.cluster.nodes)
+            seen.append((status, nodes, s.cluster.state, request(
+                s.port, "POST", "/index/i/query", "Count(Row(f=1))")))
+        finally:
+            s.close()
+    assert seen[0] == seen[1], seen
+    assert seen[1][0] == 200
 
 
 def test_own_cluster_status_is_accepted(tmp_path):
@@ -597,3 +665,28 @@ def test_cli_cluster_of_two_nodes(tmp_path):
         for proc in procs:
             proc.send_signal(signal.SIGTERM)
             proc.wait(timeout=60)
+
+
+def test_cdc_rebalance_and_translation_settings_reach_the_server(tmp_path):
+    """The `[cdc]`, `[rebalance]` and `[translation]` settings of a config
+    (flags here, as the CLI passes them) build a port server with change
+    capture on, the rebalance knobs set and a read-only key store, as the
+    same config builds a pilosa_tpu server."""
+    from pilosa_tpu.config import Config as JConfig
+    from pilosa_tpu_torch.config import Config
+
+    flags = {"data_dir": str(tmp_path / "d"), "cdc_enabled": 1, "cdc_pit_cache": 5,
+             "rebalance_cutover_pause_max": 1.5, "rebalance_max_concurrent_streams": 3,
+             "translation_primary_url": "localhost:1"}
+    built = []
+    for cfg, kw in ((JConfig.load(flags=flags), {}),
+                    (Config.load(flags=flags), {"device": "cpu"})):
+        s = cfg.build_server(**kw)
+        try:
+            built.append((s.cdc is not None, s.cdc_config.pit_cache,
+                          s.rebalance_config.cutover_pause_max,
+                          s.rebalance_config.max_concurrent_streams,
+                          s.executor.cutover_wait, s.translate_store.read_only))
+        finally:
+            s.cdc.close()
+    assert built[1] == built[0] == (True, 5, 1.5, 3, 1.5, True)

@@ -224,19 +224,24 @@ def test_respellings_share_one_plan_and_fit_the_kernel(pair):
 
 
 def test_calls_outside_the_slice_raise_not_ported(pair):
-    """Point-in-time reads (CDC) and the collective plane are still
-    outside the port: they raise instead of answering. The read path's
-    peer fan-out is in: a two-node executor queries its peer for the
-    shards the peer owns and reduces the answer with its own."""
-    _, tex = pair
+    """An engine mesh stays outside the port (by design): it raises
+    instead of answering. A point-in-time read is in: on a holder without
+    change capture it raises the JAX package's typed error. The read
+    path's peer fan-out is in: a two-node executor queries its peer for
+    the shards the peer owns and reduces the answer with its own."""
+    jex, tex = pair
+    from pilosa_tpu.executor import ExecOptions as JExecOptions
     from pilosa_tpu_torch.cluster.hash import ModHasher
     from pilosa_tpu_torch.cluster.node import Cluster, Node
     from pilosa_tpu_torch.errors import QueryError
     from pilosa_tpu_torch.executor import ExecOptions, Executor
     from pilosa_tpu_torch.server.server import Server
 
-    with pytest.raises(QueryError, match="not ported"):
+    with pytest.raises(QueryError, match="require change capture") as ei:
         tex.execute("i", "Count(Row(f=1))", opt=ExecOptions(at_position=1))
+    with pytest.raises(Exception) as ej:
+        jex.execute("i", "Count(Row(f=1))", opt=JExecOptions(at_position=1))
+    assert str(ei.value) == str(ej.value)
     with pytest.raises(QueryError, match="not ported"):
         Server(data_dir=None, device="cpu",
                engine_config=TorchEngineConfig(mesh_devices=2))
