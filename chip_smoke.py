@@ -188,9 +188,40 @@ Phases, each of which fails the run if it fails:
              (planes on the card, K2, K1 not launched, the live engine's
              counters unmoved) beside a live Count, and a standing
              Count(Row(f=a)) re-evaluates without a push after a write to
-             row b and re-pushes after a write to row a. Every
-             answer is checked against numpy on the fragments' host
-             planes (TopN against a numpy replay of the two-phase
+             row b and re-pushes after a write to row a. (k) geo
+             replication, the mux transport and the autoscaler: (k1) a
+             leader process over (j3)'s index ev (64 shards x 128 rows,
+             `[cdc] enabled` with retention-ops 8192, `[geo] role =
+             leader`; 8193 Sets of a row the reads never name fold its
+             log once) and a follower process that bootstraps the whole
+             index (a 410, then the base images); 4 writers send 2048
+             Sets/Clears to the leader while 4 readers send
+             Count(Intersect(Row(f=a), Row(f=b))) to the follower with
+             X-Pilosa-Max-Staleness: 1, each answer a typed 409 or
+             numpy's count after a prefix of the leader's change log
+             (read back from its stream), then, at the head, the final
+             count; a write to the follower answers the typed 409, POST
+             /geo/promote, the old leader is fenced and re-tails the new
+             one, both equal numpy; bootstrap seconds and bytes, lag,
+             follower Count p50, promotion seconds, the follower's K1
+             launches after its bootstrap; (k2) (h)'s four Servers with
+             `[transport] enabled` (listening from the start; (h1)-(h4)
+             hand their clients no mux): (h1)'s Counts at C = 1 and 8
+             over the mux beside (h1)'s HTTP numbers, the transport
+             counters (mux requests, no HTTP request, no handshake
+             fallback), then one node's mux listener closed and 64
+             Counts from the other three over the HTTP fallback; (k3)
+             after (j2)'s leave, the fourth process starts a fresh
+             standby Server and the coordinator's autoscaler (interval
+             1 s, window 3, cooldown 0, scale-out-qps half its own
+             reading of (j1)'s load before the join, scale-in-qps 0.5)
+             joins it under (j)'s 8 clients and removes it once they
+             stop: the seconds from the first sample over (under) the
+             mark to the action, each move's rebalance seconds, every
+             node's answers after each move. (a) also checks
+             engine.count_async's int64 device scalar against count.
+             Every answer is checked against numpy on the fragments'
+             host planes (TopN against a numpy replay of the two-phase
              ranking).
 5. kernel line — launch counters set to 0 just before each path of
              phase 4 and read just after it: K1 above 0 in (a), (b), (d)
@@ -206,7 +237,10 @@ Phases, each of which fails the run if it fails:
              twins at 0 on every rank, each rank resetting and reporting
              its own counters; in (j): K1 in the join, the leave, the
              joined node's Count and the standing query, K1, K2 and K3
-             in each (j2), K2 and not K1 on the point-in-time path);
+             in each (j2), K2 and not K1 on the point-in-time path; in
+             (k): K1 in the follower's reads after its bootstrap and
+             after the promotion, in (k2)'s Counts and fallback, in
+             (k3)'s autoscaled join, K1, K2 and K3 after each move);
              outside (f4) and (i3) the fault-ladder
              and host
              counters (host_counts, host_topn, device_dispatch_errors,
@@ -215,8 +249,8 @@ Phases, each of which fails the run if it fails:
              0 after every path, on every node's engine in (h), failover
              included, on every rank's in (i) and every node's in (j).
              The line carries the launch sums, (i)'s ranks included. The
-             log lines of (h), (i) and (j) carry the nvidia-smi name and
-             power limit.
+             log lines of (h), (i), (j) and (k) carry the nvidia-smi name
+             and power limit.
 
 It prints the nvidia-smi line and a {"kernels": [...]} JSON line before
 the last line, and as its last line {"ok": true, "device": {...}}. With
@@ -1000,9 +1034,19 @@ def main_path(torch, pt, kernels, args, rng, report):
     want = np_count(u)
     del u
     assert got == want, (got, want)
+    # engine.count_async: one K1 launch left on the card, read back
+    # through numpy and int(), equal to count.
+    a1, b1 = (int(x) for x in pairs_a[1])
+    call = parse(f"Count(Intersect(Row(f={a1}), Row(f={b1})))").calls[0].children[0]
+    pending = eng.count_async("big", call, shards)
+    assert pending.tensor.is_cuda and pending.tensor.dtype == torch.int64, pending
+    with eng.memos_off():
+        assert int(np.asarray(pending)) == int(pending) == eng.count("big", call, shards) \
+            == want_pair(a1, b1)
     log(f"main (a): Executor Count(Intersect) x{len(pairs_a)}, the "
         f"Union/Difference/Xor nest and a 40-row Union equal numpy (first, cold: "
-        f"{out['count_cold_s']:.2f} s)")
+        f"{out['count_cold_s']:.2f} s); engine.count_async's int64 device scalar equals "
+        f"count")
     end(ph, "gather_expr_count", "gather_expr_count_streaming",
         none=("gather_expr_count_staged",))
 
@@ -1190,6 +1234,7 @@ def main_path(torch, pt, kernels, args, rng, report):
                     report["nvidia_smi"], phases, planes)
         main_path_j(torch, kernels, H, bsi, out["bsi"]["depth"], rng, start, end, out,
                     report["nvidia_smi"], phases, planes)
+        main_path_k1(torch, kernels, H, rng, out, report["nvidia_smi"], phases, planes)
     finally:
         shutil.rmtree(planes_dir, ignore_errors=True)
     launches = {k: sum(p["launches"][k] for p in phases.values())
@@ -2297,6 +2342,27 @@ def free_ports(n: int):
     return ports
 
 
+def free_port_pairs(n: int, offset: int):
+    """n free ports whose twins (port + offset, a mux listener's) are free
+    too."""
+    import socket
+
+    out = []
+    while len(out) < n:
+        (p,) = free_ports(1)
+        if p + offset > 65000 or p in out:
+            continue
+        probe = socket.socket()
+        try:
+            probe.bind(("localhost", p + offset))
+        except OSError:
+            continue
+        finally:
+            probe.close()
+        out.append(p)
+    return out
+
+
 def bsi_planes(vals, nn, depth: int) -> np.ndarray:
     """One shard's (depth + 1, W) BSI planes from its values and not-null
     bits: planes 0..depth-1 the value bits under not-null, plane depth
@@ -2418,6 +2484,7 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
     from pilosa_tpu_torch.constants import SHARD_WIDTH
     from pilosa_tpu_torch.parallel import EngineConfig
     from pilosa_tpu_torch.plan.signature import Leaf
+    from pilosa_tpu_torch.server.mux import TransportConfig
     from pilosa_tpu_torch.server.server import Server
 
     n_rows, n_shards, n_words = H.shape
@@ -2428,7 +2495,7 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
     # once more for the shards each peer sends it (a leaf is cached per
     # shard set), ~4.6 GiB of f and v.
     leaf_budget, stack_budget = 5 << 30, 3 << 30
-    ports = free_ports(H_NODES)
+    ports = free_port_pairs(H_NODES, K_MUX_OFF)
     hosts = [f"localhost:{p}" for p in ports]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2437,9 +2504,12 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
         cache_flush_interval=0, anti_entropy_interval=0, member_monitor_interval=0,
         engine_config=EngineConfig(leaf_cache_bytes=leaf_budget,
                                    stack_cache_bytes=stack_budget),
+        transport_config=TransportConfig(enabled=True, port_offset=K_MUX_OFF),
         device=device) for p in ports]
     for srv in servers:
         srv.open()
+        # (h1)-(h4) fan out over HTTP; (k2) hands the client its mux.
+        srv.client.mux = None
     # The sparse field s: H_SPARSE_BITS random columns per row over every
     # shard, so that a Row answer crossing nodes stays small on the wire.
     srows = np.repeat(np.arange(H_SPARSE_ROWS, dtype=np.uint64), H_SPARSE_BITS)
@@ -2619,6 +2689,94 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
             f"node: " + "; ".join(f"{k} {', '.join(f'{x:.1f}' for x in v)}"
                                    for k, v in timed.items())
             + f"; gen-2 GCs {gcp.n} ({gcp.ms:.1f} ms); engines {h['h2_engines']}")
+
+        # ---- (k2) (h1)'s Counts over the mux transport, then one node's
+        # mux listener closed: its peers fall back to HTTP
+        assert all(srv.mux_server.port == srv.port + K_MUX_OFF for srv in servers)
+        for srv in servers:
+            srv.client.mux = srv.mux_transport
+        tr0 = [srv.transport_stats.snapshot() for srv in servers]
+        k2 = {}
+        for c in (1, 8):
+            per = per_client if c == 1 else per_client_c8
+            n = c * per
+            sel = every[(offset + np.arange(n)) % len(every)]
+            offset += n
+            work = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in
+                     sel[i * per:(i + 1) * per]] for i in range(c)]
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                new = sorted({(int(a), int(b)) for a, b in sel} - want.keys())
+                want.update(zip(new, pool.map(lambda p: want_pair(*p), new)))
+            ph = start(f"k2_mux_count_c{c}")
+            with memos_off(), GcPauses() as gcp:
+                (wall_s, clients), dev_ms = profiled_wall(
+                    torch, lambda: http_clients(ports, "big", work))
+            lat = []
+            for i, res in enumerate(clients):
+                for (a, b), (dt, results) in zip(sel[i * per:(i + 1) * per], res):
+                    assert results == [want[(int(a), int(b))]], (a, b, results)
+                    lat.append(dt)
+            end(ph, "gather_expr_count", quiet=engines)
+            k2[c] = dict(clients=c, queries=n, wall_s=wall_s, qps=n / wall_s,
+                         p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), device_ms=dev_ms,
+                         gc_gen2=gcp.n, http_qps=levels[c]["qps"],
+                         http_p50_ms=levels[c]["p50_ms"])
+            log(f"main (k2) [{smi}] C={c}: {n} distinct Counts, round-robin over {H_NODES} "
+                f"nodes whose peer requests ride the mux, equal numpy; "
+                f"{k2[c]['qps']:.1f} queries/s, p50 {k2[c]['p50_ms']:.3f} ms, p99 "
+                f"{k2[c]['p99_ms']:.3f} ms (over HTTP in (h1): {levels[c]['qps']:.1f} "
+                f"queries/s, p50 {levels[c]['p50_ms']:.3f} ms)")
+        tr1 = [srv.transport_stats.snapshot() for srv in servers]
+        mux_diff = {key: sum(b[key] - a[key] for a, b in zip(tr0, tr1))
+                    for key in tr1[0] if key != "inflight_hwm"}
+        assert mux_diff["requests_mux"] > 0, mux_diff
+        assert mux_diff["requests_http"] == 0 and mux_diff["handshake_fallbacks"] == 0, mux_diff
+        # One node's mux listener closes and drops its connections. Once
+        # each peer's reader has seen its connection end, the peer's next
+        # request to that node redials, is refused, demotes the node to
+        # HTTP and goes over HTTP (a request racing the close would fail
+        # as a transport error and take the other replica instead).
+        shut = servers[-1]
+        shut.mux_server.close()
+        t0 = time.perf_counter()
+        while any(not c.closed for c in (srv.mux_transport._conns.get(shut.node.uri)
+                                         for srv in servers[:-1]) if c is not None):
+            assert time.perf_counter() - t0 < 30, "a peer never saw its mux connection end"
+            time.sleep(0.01)
+        sel = every[:64]
+        for a, b in sel:
+            if (int(a), int(b)) not in want:
+                want[(int(a), int(b))] = want_pair(int(a), int(b))
+        ph = start("k2_mux_fallback")
+        with memos_off():
+            for i, (a, b) in enumerate(sel):
+                got = query(ports[i % (H_NODES - 1)], "big",
+                            f"Count(Intersect(Row(f={a}), Row(f={b})))")
+                assert got == [want[(int(a), int(b))]], (a, b, got)
+        end(ph, "gather_expr_count", quiet=engines)
+        tr2 = [srv.transport_stats.snapshot() for srv in servers]
+        fall_diff = {key: sum(b[key] - a[key] for a, b in zip(tr1, tr2))
+                     for key in tr2[0] if key != "inflight_hwm"}
+        assert fall_diff["requests_http"] > 0 and fall_diff["handshake_fallbacks"] > 0, \
+            fall_diff
+        for srv in servers:
+            srv.client.mux = None
+        # A request that met the closing connection failed as a transport
+        # error and may have opened its breaker: the member probes close
+        # every breaker before (h3) drops a link on purpose.
+        opened = sum(srv.cluster.health.snapshot()["breaker_opened"] for srv in servers)
+        t0 = time.perf_counter()
+        while not all(p["state"] == CLOSED for srv in servers
+                      for p in srv.cluster.health.snapshot()["peers"].values()):
+            assert time.perf_counter() - t0 < 30, "the breakers did not close after (k2)"
+            for srv in servers:
+                srv._monitor_members()
+        h["k2"] = dict(levels=k2, transport=mux_diff, fallback=fall_diff,
+                       closed_listener=shut.node.id, breakers_opened=opened)
+        log(f"main (k2) [{smi}]: transport over (k2)'s Counts {mux_diff}; {shut.node.id}'s "
+            f"mux listener closed: 64 Counts from the other three equal numpy, their "
+            f"requests to it over HTTP: {fall_diff}; breakers opened over (h) so far: "
+            f"{opened}")
 
         # ---- (h3) failover: a dropped link, then a closed node
         q_srv = target = None
@@ -2980,13 +3138,16 @@ class RankJob:
         with open(self.logs[r].name) as f:
             return f.read()[-n:]
 
-    def ask(self, r: int, op: str, timeout: float = 600.0, **kw):
+    def _send(self, r: int, op: str, **kw) -> int:
         n = self.n[r]
         self.n[r] += 1
         tmp = os.path.join(self.ctl, f"{r}.{n}.w")
         with open(tmp, "w") as f:
             json.dump(dict(op=op, **kw), f)
         os.replace(tmp, os.path.join(self.ctl, f"{r}.{n}.cmd"))
+        return n
+
+    def _reply(self, r: int, n: int, op: str, timeout: float):
         path = os.path.join(self.ctl, f"{r}.{n}.json")
         deadline = time.time() + timeout
         while not os.path.exists(path):
@@ -2999,8 +3160,14 @@ class RankJob:
         assert "error" not in reply, (r, op, reply["error"], self.tail(r))
         return reply["ok"]
 
-    def all(self, op: str, **kw):
-        return [self.ask(r, op, **kw) for r in range(len(self.procs))]
+    def ask(self, r: int, op: str, timeout: float = 600.0, **kw):
+        return self._reply(r, self._send(r, op, **kw), op, timeout)
+
+    def all(self, op: str, timeout: float = 600.0, **kw):
+        """`op` to every process at once (a profiler start or a report
+        takes each process seconds), then every reply in order."""
+        sent = [self._send(r, op, **kw) for r in range(len(self.procs))]
+        return [self._reply(r, n, op, timeout) for r, n in enumerate(sent)]
 
     def stop(self, timeout: float = 120.0):
         """SIGTERM every rank, wait for each to exit 0; the last reports."""
@@ -3428,7 +3595,14 @@ json.dump(out, open(cfg["result"], "w"))
 # process joins through `join_addr` on the `join` command. Besides
 # WorkerCommands' own, each answers `ready`, `status` (membership, state,
 # a move in progress) and `holds` (which of the given shards of f it
-# holds) and reports its engine and rebalance counters and pauses.
+# holds) and reports its engine and rebalance counters and pauses. For
+# (k3) the coordinator runs the autoscaler every second (window 3,
+# cooldown 0) and logs its samples from the start, inert until
+# `autoscale` sets its high mark and standby and logs its actions
+# (`autoscale_report`); on `standby` the
+# last process replaces its removed server with a fresh standby, a
+# one-node cluster of itself on the same port, as the reference's tests
+# make one.
 WORKER_J = r"""
 import json, os, sys, time
 
@@ -3440,6 +3614,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from pilosa_tpu_torch.cluster.autoscale import AutoscaleConfig
 from pilosa_tpu_torch.logger import Logger
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.parallel import EngineConfig
@@ -3449,11 +3624,12 @@ ctl = cs.WorkerCommands(torch, kernels, cfg, r)
 device = cfg["device"]  # None: the card; "cpu" rehearses the path without one
 hosts = [f"localhost:{p}" for p in cfg["ports"]]
 n_base = len(hosts) - 1  # the last process joins later
+auto = {"samples": [], "actions": []}
 
 
-def make(**kw):
+def make(name=None, **kw):
     return Server(
-        data_dir=os.path.join(cfg["work"], f"n{r}"), port=cfg["ports"][r],
+        data_dir=os.path.join(cfg["work"], name or f"n{r}"), port=cfg["ports"][r],
         replica_n=cfg["replica_n"], cache_flush_interval=0, anti_entropy_interval=0,
         member_monitor_interval=0, logger=Logger(stream=sys.stderr),
         engine_config=EngineConfig(leaf_cache_bytes=cfg["engine_leaf"],
@@ -3464,8 +3640,25 @@ def make(**kw):
 srv = None
 ready = {"node": hosts[r]}
 if r < n_base:
-    srv = make(cluster_hosts=hosts[:n_base], is_coordinator=r == 0)
+    scale = {}
+    if r == 0:
+        scale["autoscale_config"] = AutoscaleConfig(
+            interval=1.0, window=3, scale_out_qps=1e9, scale_in_qps=cfg["scale_in_qps"],
+            cooldown=0.0)
+    srv = make(cluster_hosts=hosts[:n_base], is_coordinator=r == 0, **scale)
     srv.open()
+    if r == 0:
+        # Log every sample of the controller (time, queries/s), and when
+        # it acts, for (k3).
+        sample = srv.autoscaler._sample
+
+        def logged(now):
+            got = sample(now)
+            if got is not None:
+                auto["samples"].append([time.time(), got["qps"]])
+            return got
+
+        srv.autoscaler._sample = logged
     t0 = time.perf_counter()
     S = np.load(cfg["s_path"])
     n_shards = cfg["n_shards"]
@@ -3503,8 +3696,32 @@ def holds(cmd):
             if srv.holder.fragment("big", "f", "standard", s) is not None]
 
 
+def autoscale(cmd):
+    c = srv.autoscaler
+    c.config.scale_out_qps = cmd["scale_out_qps"]
+    c.config.standby = cmd["standby"]
+    with c._lock:
+        c._samples.clear()
+    for name in ("_scale_out", "_scale_in"):
+        def timed(act=getattr(c, name), name=name):
+            auto["actions"].append([name, time.time()])
+            return act()
+
+        setattr(c, name, timed)
+    return {}
+
+
+def standby(cmd):
+    global srv
+    srv.close()
+    srv = make(name=f"n{r}-standby", cluster_hosts=[hosts[r]], is_coordinator=True)
+    srv.open()
+    return {}
+
+
 ctl.serve(report, lambda: srv is not None and srv.close(), ready=lambda cmd: ready,
-          join=join, status=status, holds=holds)
+          join=join, status=status, holds=holds, standby=standby, autoscale=autoscale,
+          autoscale_report=lambda cmd: dict(auto, snapshot=srv.autoscaler.snapshot()))
 """
 
 
@@ -3628,7 +3845,8 @@ def load_window(job, work: str, label: str, ports, pairs, want_pairs, writes, cu
     wall = last - first
     dev_ms = sum(d for d in dev if d) or None
     return dict(
-        move_s=marks["end"] - marks["begin"], wall_s=wall,
+        move_s=marks["end"] - marks["begin"], first_t=first, begin_t=marks["begin"],
+        end_t=marks["end"], wall_s=wall,
         counts={w: dict(n=n_win[w], qps=n_win[w] / span[w],
                         p50_ms=pct(lat[w], 50) if lat[w] else None,
                         p99_ms=pct(lat[w], 99) if lat[w] else None)
@@ -3652,6 +3870,92 @@ def rebalance_numbers(reps, before) -> dict:
     tot["cutover_pause_ms_p50"] = pct(pauses, 50) if pauses else None
     tot["cutover_pause_ms_max"] = max(pauses) * 1e3 if pauses else None
     return tot
+
+
+def main_path_k3(job, j, work, hosts, ports, joiner, pairs, want_pairs, writes, cursor,
+                 written, wr, begin, finish, check_every, joined, left, smi):
+    """Path (k3): the autoscaler drives a join and a leave of (j)'s
+    cluster. The removed fourth process starts a fresh standby; the
+    coordinator's autoscaler (interval 1 s, window 3) gets scale-out-qps
+    at half the queries/s it read itself while (j1)'s clients ran before
+    the join, and that standby. Under (j)'s 8 clients it joins the standby; with the
+    clients stopped it removes that node again. Every answer equals
+    numpy; the seconds from the first sample over the mark to the job's
+    start, and each move's rebalance seconds."""
+    k3 = {}
+    job.ask(joiner, "standby")
+    # The mark: half the queries/s that (j1)'s 8 clients drove before its
+    # join, as the controller itself read them (its samples of the
+    # coordinator's traffic, direct and forwarded) in that window.
+    jw = j["join"]
+    read = [q for t, q in job.ask(0, "autoscale_report")["samples"]
+            if jw["first_t"] + 1.0 <= t <= jw["begin_t"]]
+    assert read, jw
+    mark = 0.5 * float(np.median(read))
+    job.ask(0, "autoscale", scale_out_qps=mark, standby=hosts[joiner])
+    k3.update(scale_out_qps=mark, scale_in_qps=K_SCALE_IN_QPS, j1_samples_before=read,
+              j1_client_qps_before=jw["counts"]["before"]["qps"])
+
+    def decided(action, over):
+        """(seconds from the first sample of the run that ended at the
+        action to the action, the action's time). The first call acted;
+        later ones found no standby left, or no node it added, and held
+        (counted as skipped_bounds)."""
+        rep = job.ask(0, "autoscale_report")
+        acts = [t for name, t in rep["actions"] if name == action]
+        assert acts, rep
+        first = None
+        for t, qps in rep["samples"]:
+            if t > acts[0]:
+                break
+            first = (first or t) if over(qps) else None
+        assert first is not None, rep
+        return acts[0] - first, acts[0], rep["snapshot"]
+
+    ph = begin("k3_scale_out")
+    before = job.all("report")
+    ow = load_window(job, work, "k3-out", ports[:J_NODES], pairs, want_pairs, writes,
+                     cursor, written, wr, lambda: None, joined)
+    reps = finish(ph, "gather_expr_count")
+    ow["rebalance"] = rebalance_numbers(reps, before)
+    assert ow["rebalance"]["jobs_completed"] == 1, ow["rebalance"]
+    k3["out_decide_s"], t_out, snap = decided("_scale_out", lambda q: q >= mark)
+    k3["out_rebalance_s"] = ow["end_t"] - t_out
+    k3["scale_out"] = ow
+    ph = begin("k3_after_scale_out")
+    check_every(range(J_NODES + 1), "after the autoscaled join")
+    finish(ph, "gather_expr_count", "masked_plane_counts", "bsi_minmax")
+    log(f"main (k3) [{smi}]: the coordinator's autoscaler (interval 1 s, window 3, "
+        f"scale-out-qps {mark:.1f}, half its own reading {read} of (j1)'s load before "
+        f"its join, whose clients sent {jw['counts']['before']['qps']:.1f} Counts/s) admitted the "
+        f"standby {hosts[joiner]} under {J_CLIENTS} clients: {k3['out_decide_s']:.2f} s from "
+        f"the first sample over the mark to the job's start, rebalance "
+        f"{k3['out_rebalance_s']:.2f} s, {ow['rebalance']}; Counts before/during/after "
+        f"{ow['counts']}; every answer equal numpy, and from all {J_NODES + 1} nodes after it")
+
+    ph = begin("k3_scale_in")
+    before = job.all("report")
+    t0 = time.time()
+    while not left():
+        assert time.time() - t0 < J_MOVE_LIMIT_S + 30, "the autoscaler did not scale in"
+        time.sleep(0.2)
+    t_left = time.time()
+    reps = finish(ph)
+    rb = rebalance_numbers(reps, before)
+    assert rb["jobs_completed"] == 1, rb
+    k3["in_decide_s"], t_in, snap = decided("_scale_in", lambda q: q <= K_SCALE_IN_QPS)
+    k3["in_rebalance_s"] = t_left - t_in
+    k3["scale_in"] = dict(rebalance=rb)
+    k3["autoscaler"] = snap
+    assert snap["scale_out"] == 1 and snap["scale_in"] == 1 and not snap["errors"], snap
+    ph = begin("k3_after_scale_in")
+    check_every(range(J_NODES), "after the autoscaled leave")
+    finish(ph, "gather_expr_count", "masked_plane_counts", "bsi_minmax")
+    log(f"main (k3) [{smi}]: clients stopped: the autoscaler (scale-in-qps "
+        f"{K_SCALE_IN_QPS}) removed {hosts[joiner]} {k3['in_decide_s']:.2f} s after the "
+        f"first sample under the mark, rebalance {k3['in_rebalance_s']:.2f} s, {rb}; every "
+        f"node's answers equal numpy after it; autoscaler {snap}")
+    j["k3"] = k3
 
 
 def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases, planes,
@@ -3708,6 +4012,7 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
         np.save(os.path.join(work, "s.npy"), np.stack([srows, scols]))
         cfg = dict(here=HERE, work=work, ports=ports, replica_n=H_REPLICAS,
                    engine_leaf=5 << 30, engine_stack=3 << 30, ctl=ctl,
+                   scale_in_qps=K_SCALE_IN_QPS,
                    f_path=planes["f_path"], v_path=planes["v_path"],
                    s_path=os.path.join(work, "s.npy"), n_shards=n_shards, device=device)
         torch.cuda.empty_cache()
@@ -3923,6 +4228,8 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
             f"equal numpy ({len(written)} written bits) in {j['check_leave_s']:.1f} s; peak "
             f"device memory per process over (j1)-(j2) "
             f"{j['max_memory_allocated_gib']} GiB")
+        main_path_k3(job, j, work, hosts, ports, joiner, pairs, want_pairs, writes, cursor,
+                     written, wr, begin, finish, check_every, joined, left, smi)
         finals = job.stop()
         j["final_launches"] = [f["launches"] for f in finals]
     except BaseException:
@@ -4066,6 +4373,436 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
         srv.close()
         shutil.rmtree(work, ignore_errors=True)
     out["j"] = j
+
+
+# ------------------------------------------------------------ path (k)
+
+K_SHARDS = J_EV_SHARDS  # (k1): the leader's index ev, as (j3) builds it (64 x 128, 1 GiB)
+K_WRITERS = 4           # (k1): clients writing to the leader
+K_READERS = 4           # (k1): clients reading from the follower
+K_WRITES = 512          # (k1): single-bit Sets and Clears per writer
+K_RETENTION = 8192      # (k1): the leader's [cdc] retention-ops
+K_STALENESS = "1"       # (k1): X-Pilosa-Max-Staleness of the follower's reads, s
+K_PROMOTED_WRITES = 16  # (k1): writes the promoted follower accepts
+K_MUX_OFF = 2000        # (k2): [transport] port-offset of (h)'s nodes
+K_SCALE_IN_QPS = 0.5    # (k3): [autoscale] scale-in-qps
+
+# Path (k1)'s clients: writer i sends writes[i] to the leader one request
+# each, then exits; a reader sends `read` to the follower with the
+# staleness header, 5 ms apart, until the stop file appears. The file
+# `writers_done` appears when every writer has finished. The result file
+# holds, per client, [[t0, latency_s, status, body], ...].
+K_CLIENTS_SCRIPT = r"""
+import http.client, json, os, sys, threading, time
+cfg = json.load(open(sys.argv[1]))
+n_w = len(cfg["writes"])
+out = [None] * (n_w + cfg["readers"])
+
+def send(conn, q, headers):
+    t0, p0 = time.time(), time.perf_counter()
+    try:
+        conn.request("POST", "/index/%s/query" % cfg["index"], body=q.encode(), headers=headers)
+        r = conn.getresponse()
+        status, body = r.status, r.read().decode()
+    except (OSError, http.client.HTTPException) as e:
+        conn.close()
+        status, body = 0, repr(e)
+    return [t0, time.perf_counter() - p0, status, body]
+
+def writer(i):
+    conn = http.client.HTTPConnection("localhost", cfg["leader"], timeout=600)
+    out[i] = [send(conn, q, {}) for q in cfg["writes"][i]]
+    conn.close()
+
+def reader(i):
+    conn = http.client.HTTPConnection("localhost", cfg["follower"], timeout=600)
+    res = []
+    while not os.path.exists(cfg["stop"]) and time.time() < cfg["deadline"]:
+        res.append(send(conn, cfg["read"], {"X-Pilosa-Max-Staleness": cfg["staleness"]}))
+        time.sleep(0.005)
+    conn.close()
+    out[n_w + i] = res
+
+ws = [threading.Thread(target=writer, args=(i,)) for i in range(n_w)]
+rs = [threading.Thread(target=reader, args=(i,)) for i in range(cfg["readers"])]
+for th in rs + ws:
+    th.start()
+for th in ws:
+    th.join()
+open(cfg["writers_done"], "w").close()
+for th in rs:
+    th.join()
+json.dump(out, open(cfg["result"], "w"))
+"""
+
+
+# One node of path (k1): process 0 is the geo leader of index ev (filled
+# as (j3) fills it, then reopened with change capture and `[geo] role =
+# leader`, then K_RETENTION + 1 Sets of row `wr` in shard 0 so that its
+# change log folds once); process 1 becomes the follower on `follow`.
+# Besides WorkerCommands' own, each answers `ready` and `status` (geo
+# status and tail counters, the follower's cursor and bootstrap, the
+# change log's positions) and reports its engine counters.
+WORKER_K = r"""
+import json, os, sys, time
+
+cfg = json.load(open(sys.argv[1]))
+r = int(sys.argv[2])
+sys.path.insert(0, cfg["here"])
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from pilosa_tpu_torch.cdc import CdcConfig
+from pilosa_tpu_torch.geo import GeoConfig
+from pilosa_tpu_torch.logger import Logger
+from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.server.server import Server
+from pilosa_tpu_torch.storage import FSYNC_NEVER, StorageConfig
+
+ctl = cs.WorkerCommands(torch, kernels, cfg, r)
+device = cfg["device"]  # None: the card; "cpu" rehearses the path without one
+hosts = [f"localhost:{p}" for p in cfg["ports"]]
+boot = {}
+
+
+def make(**kw):
+    return Server(
+        data_dir=os.path.join(cfg["work"], f"k{r}"), port=cfg["ports"][r],
+        cache_flush_interval=0, anti_entropy_interval=0, member_monitor_interval=0,
+        logger=Logger(stream=sys.stderr), device=device, **kw)
+
+
+def capture():
+    return CdcConfig(enabled=True, standing_interval=0, retention_ops=cfg["retention"])
+
+
+srv = None
+ready = {"node": hosts[r]}
+if r == 0:
+    t0 = time.perf_counter()
+    # The fill is set-up: its files are written without fsync, as (j3)'s.
+    srv = Server(
+        data_dir=os.path.join(cfg["work"], "k0"), port=cfg["ports"][0],
+        cache_flush_interval=0, anti_entropy_interval=0, member_monitor_interval=0,
+        storage_config=StorageConfig(fsync=FSYNC_NEVER), device=device).open()
+    cs.j_fill_ev(srv, np.load(cfg["f_path"], mmap_mode="r")[:, :cfg["n_shards"]],
+                 cfg["n_shards"])
+    srv.close()
+    ready["fill_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv = make(cdc_config=capture(), geo_config=GeoConfig(role="leader")).open()
+    ready["capture_open_s"] = time.perf_counter() - t0
+    cols = list(range(cfg["retention"] + 1))
+    t0 = time.perf_counter()
+    for k in range(0, len(cols), 512):
+        srv.api.query("ev", " ".join(f"Set({c}, f={cfg['wr']})" for c in cols[k:k + 512]))
+    log = srv.cdc.log("ev")
+    ready.update(prefix_s=time.perf_counter() - t0, base_pos=log.base_pos,
+                 last_pos=log.last_pos)
+
+
+def follow(cmd):
+    global srv
+    srv = make(cdc_config=capture(), geo_config=GeoConfig(
+        role="follower", leader=hosts[0], backoff=0.05, backoff_max=1.0))
+    # One bootstrap answer carries the whole index: the leader compresses
+    # every image before the first byte, past the client's 30 s default.
+    srv.geo.client.timeout = 600
+    fetch = srv.geo.client.cdc_bootstrap
+
+    def timed(host, index):
+        t0 = time.time()
+        resp = fetch(host, index)
+        boot.update(t_asked=t0, fetch_s=time.time() - t0, fragments=len(resp["fragments"]),
+                    wire_bytes=sum(len(f["data"]) for f in resp["fragments"]))
+        return resp
+
+    srv.geo.client.cdc_bootstrap = timed
+    srv.open()
+    return {}
+
+
+def status(cmd):
+    out = dict(geo=srv.geo.debug_vars(), boot=dict(boot))
+    if srv.cdc is not None and srv.cdc.log("ev") is not None:
+        log = srv.cdc.log("ev")
+        out.update(last_pos=log.last_pos, base_pos=log.base_pos)
+    out["links"] = {n: l.pos for n, l in srv.geo.tailer._links.items()}
+    return out
+
+
+def report():
+    eng = srv.executor._engine if srv is not None else None
+    ctl.sync()
+    return dict(node=hosts[r], launches=dict(kernels.LAUNCHES),
+                plain=dict(kernels.PLAIN_CALLS),
+                engine=eng.snapshot() if eng is not None else None,
+                max_mem_gib=ctl.max_mem_gib())
+
+
+ctl.serve(report, lambda: srv is not None and srv.close(), ready=lambda cmd: ready,
+          follow=follow, status=status)
+"""
+
+
+def main_path_k1(torch, kernels, H, rng, out, smi, phases, planes, device=None):
+    """Path (k1): a geo follower of (j3)'s index on one card. A leader
+    process (index ev: f over K_SHARDS shards x 128 rows, filled before
+    capture, then `[cdc] enabled` with retention-ops K_RETENTION and `[geo]
+    role = leader`; K_RETENTION + 1 Sets of a row absent from the reads
+    fold its log once) and a follower process (`role = follower`) that
+    bootstraps the whole index (its cursor 0 is behind retention: a 410,
+    then the base images). Then K_WRITERS writers send K_WRITES Sets or
+    Clears each to the leader while K_READERS readers send
+    Count(Intersect(Row(f=a), Row(f=b))) to the follower with
+    X-Pilosa-Max-Staleness: every answer is a typed 409 or equals numpy's
+    count after a prefix of the leader's change log; once the lag is 0
+    every answer equals the final count. A write to the follower gets the
+    typed 409; POST /geo/promote; the new leader accepts writes, the old
+    one is fenced (409) and re-tails; both end equal numpy."""
+    import shutil
+    import tempfile
+
+    from pilosa_tpu_torch.cdc.log import decode_cdc_records
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+    from pilosa_tpu_torch.storage.bitmap import decode_op_records
+
+    H = H[:, :K_SHARDS]
+    n_rows = H.shape[0]
+    wr = n_rows  # the prefix row: absent from H and from every read below
+    k = {"shards": K_SHARDS, "smi": smi}
+    work = tempfile.mkdtemp(prefix="pilosa-torch-k-")
+    ctl = os.path.join(work, "ctl")
+    os.makedirs(ctl)
+    ports = free_ports(2)
+    lp, fp = ports
+    job = None
+
+    def finish(name, reps, *need):
+        got = {"launches": {x: sum(r["launches"][x] for r in reps) for x in kernels.LAUNCHES},
+               "plain_calls": {x: sum(r["plain"][x] for r in reps)
+                               for x in kernels.PLAIN_CALLS}}
+        phases[name] = got
+        log(f"counters {name}: launches {got['launches']}, plain twins "
+            f"{got['plain_calls']}")
+        ran = got["plain_calls"] if device == "cpu" else got["launches"]
+        assert device == "cpu" or not any(got["plain_calls"].values()), (name, got)
+        for x in need:
+            assert ran[x] > 0, (name, x, got)
+        for i, rep in enumerate(reps):
+            snap = rep["engine"] or {}
+            bad = {x: snap[x] for x in LADDER if snap.get(x)}
+            assert not bad, (name, i, bad)
+
+    try:
+        cfg = dict(here=HERE, work=work, ports=ports, ctl=ctl, f_path=planes["f_path"],
+                   n_shards=K_SHARDS, retention=K_RETENTION, wr=wr, device=device)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        job = RankJob(cfg, work, script=WORKER_K, n=2)
+        lead = job.ask(0, "ready", timeout=900)
+        k["leader_start_s"] = time.perf_counter() - t0
+        assert lead["base_pos"] > 0, lead
+        k.update(fill_s=lead["fill_s"], capture_open_s=lead["capture_open_s"],
+                 prefix_s=lead["prefix_s"], base_pos=lead["base_pos"],
+                 prefix_last_pos=lead["last_pos"])
+        log(f"main (k1) [{smi}]: geo leader process on {torch.cuda.get_device_name(0)}: "
+            f"index ev ({K_SHARDS} shards x {n_rows} rows of f) filled in "
+            f"{lead['fill_s']:.1f} s, reopened with change capture and [geo] role leader in "
+            f"{lead['capture_open_s']:.1f} s; {K_RETENTION + 1} Sets of row {wr} in "
+            f"{lead['prefix_s']:.1f} s folded the log to base position {lead['base_pos']}")
+
+        # ---- the follower bootstraps
+        job.ask(1, "ready")
+        t0 = time.perf_counter()
+        job.ask(1, "follow", timeout=300)
+        deadline = time.perf_counter() + 600
+        while True:
+            st = job.ask(1, "status")
+            tail = st["geo"]["tail"]
+            if tail["bootstraps"] >= 1 and st["links"].get("ev", 0) >= lead["last_pos"]:
+                break
+            assert time.perf_counter() < deadline, st
+            time.sleep(0.2)
+        k["bootstrap_s"] = time.perf_counter() - t0
+        k["bootstrap"] = st["boot"]
+        assert tail["bootstraps"] == 1 and tail["apply_errors"] == 0, tail
+        assert st["boot"]["fragments"] >= K_SHARDS, st["boot"]
+        job.ask(1, "reset")
+        log(f"main (k1) [{smi}]: the follower process bootstrapped from the leader in "
+            f"{k['bootstrap_s']:.1f} s (the bootstrap answer took "
+            f"{st['boot']['fetch_s']:.1f} s: {st['boot']['fragments']} fragment images, "
+            f"{st['boot']['wire_bytes']} bytes of base64 zlib); cursor {st['links']['ev']}")
+
+        # ---- writers to the leader, readers on the follower
+        a, b = (int(x) for x in rng.choice(n_rows, 2, replace=False))
+        bits = {x: np.unpackbits(H[x].view(np.uint8), axis=1,
+                                 bitorder="little").reshape(-1).astype(bool) for x in (a, b)}
+        base = int(np.count_nonzero(bits[a] & bits[b]))
+        read = f"Count(Intersect(Row(f={a}), Row(f={b})))"
+        cols = rng.permutation(K_SHARDS * SHARD_WIDTH)[:K_WRITERS * K_WRITES]
+        writes = []
+        for i in range(K_WRITERS):
+            ops = []
+            for j, col in enumerate(cols[i::K_WRITERS]):
+                row = (a, b)[j % 2]
+                op = "Clear" if bits[row][col] else "Set"
+                ops.append(f"{op}({int(col)}, f={row})")
+            writes.append(ops)
+        lead_pos0 = job.ask(0, "status")["last_pos"]
+        cfg_path = os.path.join(work, "k1-clients.json")
+        res_path = os.path.join(work, "k1-result.json")
+        stop, wdone = os.path.join(work, "k1-stop"), os.path.join(work, "k1-writers")
+        with open(cfg_path, "w") as f:
+            json.dump(dict(leader=lp, follower=fp, index="ev", writes=writes,
+                           readers=K_READERS, read=read, staleness=K_STALENESS,
+                           stop=stop, writers_done=wdone, result=res_path,
+                           deadline=time.time() + 600), f)
+        lags = []
+        proc = subprocess.Popen([sys.executable, "-c", K_CLIENTS_SCRIPT, cfg_path],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            while not os.path.exists(wdone):
+                assert proc.poll() is None, proc.communicate()[1][-3000:]
+                assert time.perf_counter() - t0 < 300, "the writers did not finish"
+                _, gs = http(fp, "GET", "/geo/status")
+                lags.append(gs.get("lag"))
+                time.sleep(0.1)
+            k["write_s"] = time.perf_counter() - t0
+            lead_pos1 = job.ask(0, "status")["last_pos"]
+            while True:
+                st = job.ask(1, "status")
+                _, gs = http(fp, "GET", "/geo/status")
+                lags.append(gs.get("lag"))
+                # Lag 0 in positions: the follower's cursor is at the
+                # leader's head (its lag in seconds keeps the time since
+                # the last poll returned, up to the 0.25 s long-poll).
+                if st["links"]["ev"] >= lead_pos1:
+                    break
+                assert time.perf_counter() - t0 < 300, (st, gs)
+                time.sleep(0.05)
+            k["catch_up_s"] = time.perf_counter() - t0 - k["write_s"]
+            time.sleep(0.5)  # the readers read at lag 0 too
+        finally:
+            open(stop, "w").close()
+            _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-3000:]
+        with open(res_path) as f:
+            clients = json.load(f)
+
+        # The count after every prefix of the leader's change log, from its
+        # own stream: the follower applies records in that order.
+        status_, data = http_raw(lp, f"/cdc/stream?index=ev&from={lead_pos0}&timeout=0"
+                                     f"&max-bytes={64 << 20}")
+        assert status_ == 200
+        recs = [rec for rec, _ in decode_cdc_records(data)]
+        assert [rec.position for rec in recs] == list(range(lead_pos0 + 1, lead_pos1 + 1))
+        count, prefix = base, [base]
+        for rec in recs:
+            for adds, rems in decode_op_records(rec.ops):
+                for pos, on in [(p, True) for p in adds] + [(p, False) for p in rems]:
+                    row, col = int(pos) // SHARD_WIDTH, rec.shard * SHARD_WIDTH + int(pos) % SHARD_WIDTH
+                    if row not in bits:
+                        continue
+                    before = bits[a][col] and bits[b][col]
+                    bits[row][col] = on
+                    count += int(bits[a][col] and bits[b][col]) - int(before)
+            prefix.append(count)
+        final = count
+        assert final == int(np.count_nonzero(bits[a] & bits[b]))
+        valid = set(prefix)
+        acked = 0
+        for res in clients[:K_WRITERS]:
+            for _, _, status_, body in res:
+                assert status_ == 200, (status_, body[:300])
+                acked += 1
+        assert acked == K_WRITERS * K_WRITES and len(recs) == acked, (acked, len(recs))
+        lat, stale, n_reads, at_zero = [], 0, 0, 0
+        t_zero = None
+        for res in clients[K_WRITERS:]:
+            for t_req, dt, status_, body in res:
+                n_reads += 1
+                if status_ == 409:
+                    assert "staleness" in body, body[:300]
+                    stale += 1
+                    continue
+                assert status_ == 200, (status_, body[:300])
+                got = json.loads(body)["results"][0]
+                assert got in valid, (got, base, final)
+                lat.append(dt)
+        # Lag 0 reached: every answer now is the final count.
+        for _ in range(16):
+            st_, got = http(fp, "POST", "/index/ev/query", read,
+                            headers={"X-Pilosa-Max-Staleness": K_STALENESS})
+            assert st_ == 200 and got["results"] == [final], (st_, got, final)
+            at_zero += 1
+        lag_vals = [x for x in lags if x is not None]
+        k["load"] = dict(writes=acked, reads=n_reads, reads_409=stale, reads_at_lag_0=at_zero,
+                         follower_count_p50_ms=pct(lat, 50) if lat else None,
+                         follower_count_p99_ms=pct(lat, 99) if lat else None,
+                         lag_p50_ms=pct(lag_vals, 50) if lag_vals else None,
+                         lag_max_s=max(lag_vals) if lag_vals else None,
+                         lag_unknown_samples=len(lags) - len(lag_vals),
+                         prefix_counts=len(valid), base=base, final=final)
+        reps = job.all("report")
+        finish("k1_follower_reads", reps[1:], "gather_expr_count")
+        k["follower_k1_after_bootstrap"] = reps[1]["launches"]["gather_expr_count"]
+        assert k["follower_k1_after_bootstrap"] > 0 or device == "cpu", reps[1]["launches"]
+        log(f"main (k1) [{smi}]: {K_WRITERS} writers x {K_WRITES} Sets/Clears to the leader "
+            f"in {k['write_s']:.1f} s while {K_READERS} readers sent {read} to the follower "
+            f"(max staleness {K_STALENESS} s): {n_reads} answers, {stale} typed 409s, every "
+            f"other one equal numpy's count after a prefix of the leader's log ({len(valid)} "
+            f"distinct prefix counts, {base} -> {final}); follower Count p50 "
+            f"{k['load']['follower_count_p50_ms']} ms; lag p50 {k['load']['lag_p50_ms']} ms, "
+            f"max {k['load']['lag_max_s']} s; caught up {k['catch_up_s']:.2f} s after the "
+            f"last write, then {at_zero} answers equal the final count; the follower's K1 "
+            f"launches after its bootstrap {k['follower_k1_after_bootstrap']}")
+
+        # ---- a write to the follower, then promotion and fencing
+        st_, got = http(fp, "POST", "/index/ev/query", f"Set(3, f={a})")
+        assert st_ == 409 and "epoch" in got["error"], (st_, got)
+        job.all("reset")
+        t0 = time.perf_counter()
+        st_, got = http(fp, "POST", "/geo/promote", "")
+        assert st_ == 200 and got["role"] == "leader" and got["epoch"] == 1, got
+        while http(lp, "GET", "/geo/status")[1]["role"] != "follower":
+            assert time.perf_counter() - t0 < 120, "the old leader was not fenced"
+            time.sleep(0.05)
+        k["promotion_s"] = time.perf_counter() - t0
+        st_, got = http(lp, "POST", "/index/ev/query", f"Set(3, f={a})")
+        assert st_ == 409 and got.get("current") == 1, (st_, got)
+        free = np.flatnonzero(~bits[a] & bits[b])[:K_PROMOTED_WRITES]
+        for col in free:
+            assert query(fp, "ev", f"Set({int(col)}, f={a})") == [True]
+            bits[a][col] = True
+        final = int(np.count_nonzero(bits[a] & bits[b]))
+        want_a = int(np.count_nonzero(bits[a]))
+        t1 = time.perf_counter()
+        while query(lp, "ev", read) != [final]:
+            assert time.perf_counter() - t1 < 300, "the old leader did not re-tail"
+            time.sleep(0.1)
+        k["retail_s"] = time.perf_counter() - t1
+        for port in (lp, fp):
+            assert query(port, "ev", read) == [final], port
+            assert query(port, "ev", f"Count(Row(f={a}))") == [want_a], port
+        reps = job.all("report")
+        finish("k1_promotion", reps, "gather_expr_count")
+        k["final"] = dict(count=final, row_a=want_a)
+        log(f"main (k1) [{smi}]: a write to the follower got the typed 409; POST /geo/promote: "
+            f"the old leader fenced (role follower, writes 409 at epoch 1) in "
+            f"{k['promotion_s']:.2f} s; the new leader took {K_PROMOTED_WRITES} Sets and the "
+            f"old one re-tailed them in {k['retail_s']:.2f} s; both answer {read} = {final} "
+            f"and Count(Row(f={a})) = {want_a}, equal numpy")
+        finals = job.stop()
+        k["final_launches"] = [f_["launches"] for f_ in finals]
+    finally:
+        if job is not None:
+            job.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["k1"] = k
 
 
 def cli_server_flow(device=None):

@@ -110,11 +110,6 @@ def _topn_chunk(n_shards: int) -> int:
     return max(1, min(512, budget // max(1, n_shards * WORDS_PER_ROW * 4)))
 
 
-def not_ported(what: str) -> QueryError:
-    """The typed refusal of a feature the port does not have yet."""
-    return QueryError(f"{what} is not ported to the PyTorch/CUDA executor yet")
-
-
 class _NoDeviceEngine:
     """Engine stub installed on the point-in-time shadow executor
     (_execute_at_position): refuses every fast-path gate and routes every

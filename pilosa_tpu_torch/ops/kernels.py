@@ -193,7 +193,7 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        build()
+        build()  # pilint: allow-blocking(one build per process; every caller waits for the library)
         try:
             lib = ctypes.CDLL(LIBRARY)
         except OSError as e:

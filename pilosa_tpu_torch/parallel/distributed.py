@@ -127,7 +127,7 @@ def initialize(coordinator_address: Optional[str] = None,
                     f"torch.distributed job at {coordinator_address}: "
                     f"{store.add('pilosa-join', 0)} of {num_processes} "
                     f"ranks joined within {join.total_seconds():.0f} s")
-            time.sleep(0.02)
+            time.sleep(0.02)  # pilint: allow-blocking(the one join of the job; a second caller waits for it)
         dist.init_process_group(
             "gloo", store=dist.PrefixStore("pilosa-pg", store),
             rank=process_id, world_size=num_processes, timeout=timeout)

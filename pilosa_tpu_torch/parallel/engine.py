@@ -60,6 +60,8 @@ from .. import failpoints
 from ..constants import VIEW_BSI_GROUP_PREFIX, VIEW_STANDARD, WORDS_PER_ROW
 from ..core.row import Row
 from ..errors import PilosaError, QueryError
+from ..obs import NOP_SPAN
+from ..obs import span as obs_span
 from ..ops import bitplane as bp
 from ..ops import kernels
 from ..plan.signature import CompiledPlan, Leaf, cached_plan, resolve_time_range
@@ -371,6 +373,29 @@ def _settled(t: torch.Tensor) -> torch.Tensor:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     return t
+
+
+class DeviceCount:
+    """One Count left on the device: the unsynchronized int64 scalar of a
+    K1 launch. int() and np.asarray() wait for it and give the count
+    (np.asarray of a CUDA tensor alone raises); `tensor` is the scalar."""
+
+    __slots__ = ("tensor",)
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+
+    def __int__(self) -> int:
+        return int(self.tensor.item())
+
+    __index__ = __int__
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.tensor.cpu().numpy()
+        return out if dtype is None else out.astype(dtype)
+
+    def __repr__(self) -> str:
+        return f"DeviceCount({self.tensor!r})"
 
 
 class ShardedQueryEngine:
@@ -919,20 +944,27 @@ class ShardedQueryEngine:
             return arr
         evicted: List = []
         try:
-            with self._lock:
-                stale = self._leaf_cache.get(key)
-            if stale is not None:
-                arr = self._leaf_delta(key, leaf.row, stale, frags,
-                                       fingerprint, evicted)
-                if arr is not None:
-                    return arr
-            buf = None
-            if self.tier is not None:
-                buf = self.tier.promote(key, frags, fingerprint, len(shards))
-            tier_hit = buf is not None
-            if buf is None:
-                buf = self._host_gather(frags, leaf.row)
-            arr = self._oom_guard(None, lambda: self._upload(buf))
+            # The gather span tags which refresh path ran (delta scatter,
+            # tier promote or cold walk), as on the JAX package.
+            with obs_span("gather") as sp:
+                with self._lock:
+                    stale = self._leaf_cache.get(key)
+                if stale is not None:
+                    arr = self._leaf_delta(key, leaf.row, stale, frags,
+                                           fingerprint, evicted)
+                    if arr is not None:
+                        sp.tag(kind="delta")
+                        return arr
+                buf = None
+                if self.tier is not None:
+                    buf = self.tier.promote(key, frags, fingerprint, len(shards))
+                tier_hit = buf is not None
+                if buf is None:
+                    buf = self._host_gather(frags, leaf.row)
+                if sp is not NOP_SPAN:
+                    sp.tag(kind="tier-promote" if tier_hit else "cold",
+                           bytes=int(buf.nbytes))
+                arr = self._oom_guard(None, lambda: self._upload(buf))
             with self._lock:
                 if tier_hit:
                     self.counters["leaf_tier_hits"] += 1
@@ -1165,7 +1197,10 @@ class ShardedQueryEngine:
             with self._lock:
                 stale = self._stack_cache.get(key)
             if stale is not None:
-                stacked = self._stack_delta(key, index, leaves, shards, stale, fp)
+                with obs_span("gather", kind="stack-delta") as sp:
+                    stacked = self._stack_delta(key, index, leaves, shards, stale, fp)
+                    if sp is not NOP_SPAN:
+                        sp.tag(applied=stacked is not None)
                 if stacked is not None:
                     return stacked
             arrs = self._leaf_tensor(index, leaves, shards)
@@ -1464,14 +1499,31 @@ class ShardedQueryEngine:
                 self.counters["host_cold_counts"] += 1
             self.memo_store(token, result)
             return result
+        launch = self._count_launch(index, plan, shards)
+        result = self._device_call(plan.sig_tuple, lambda: int(launch()[0]))
+        self.memo_store(token, result)
+        return result
+
+    def _count_launch(self, index: str, plan: CompiledPlan,
+                      shards: Tuple[int, ...]) -> Callable[[], torch.Tensor]:
+        """The plan's leaves stacked on the device and K1 over them as a
+        batch of one, to run under the fault guard."""
         stacked = self._stacked_leaf_tensor(index, plan.leaves, shards)
         idxs = torch.arange(len(plan.leaves), dtype=torch.int32).reshape(-1, 1)
         tape = _lowered(plan).tape
         self._bump("count_dispatches")
-        result = self._device_call(plan.sig_tuple, lambda: int(
-            kernels.gather_expr_count(stacked, idxs, tape)[0]))
-        self.memo_store(token, result)
-        return result
+        return lambda: kernels.gather_expr_count(stacked, idxs, tape)
+
+    def count_async(self, index: str, call: Call, shards: Sequence[int],
+                    plan: Optional[CompiledPlan] = None) -> DeviceCount:
+        """count() without the memo and without waiting: one K1 launch
+        under count's fault guard, its int64 device scalar returned before
+        the read-back, so a caller can pipeline several queries before it
+        blocks."""
+        shards = tuple(shards)
+        plan = plan or self.plan(index, call)
+        launch = self._count_launch(index, plan, shards)
+        return DeviceCount(self._device_call(plan.sig_tuple, launch)[0])
 
     def count_batch(self, index: str, calls: Sequence[Call],
                     shards: Sequence[int], plans=None) -> np.ndarray:
@@ -1804,6 +1856,10 @@ class ShardedQueryEngine:
         that should compile is the signal a gate bug would otherwise bury."""
         try:
             return self.plan(index, call)
-        except (PilosaError, ValueError):  # schema, query and timestamp errors
-            self._bump("compile_gate_refusals")
+        except Exception:
+            # Any planning failure (schema, query and timestamp errors, a
+            # lowering fault) means "not on the engine": the walk answers,
+            # as on the JAX package.
+            with self._lock:
+                self.counters["compile_gate_refusals"] += 1
             return False

@@ -1251,14 +1251,16 @@ class _Server(ThreadingHTTPServer):
     daemon_threads = True
 
     def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
         # Live per-connection sockets: keep-alive means a handler thread
         # can sit in readline() long after the listener closes, so
         # server_close must SEVER established connections too (Go's
         # http.Server.Close semantics) — otherwise an in-process "dead"
-        # node keeps answering its pooled peers forever.
+        # node keeps answering its pooled peers forever. Set before the
+        # bind: a failed bind calls server_close() from inside
+        # super().__init__(), which must then raise the bind's OSError.
         self._live = set()
         self._live_mu = threading.Lock()
+        super().__init__(*args, **kwargs)
 
     def process_request(self, request, client_address):
         with self._live_mu:

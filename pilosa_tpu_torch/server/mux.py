@@ -391,6 +391,13 @@ class _FrameIO:
         return kind, stream_id, meta, body[meta_len:]
 
     def close(self):
+        # Shut the socket down before closing it: a close() alone does not
+        # end a connection whose reader thread is blocked in recv(), so
+        # the peer would never see it end.
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self.sock.close()
         except OSError:

@@ -15,9 +15,11 @@ through `/cluster/resize/remove-node`. `replica_n` places each shard on
 that many nodes, and any node answers a query by fanning it out to the
 owners of the shards it does not hold. A replica follows a primary
 translate store, and CDC (cdc/) streams changes, answers point-in-time
-reads and pushes standing queries. Refused with the typed not-ported
-error: geo replication, the mux transport and the autoscaler (ROADMAP
-Queue 1 item 4, steps 5-7), and an engine mesh wider than one device (a
+reads and pushes standing queries. A geo follower cluster tails a
+leader's CDC (geo/), node-to-node traffic rides the persistent mux
+transport when `[transport] enabled` (server/mux.py), and the autoscaler
+turns sustained load into joins and leaves (cluster/autoscale.py), as in
+the reference. Refused: an engine mesh wider than one device (a
 difference by design: one process drives one device).
 
 The collective plane: `open()` joins the torch.distributed job the
@@ -40,7 +42,7 @@ from typing import List, Optional
 from ..cluster.node import Cluster, Node, STATE_NORMAL, STATE_RESIZING, STATE_STARTING
 from ..core.holder import Holder, resolve_device
 from ..errors import PilosaError, QueryError
-from ..executor import Executor, not_ported
+from ..executor import Executor
 from ..logger import NopLogger
 from ..stats import InMemoryStatsClient
 from ..translate import TranslateStore
@@ -108,8 +110,7 @@ class Server:
         # The card unless the caller asks for the CPU; without CUDA this
         # raises before anything is built.
         self.device = resolve_device(device)
-        self._refuse_peer_settings(
-            geo_config, transport_config, autoscale_config, engine_config)
+        self._refuse_peer_settings(engine_config)
         self.data_dir = data_dir
         self.host = host
         self.port = port
@@ -428,26 +429,9 @@ class Server:
         self.opened = False
 
     @staticmethod
-    def _refuse_peer_settings(geo_config, transport_config,
-                              autoscale_config, engine_config) -> None:
-        """Each setting that would start peer machinery the port does not
-        have yet raises the typed not-ported error naming it and the
-        ROADMAP step that lifts it (or, for an engine mesh, why none
-        will)."""
-        refused = [
-            (geo_config is not None and geo_config.role != "none",
-             f"geo_config.role = {getattr(geo_config, 'role', None)!r} "
-             "(ROADMAP Queue 1 item 4, step 5: geo replication)"),
-            (transport_config is not None and transport_config.enabled,
-             "transport_config.enabled (ROADMAP Queue 1 item 4, step 6: "
-             "the mux transport)"),
-            (autoscale_config is not None and autoscale_config.interval > 0,
-             "autoscale_config.interval > 0 (ROADMAP Queue 1 item 4, "
-             "step 7: autoscale)"),
-        ]
-        for hit, what in refused:
-            if hit:
-                raise not_ported(f"the server setting {what}")
+    def _refuse_peer_settings(engine_config) -> None:
+        """The one server setting the port refuses, by design: an engine
+        mesh wider than one device (one process drives one device)."""
         if engine_config is not None and engine_config.mesh_devices > 1:
             raise QueryError(
                 "the server setting engine_config.mesh_devices > 1 is not "

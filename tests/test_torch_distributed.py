@@ -67,6 +67,10 @@ WORKER = textwrap.dedent("""
     assert inter == want_inter, (inter, want_inter)
     rows = dist.all_gather(torch.tensor([pid, 10 * pid], dtype=torch.int64))
     assert rows.tolist() == [[p, 10 * p] for p in range(n_proc)], rows
+    # Tear the group down before exit: a gloo group left to the
+    # interpreter's exit can abort the process after the work is done.
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
     print(f"WORKER_OK pid={pid} total={total} inter={inter}")
 """)
 

@@ -280,12 +280,13 @@ def test_route_answers_like_the_reference_node(walked, route):
     {"engine_config": "mesh"},
 ], ids=lambda kw: next(iter(kw)))
 def test_peer_settings_are_refused(tmp_path, kw):
-    """Geo, the mux transport and autoscale (ROADMAP Queue 1 item 4, steps
-    5-7) and an engine mesh (by design) raise the typed not-ported error
-    naming the setting. The membership, translate-replication and CDC
-    settings are lifted: the server builds and the setting does what it
-    does on pilosa_tpu (a joining node is admitted by its seed, a replica
-    opens its key store read-only, a Set gets CDC position 1)."""
+    """An engine mesh (by design) raises the typed not-ported error naming
+    the setting. Every other peer setting is lifted: the server builds and
+    the setting does what it does on pilosa_tpu (a joining node is
+    admitted by its seed, a replica opens its key store read-only, a Set
+    gets CDC position 1, a follower builds its geo manager and tailer, the
+    mux transport is installed on the shared client, the autoscaler takes
+    the interval)."""
     from pilosa_tpu_torch.cdc import CdcConfig
     from pilosa_tpu_torch.cluster.autoscale import AutoscaleConfig
     from pilosa_tpu_torch.geo import GeoConfig
@@ -339,11 +340,24 @@ def test_peer_settings_are_refused(tmp_path, kw):
             s.cdc.close()
             s.holder.close()
         return
+    if name != "engine_config":
+        s = TServer(data_dir=str(tmp_path / "g"), port=1, device="cpu",
+                    cache_flush_interval=0, **{name: value})
+        try:
+            if name == "geo_config":
+                assert s.geo is not None and s.executor.geo is s.geo
+                assert s.geo.status()["role"] == "follower"
+            elif name == "transport_config":
+                assert s.client.mux is s.mux_transport is not None
+                assert s.mux_server is not None
+            else:
+                assert s.autoscaler.config.interval == 5.0
+        finally:
+            s.close()
+        return
     with pytest.raises(QueryError, match=f"not ported.*|{name}") as ei:
         TServer(data_dir=None, port=1, device="cpu", **{name: value})
     assert "not ported" in str(ei.value) and name in str(ei.value)
-    if name != "engine_config":
-        assert "ROADMAP Queue 1 item 4, step" in str(ei.value)
 
 
 def free_port():
@@ -690,3 +704,25 @@ def test_cdc_rebalance_and_translation_settings_reach_the_server(tmp_path):
         finally:
             s.cdc.close()
     assert built[1] == built[0] == (True, 5, 1.5, 3, 1.5, True)
+
+
+def test_bind_to_a_taken_port_raises_oserror():
+    """A listener whose bind fails raises the bind's OSError: the stdlib
+    calls server_close() from inside the failed constructor, and that
+    close must not fault on state the constructor never set."""
+    from http.server import BaseHTTPRequestHandler
+
+    from pilosa_tpu_torch.server.handler import _Server
+
+    taken = socket.socket()
+    taken.bind(("localhost", 0))
+    taken.listen(1)
+    try:
+        with pytest.raises(OSError) as ei:
+            _Server(("localhost", taken.getsockname()[1]), BaseHTTPRequestHandler)
+        assert not isinstance(ei.value, AttributeError)
+        # A free port still binds and closes.
+        ok = _Server(("localhost", 0), BaseHTTPRequestHandler)
+        ok.server_close()
+    finally:
+        taken.close()

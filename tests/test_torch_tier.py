@@ -13,8 +13,9 @@ and requires equal answers and equal engine and tier counter deltas.
 
 Both engines run with the result memo off (PILOSA_MEMO_ENTRIES=0, as
 tests/test_device_faults.py does) and cold_host_count=0, so every sweep
-really reaches the leaf cache and the tier; the reference's sweeps used
-its count_async, which the port does not have. The reference engine's
+really reaches the leaf cache and the tier. The reference's sweeps use
+its count_async, which skips the memo: the `*_count_async` cases run the
+same sweeps through both packages' count_async. The reference engine's
 budgets are in bytes of its padded planes (its CPU mesh pads the shard
 axis), so each engine gets the same number of planes.
 """
@@ -96,6 +97,13 @@ def tiny_engine(make, pk, holder, n_keep, n_shards, tier=None, **tier_kw):
 def sweep(pk, eng, rows, shards, index="i"):
     return [int(eng.count(index, pk.parse(f"Row(f={r})").calls[0], shards))
             for r in rows]
+
+
+def sweep_async(pk, eng, rows, shards, index="i"):
+    """tests/test_tier.py's sweep: count_async's device scalar, read back
+    through numpy."""
+    return [int(np.asarray(eng.count_async(
+        index, pk.parse(f"Row(f={r})").calls[0], shards))) for r in rows]
 
 
 def tier_counters(eng):
@@ -292,6 +300,46 @@ def test_recreated_index_never_serves_stale_blob(holders, engines, memo_off):
     assert out["torch"] == out["jax"]
 
 
+def test_sweep_count_async_demotes_and_repromotes_like_jax(holders, engines):
+    """tests/test_tier.py's sweep helper (count_async, no memo, memos left
+    on): two sweeps over more planes than the leaf cache holds demote and
+    re-promote, with exact counts and the reference's tier counters."""
+    n_rows, shards = 6, (0, 1)
+
+    def body(pk, h, make):
+        _, expected = plant(h, 2, n_rows)
+        eng = tiny_engine(make, pk, h, 2, 2)
+        got = [sweep_async(pk, eng, range(n_rows), shards) for _ in range(2)]
+        assert got[0] == got[1] == [len(expected[r]) for r in range(n_rows)]
+        assert eng.snapshot()["memo_hits"] == 0
+        return got, tier_counters(eng)
+
+    out = same_run(holders, engines, body)
+    assert out["torch"] == out["jax"]
+
+
+def test_recreated_index_never_serves_stale_blob_count_async(holders, engines):
+    """tests/test_tier.py's recreated-index case as the reference runs it,
+    through count_async."""
+    shards = (0, 1)
+
+    def body(pk, h, make):
+        plant(h, 2, 4)
+        eng = tiny_engine(make, pk, h, 1, 2)
+        sweep_async(pk, eng, range(4), shards)
+        eng.tier.drain()
+        h.delete_index("i")
+        f2 = h.create_index("i").create_field("f")
+        f2.set_bit(0, 5)
+        f2.set_bit(0, SHARD_WIDTH + 9)
+        got = sweep_async(pk, eng, [0], shards)
+        assert got == [2]
+        return got
+
+    out = same_run(holders, engines, body)
+    assert out["torch"] == out["jax"]
+
+
 def test_inclusive_host_tier_skips_unchanged_recapture(holders, engines, memo_off):
     """Evict -> promote -> evict again with no writes in between does not
     re-serialize the plane."""
@@ -353,6 +401,16 @@ def test_no_torn_plane_during_demotion_churn(holders, engines, memo_off):
     concurrent writes see every plane at SOME valid state: counts on the
     unwritten rows are exact, never torn (the port alone: its tier
     manager is a copy; the race is in its engine)."""
+    _torn_plane_churn(holders, engines, sweep)
+
+
+def test_no_torn_plane_during_demotion_churn_count_async(holders, engines):
+    """The same race read through count_async, as tests/test_tier.py's
+    race reads it."""
+    _torn_plane_churn(holders, engines, sweep_async)
+
+
+def _torn_plane_churn(holders, engines, sweep_fn):
     h = holders["torch"]
     n_rows, n_shards = 10, 2
     fld, expected = plant(h, n_shards, n_rows)
@@ -381,7 +439,7 @@ def test_no_torn_plane_during_demotion_churn(holders, engines, memo_off):
     try:
         deadline = time.monotonic() + 2.0
         while time.monotonic() < deadline and not errors:
-            for r, got in zip(range(n_rows), sweep(TORCH, eng, range(n_rows), shards)):
+            for r, got in zip(range(n_rows), sweep_fn(TORCH, eng, range(n_rows), shards)):
                 if (r < 2 and got != len(expected[r])) or got < len(expected[r]):
                     errors.append((r, got, len(expected[r])))
     finally:
