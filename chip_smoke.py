@@ -218,7 +218,24 @@ Phases, each of which fails the run if it fails:
              joins it under (j)'s 8 clients and removes it once they
              stop: the seconds from the first sample over (under) the
              mark to the action, each move's rebalance seconds, every
-             node's answers after each move. (a) also checks
+             node's answers after each move. (l) one node over 4 shard
+             partitions, run after (f) on the same holder: an
+             in-process Server with `[engine] mesh-devices` 4 (one
+             partition per card where there are 4, else 4 on the
+             first card) handed the holder; (l1) (a)'s Counts and
+             nest, (b)'s count_batch, TopN with and without
+             Row(f=a), Sum/Min/Max of v with and without it,
+             Count(Range(v > x)), Row(f=a), and a Set and a SetValue
+             each followed by recounts, every answer equal to the
+             one-partition engine and numpy; K1, K2 and K3 launch
+             once per partition per device call; the write refreshes
+             the batch's stack on the written shard's block only
+             (full_refresh_bytes unmoved); (b)'s batch timed over 4
+             partitions beside 1; (l2) K1 staged, K2 on a 64-row chunk
+             and K3 at one partition's block shape (S = 64) against
+             their twins and bounds; peak memory per device; (l3)
+             distinct Counts over HTTP, 256 at C = 1 and 64 per client
+             at C = 8, equal numpy. (a) also checks
              engine.count_async's int64 device scalar against count.
              Every answer is checked against numpy on the fragments'
              host planes (TopN against a numpy replay of the two-phase
@@ -238,6 +255,9 @@ Phases, each of which fails the run if it fails:
              its own counters; in (j): K1 in the join, the leave, the
              joined node's Count and the standing query, K1, K2 and K3
              in each (j2), K2 and not K1 on the point-in-time path; in
+             (l): K1 in its Counts, batches and HTTP levels, K2 in its
+             TopNs and Sum, K3 in its Min/Max, each a multiple of the
+             4 partitions; in
              (k): K1 in the follower's reads after its bootstrap and
              after the promotion, in (k2)'s Counts and fallback, in
              (k3)'s autoscaled join, K1, K2 and K3 after each move);
@@ -812,13 +832,13 @@ def distinct_pairs(rng, n_rows: int, n: int) -> np.ndarray:
 # ------------------------------------------------------------ phase 4
 
 
-def build_index(pt, rng, n_shards: int, n_rows: int):
+def build_index(pt, rng, n_shards: int, n_rows: int, device=None):
     """bench_big's holder: dense-container injection of random planes."""
     from pilosa_tpu_torch.constants import SHARD_WIDTH
     from pilosa_tpu_torch.storage.bitmap import Container
 
     n_containers = SHARD_WIDTH >> 16
-    holder = pt.Holder(None)
+    holder = pt.Holder(None, device=device)
     holder.open()
     fld = holder.create_index("big").create_field("f")
     view = fld.create_view_if_not_exists("standard")
@@ -1209,11 +1229,15 @@ def main_path(torch, pt, kernels, args, rng, report):
     log(f"main (d): Set then recount: Count, count_batch (memo) and the whole batch see "
         f"the write; refreshed by deltas, nothing re-gathered: {dd}")
     bsi = main_path_bsi(ex, eng, H, rng, n_shards, start, end, out)
-    main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, dict(
-        pairs_a=pairs_a, nest_q=nest_q, calls=calls, pairs=pairs, wants=wants, fa=fa,
-        slots=slots))
+    ctx = dict(pairs_a=pairs_a, nest_q=nest_q, calls=calls, pairs=pairs, wants=wants, fa=fa,
+               slots=slots)
+    main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, ctx)
     out["engine"] = eng.snapshot()
     out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # (l) draws from a generator of its own: the later paths' draws stay
+    # as they were before it.
+    main_path_l(torch, pt, kernels, holder, ex, H, bsi, ctx,
+                np.random.default_rng([args.seed, 12]), start, end, out, report["nvidia_smi"])
     ex.close()  # (g)'s server serves the same holder and closes it
     main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out)
     # (g)'s server closed the holder and its engine; drop its fragments so
@@ -1243,6 +1267,340 @@ def main_path(torch, pt, kernels, args, rng, report):
     out["launches"] = launches
     report["main"] = out
     return launches
+
+
+L_PARTITIONS = 4  # (l): the engine's shard partitions ([engine] mesh-devices)
+
+
+def main_path_l(torch, pt, kernels, holder, ex, H, bsi, ctx, rng, start, end, out, smi,
+                per_client=256, per_client_c8=64, device=None):
+    """Path (l): one node over L_PARTITIONS shard partitions, on (a)-(f)'s
+    holder. An in-process Server with `[engine] mesh-devices` 4 (one
+    partition per card where there are 4, else 4 on the first card) is
+    handed the holder; its engine holds every plane as 4 blocks of 64
+    shards and launches K1, K2 and K3 once per partition per device call.
+    (l1) (a)'s Counts and nest, (b)'s count_batch, TopN with and without a
+    filter, Sum/Min/Max of v with and without one, Count(Range(v > x)), a
+    Row, a Set and a SetValue each followed by recounts (a delta on the
+    written shard's block only) against the one-partition engine `ex`
+    and numpy; (l2) K1, K2 and K3 at one partition's block shape against
+    their twins and bounds, and (b)'s batch over 4 partitions beside 1;
+    (l3) distinct Counts over HTTP at C = 1 and 8."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.constants import SHARD_WIDTH, VIEW_BSI_GROUP_PREFIX
+    from pilosa_tpu_torch.parallel import EngineConfig
+    from pilosa_tpu_torch.plan.signature import Leaf
+    from pilosa_tpu_torch.pql.parser import parse
+    from pilosa_tpu_torch.server.server import Server
+
+    n_rows, n_shards, n_words = H.shape
+    shards = list(range(n_shards))
+    P = L_PARTITIONS
+    eng = ex.engine
+    vals, nn, fa, fbits, want_vc = (bsi[k] for k in ("vals", "nn", "fa", "fbits", "want_vc"))
+    depth = out["bsi"]["depth"]
+    lo = {"partitions": P, "smi": smi}
+    bufs = threading.local()
+
+    def want_pair(a, b):
+        x, y = H[a].reshape(-1).view(np.uint64), H[b].reshape(-1).view(np.uint64)
+        if getattr(bufs, "w", None) is None:
+            bufs.w, bufs.c = np.empty_like(x), np.empty(x.shape, np.uint8)
+        np.bitwise_and(x, y, out=bufs.w)
+        np.bitwise_count(bufs.w, out=bufs.c)
+        return int(bufs.c.sum(dtype=np.int64))
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(d)
+    srv = Server(data_dir=None, port=0, cache_flush_interval=0,
+                 engine_config=EngineConfig(mesh_devices=P), device=device)
+    own_holder = srv.holder
+    srv.open()
+    own_holder.close()
+    srv.holder = srv.executor.holder = holder
+    ex4 = srv.executor
+    eng4 = ex4.engine
+    lo["mesh"] = [str(d) for d in eng4.mesh]
+    assert eng4.n_devices == P and eng.n_devices == 1, (eng4.mesh, eng.mesh)
+    where = ("one partition per card" if len(set(eng4.mesh)) == P
+             else f"{P} partitions on {eng4.mesh[0]}")
+    log(f"main (l) [{smi}]: an engine of {P} partitions ({where}: {lo['mesh']}) beside the "
+        f"one-partition engine on {eng.mesh}; {torch.cuda.device_count()} card(s) visible")
+
+    def launched(fn):
+        """(fn()'s value, the kernel launches it made)."""
+        torch.cuda.synchronize()
+        k0 = dict(kernels.LAUNCHES)
+        val = fn()
+        torch.cuda.synchronize()
+        return val, {k: kernels.LAUNCHES[k] - k0[k] for k in k0}
+
+    def both(q):
+        """ex4's answer, which must equal the one-partition engine's."""
+        got, ref = ex4.execute("big", q)[0], ex.execute("big", q)[0]
+        if hasattr(got, "segments"):  # a Row: its planes, shard by shard
+            assert sorted(got.segments) == sorted(ref.segments), q
+            assert all(torch.equal(got.segments[s], ref.segments[s]) for s in got.segments), q
+        elif hasattr(got, "val"):
+            assert (got.val, got.count) == (ref.val, ref.count), (q, got, ref)
+        else:
+            norm = (lambda r: [(p.id, p.count) for p in r]) if isinstance(got, list) else (
+                lambda r: r)
+            assert norm(got) == norm(ref), (q, got, ref)
+        return got
+
+    try:
+        t0 = time.perf_counter()
+        # ---- (l1) Counts: (a)'s pairs and nest; one K1 launch per partition
+        ph = start("l1_count")
+        pairs_a = ctx["pairs_a"]
+        for a, b in pairs_a:
+            got = both(f"Count(Intersect(Row(f={a}), Row(f={b})))")
+            assert got == want_pair(int(a), int(b)), (a, b, got)
+        nest = both(ctx["nest_q"])
+        a0, b0 = (int(x) for x in pairs_a[0])
+        call = parse(f"Count(Intersect(Row(f={a0}), Row(f={b0})))").calls[0].children[0]
+        with eng4.memos_off():
+            got, n1 = launched(lambda: eng4.count("big", call, shards))
+            pending, n2 = launched(lambda: int(eng4.count_async("big", call, shards)))
+        assert got == pending == want_pair(a0, b0), (got, pending)
+        k1_per_call = n1["gather_expr_count"]
+        assert n1["gather_expr_count"] == n2["gather_expr_count"] == P, (n1, n2)
+        end(ph, "gather_expr_count", "gather_expr_count_streaming", quiet=(eng, eng4))
+        log(f"main (l1): {len(pairs_a)} Count(Intersect) and the nest ({nest}) over {P} "
+            f"partitions equal the one-partition engine and numpy; count and count_async "
+            f"launch K1 {k1_per_call:.0f} times each (once per partition)")
+
+        # ---- (b)'s 256-query count_batch: one K1 launch per partition
+        calls, wants = ctx["calls"], ctx["wants"]
+        ph = start("l1_count_batch")
+        t1 = time.perf_counter()
+        res, n1 = launched(lambda: eng4.count_batch("big", calls, shards))
+        lo["batch_cold_s"] = time.perf_counter() - t1
+        assert [int(x) for x in res] == wants, "count_batch over partitions != numpy"
+        assert n1["gather_expr_count_staged"] == n1["gather_expr_count"] == P, n1
+        ref = eng.count_batch("big", calls, shards)
+        with eng4.memos_off():
+            got, n2 = launched(lambda: eng4.count_batch("big", calls, shards))
+        assert got.tolist() == ref.tolist() == wants
+        assert n2["gather_expr_count"] == P, n2
+        end(ph, "gather_expr_count", "gather_expr_count_staged", quiet=(eng, eng4))
+        plans = [eng4.plan("big", c) for c in calls]
+        slots = list(eng4._batch_slot_gather(plans, len(plans))[0])
+        stack = eng4._stacked_leaf_tensor("big", slots, tuple(shards))
+        assert len(stack) == P and all(
+            b.shape == (len(slots), n_shards // P, n_words) and b.device == d
+            for b, d in zip(stack, eng4.mesh)), [(b.shape, b.device) for b in stack]
+        # The batch's wall time over P partitions beside one, in one run.
+        walls = {1: [], P: []}
+        for _ in range(2):
+            for e_, n_ in ((eng, 1), (eng4, P)):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(4):
+                    e_.count_batch_async("big", calls, shards)
+                torch.cuda.synchronize()
+                walls[n_].append((time.perf_counter() - t1) / 4 * 1e3)
+        lo["batch_ms"] = {str(k): min(v) for k, v in walls.items()}
+        log(f"main (l1): count_batch Q={len(calls)} over {P} partitions equals numpy and the "
+            f"one-partition engine (cold {lo['batch_cold_s']:.2f} s incl. gathers); K1 staged "
+            f"launched {P} times per batch; stack of {len(slots)} slots in {P} blocks of "
+            f"{n_shards // P} shards; ms per batch (best of 2 x 4, host clock): 1 partition "
+            f"{lo['batch_ms']['1']:.3f}, {P} partitions {lo['batch_ms'][str(P)]:.3f}")
+
+        # ---- TopN with and without Row(f=fa); K2 once per partition
+        ph = start("l1_topn")
+        top = both("TopN(f, n=10)")
+        top_f = both(f"TopN(f, Row(f={fa}), n=10)")
+        # The TopNs above stacked the candidates in chunks of 64 rows.
+        rows_req = list(range(min(64, n_rows)))
+        src = parse(f"Row(f={fa})").calls[0]
+        for flt in (None, src):
+            ref = eng.topn_counts("big", "f", rows_req, shards, src_call=flt)
+            with eng4.memos_off():
+                got, n1 = launched(lambda: eng4.topn_counts("big", "f", rows_req, shards,
+                                                            src_call=flt))
+            assert n1["masked_plane_counts"] == P, n1
+            assert got.tolist() == ref.tolist(), flt
+        end(ph, "masked_plane_counts", quiet=(eng, eng4))
+        log(f"main (l1): TopN(f, n=10) {[(p.id, p.count) for p in top[:3]]}... and "
+            f"TopN(f, Row(f={fa}), n=10) equal the one-partition engine; topn_counts with and "
+            f"without the filter launch K2 {P} times each")
+
+        # ---- Sum/Min/Max of v, with and without Row(f=fa); K2 and K3 per partition
+        ph = start("l1_bsi")
+        for kind in ("sum", "min", "max"):
+            for flt, mask in (("", nn), (f"Row(f={fa}), ", nn & fbits)):
+                got = both(f"{kind.title()}({flt}field=v)")
+                assert (got.val, got.count) == want_vc(kind, mask), (kind, flt, got)
+        for kind, kname in (("sum", "masked_plane_counts"), ("max", "bsi_minmax"),
+                            ("min", "bsi_minmax")):
+            ref = eng.bsi_val_count("big", "v", kind, depth, shards, filter_call=src)
+            with eng4.memos_off():
+                got, n1 = launched(lambda: eng4.bsi_val_count(
+                    "big", "v", kind, depth, shards, filter_call=src))
+            assert n1[kname] == P, (kind, n1)
+            if kind == "sum":
+                assert got.tolist() == ref.tolist()
+            else:
+                assert got[0].tolist() == ref[0].tolist() and got[1] == ref[1], (kind, got, ref)
+        end(ph, "masked_plane_counts", "bsi_minmax", quiet=(eng, eng4))
+        log(f"main (l1): Sum/Min/Max(field=v) with and without Row(f={fa}) equal numpy and the "
+            f"one-partition engine; Sum launches K2 and Min/Max K3 {P} times each")
+
+        # ---- Count(Range(v > x)) and a Row
+        ph = start("l1_range_row")
+        x_gt = bsi["x_gt"]
+        got = both(f"Count(Range(v > {x_gt}))")
+        assert got == int(np.count_nonzero(nn & (vals > x_gt))), got
+        row = both(f"Row(f={fa})")
+        assert row.count() == np_count(H[fa]), row.count()
+        end(ph, "gather_expr_count", quiet=(eng, eng4))
+        log(f"main (l1): Count(Range(v > {x_gt})) and Row(f={fa}) ({row.count()} columns, "
+            f"blocks joined in shard order) equal numpy and the one-partition engine")
+
+        # ---- a Set and a SetValue, each followed by recounts: the stale
+        # stacks refresh by a delta on the written shard's block alone.
+        ph = start("l1_writes")
+        shard = n_shards * 5 // 8
+        part = shard // (n_shards // P)
+        col = int(np.flatnonzero(np.unpackbits(H[a0, shard].view(np.uint8),
+                                               bitorder="little") == 0)[0])
+        base = eng4.snapshot()
+        before = eng4._stacked_leaf_tensor("big", slots, tuple(shards))
+        assert ex4.execute("big", f"Set({shard * SHARD_WIDTH + col}, f={a0})") == [True]
+        H[a0, shard, col >> 5] |= np.uint32(1 << (col & 31))
+        assert both(f"Count(Intersect(Row(f={a0}), Row(f={b0})))") == want_pair(a0, b0)
+        wants = [want_pair(int(p[0]), int(p[1])) if a0 in (int(p[0]), int(p[1])) else w
+                 for p, w in zip(ctx["pairs"], wants)]
+        ctx["wants"] = wants
+        assert [int(x) for x in eng4.count_batch("big", calls, shards)] == wants
+        after = eng4._stacked_leaf_tensor("big", slots, tuple(shards))
+        moved = [p for p in range(P) if after[p] is not before[p]]
+        assert moved == [part], (moved, part)
+        vcol = int(np.flatnonzero(~nn[shard])[0])
+        new_val = 65432
+        eq_before = int(np.count_nonzero(nn & (vals == new_val)))
+        assert ex4.execute("big", f"SetValue(col={shard * SHARD_WIDTH + vcol}, "
+                                  f"v={new_val})") == [None]
+        vals[shard, vcol], nn[shard, vcol] = new_val, True
+        assert both(f"Count(Range(v == {new_val}))") == eq_before + 1
+        got = both("Sum(field=v)")
+        assert (got.val, got.count) == want_vc("sum", nn), got
+        now = eng4.snapshot()
+        dd = {k: now[k] - base[k] for k in ("leaf_delta_hits", "stack_delta_hits",
+                                            "delta_bytes", "full_refresh_bytes")}
+        assert dd["full_refresh_bytes"] == 0 and dd["stack_delta_hits"] >= 2, dd
+        end(ph, "gather_expr_count", "masked_plane_counts", quiet=(eng, eng4))
+        lo["writes"] = dict(counters=dd, shard=shard, partition=part)
+        log(f"main (l1): a Set on shard {shard} (partition {part}) and a SetValue, then "
+            f"recounts: equal numpy; the batch's stack refreshed on block {moved} only, "
+            f"the others kept; {dd}")
+        lo["l1_s"] = time.perf_counter() - t0
+
+        # ---- (l2) K1, K2 and K3 at one partition's block shape
+        t0 = time.perf_counter()
+        blk = after[0]  # (U, S/P, W) on partition 0's device
+        idx_np = np.stack(eng4._batch_slot_gather(plans, len(plans))[1])
+        idx_t = torch.from_numpy(idx_np.astype(np.int32))
+        tape = plans[0].expr.tape
+        got = kernels.gather_expr_count(blk, idx_t, tape, variant="staged")
+        want = kernels.gather_expr_count_plain(blk, idx_t, tape)
+        k1_err = int((got - want).abs().max())
+        assert k1_err == 0, "K1 at a partition's block != twin"
+        distinct = len(np.unique(idx_np))
+        s_b = blk.shape[1]
+        k1_ms, k1_how = kernel_ms(torch, lambda: kernels.gather_expr_count(
+            blk, idx_t, tape, variant="staged"), "k1_staged_kernel")
+        k1_plain = cuda_time_ms(torch, lambda: kernels.gather_expr_count_plain(
+            blk, idx_t, tape), 1, warm=0)
+        k1_bytes = distinct * s_b * n_words * 4 + idx_np.size * 4 + len(calls) * 8
+        k1_bound, k1_by = bound(k1_bytes, len(calls) * s_b * n_words * 2)
+        chunk = blk[:64]  # a TopN chunk of 64 candidate rows
+        r_c = chunk.shape[0]
+        mask = eng4._src_plane("big", src, tuple(shards))[0]
+        vstack = eng4._stacked_leaf_tensor("big", [
+            Leaf("v", VIEW_BSI_GROUP_PREFIX + "v", i) for i in range(depth + 1)],
+            tuple(shards))[0]
+        k2_err = int((kernels.masked_plane_counts(chunk, mask)
+                      - kernels.masked_plane_counts_plain(chunk, mask)).abs().max())
+        kb, kc = kernels.bsi_minmax(vstack, mask, True)
+        pb, pc = kernels.bsi_minmax_plain(vstack, mask, True)
+        k3_err = max(int((kb - pb).abs().max()), abs(int(kc) - int(pc)))
+        assert k2_err == 0 and k3_err == 0, (k2_err, k3_err)
+        k2_ms, k2_how = kernel_ms(torch, lambda: kernels.masked_plane_counts(chunk, mask),
+                                  "masked_plane_counts_kernel", 20)
+        k2_plain = cuda_time_ms(torch, lambda: kernels.masked_plane_counts_plain(chunk, mask),
+                                3, warm=1)
+        k2_bytes = ((r_c + 1) * s_b * n_words + r_c * s_b) * 4
+        k2_bound, k2_by = bound(k2_bytes, r_c * s_b * n_words * 3)
+        k3_ms, k3_how = kernel_ms(torch, lambda: kernels.bsi_minmax(vstack, mask, True),
+                                  "bsi_minmax", 20, per_call=True)
+        k3_plain = cuda_time_ms(torch, lambda: kernels.bsi_minmax_plain(vstack, mask, True),
+                                3, warm=1)
+        k3_bytes = (depth + 2) * s_b * n_words * 4 + depth * 4 + 8
+        k3_bound, k3_by = bound(k3_bytes, s_b * n_words * 3 * depth)
+        lo["block_kernels"] = {
+            "k1_staged": dict(shape=[len(slots), s_b, n_words, int(idx_np.shape[0]),
+                                     len(calls)], distinct_slots=distinct, ms=k1_ms,
+                              method=k1_how, plain_ms=k1_plain, bytes=k1_bytes,
+                              bound_ms=k1_bound, bound_by=k1_by),
+            "k2_topn_chunk": dict(shape=[r_c, s_b, n_words], ms=k2_ms, method=k2_how,
+                                  plain_ms=k2_plain, bytes=k2_bytes, bound_ms=k2_bound,
+                                  bound_by=k2_by),
+            "k3_minmax": dict(shape=[depth + 1, s_b, n_words], ms=k3_ms, method=k3_how,
+                              plain_ms=k3_plain, bytes=k3_bytes, bound_ms=k3_bound,
+                              bound_by=k3_by)}
+        log(f"main (l2) [{smi}]: at one partition's block (S={s_b}), exact against the "
+            "twins: " + "; ".join(
+                f"{k} {r['shape']} {r['ms']:.4f} ms ({r['method']}), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of "
+                f"it, twin {r['plain_ms']:.2f} ms" for k, r in lo["block_kernels"].items()))
+        del blk, chunk, mask, vstack, before, after, stack
+        lo["peak_gib"] = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+                          for d in sorted({d for d in eng4.mesh}, key=str)}
+        log(f"main (l2): peak memory per device (GiB): {lo['peak_gib']}")
+        lo["l2_s"] = time.perf_counter() - t0
+
+        # ---- (l3) distinct Counts over HTTP, memos off
+        t0 = time.perf_counter()
+        every = unordered_pairs(rng, n_rows)
+        levels = {}
+        for c in (1, 8):
+            per = {1: per_client, 8: per_client_c8}[c]
+            n = c * per
+            off = 0 if c == 1 else per_client
+            sel = every[(off + np.arange(n)) % len(every)]
+            work = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in
+                     sel[i * per:(i + 1) * per]] for i in range(c)]
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                want = list(pool.map(lambda p: want_pair(int(p[0]), int(p[1])), sel))
+            ph = start(f"l3_http_count_c{c}")
+            with eng4.memos_off():
+                wall_s, clients = http_clients(srv.port, "big", work)
+            lat = []
+            for i, res in enumerate(clients):
+                for j, (dt, results) in enumerate(res):
+                    assert results == [want[i * per + j]], (c, i, j, results)
+                    lat.append(dt)
+            k1 = kernels.LAUNCHES["gather_expr_count"]
+            assert k1 > 0 and k1 % P == 0, k1
+            end(ph, "gather_expr_count", quiet=(eng, eng4))
+            levels[c] = dict(queries=n, wall_s=wall_s, qps=n / wall_s, p50_ms=pct(lat, 50),
+                             p99_ms=pct(lat, 99), k1_launches=k1)
+            log(f"main (l3) C={c}: {n} distinct Counts over HTTP from a Server with "
+                f"mesh-devices {P} equal numpy; {levels[c]['qps']:.1f} queries/s, p50 "
+                f"{levels[c]['p50_ms']:.3f} ms, p99 {levels[c]['p99_ms']:.3f} ms; K1 "
+                f"launched {k1} times ({k1 // P} device calls x {P} partitions)")
+        lo["http"] = levels
+        lo["l3_s"] = time.perf_counter() - t0
+        lo["engine"] = eng4.snapshot()
+    finally:
+        # The holder stays open for (g): the server closes its own.
+        srv.holder = srv.executor.holder = own_holder
+        srv.close()
+    out["l"] = lo
 
 
 def main_path_bsi(ex, eng, H, rng, n_shards, start, end, out):
@@ -1431,7 +1789,7 @@ def main_path_bsi(ex, eng, H, rng, n_shards, start, end, out):
     torch_sync()
     stages["filter_plane_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    bits, count = kernels.bsi_minmax(planes, mask, True)
+    bits, count = kernels.bsi_minmax(planes.joined(), mask.joined(), True)
     int(count)
     stages["k3_and_readback_ms"] = (time.perf_counter() - t0) * 1e3
     del planes, mask
@@ -1644,7 +2002,7 @@ def main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, ctx):
     delta_dev_ms = scatter_ms[0]
     delta_peak = torch.cuda.max_memory_allocated()
     # The clone alone, the allocator's block already free (no cudaMalloc).
-    clone_ms = cuda_time_ms(torch, lambda: refreshed.clone(), 3)
+    clone_ms = cuda_time_ms(torch, lambda: refreshed.joined().clone(), 3)
     mid = eng.snapshot()
     assert mid["stack_delta_hits"] == base["stack_delta_hits"] + 1, (base, mid)
     assert mid["full_refresh_bytes"] == base["full_refresh_bytes"], (base, mid)
@@ -1658,7 +2016,8 @@ def main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, ctx):
     full_peak = torch.cuda.max_memory_allocated()
     regathered = eng_nd.snapshot()["full_refresh_bytes"] - cold_bytes
     assert regathered == len(slots) * plane_bytes, (regathered, len(slots))
-    assert torch.equal(refreshed, rebuilt), "delta-refreshed stack != stack from host planes"
+    assert torch.equal(refreshed.joined(), rebuilt.joined()), \
+        "delta-refreshed stack != stack from host planes"
     del refreshed, rebuilt
     eng_nd.close()
     torch.cuda.empty_cache()

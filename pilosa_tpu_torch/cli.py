@@ -333,11 +333,9 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                         "falls back to full cache regathers")
     p.add_argument("--engine-mesh-devices", dest="engine_mesh_devices",
                    type=int,
-                   help="restrict the per-node engine mesh to the first N "
-                        "local devices (0 = all); CPU deployments serving "
-                        "through the collective plane pin this to 1 so "
-                        "per-node programs carry no cross-device "
-                        "all-reduces (docs/multichip.md)")
+                   help="shard partitions of the per-node engine, placed "
+                        "round-robin over the local devices (0 = one per "
+                        "local card, one on the CPU)")
     p.add_argument("--engine-gather-workers", dest="engine_gather_workers",
                    type=int,
                    help="threads for cold-path per-shard plane gathers "

@@ -20,8 +20,9 @@ The kernels live in csrc/bitplane_kernels.cu (design and bounds are
 noted there), are compiled with ``nvcc`` for sm_90a into
 ``_build/libbitplane_kernels.so`` at first use, and are bound with
 ctypes. Each wrapper checks device, dtype, shape and contiguity; on a CUDA
-tensor it launches its kernel (and counts the launch in ``LAUNCHES``) or
-raises; it takes the plain twin only for CPU tensors. The twins count
+tensor it launches its kernel on that tensor's device, made current for
+the launch (and counts the launch in ``LAUNCHES``), or raises; it takes
+the plain twin only for CPU tensors. The twins count
 their own calls in ``PLAIN_CALLS``, so a run can show which one served.
 
 The expression reaches K1 as a postfix op tape: a sequence of int32 codes
@@ -435,7 +436,7 @@ def gather_expr_count(stacked: torch.Tensor, idxs: torch.Tensor,
     u, s, w = stacked.shape
     if (s * w) % 4 or stacked.data_ptr() % 16:
         raise ValueError("K1 needs 16-byte aligned planes (S*W % 4 == 0)")
-    n_leaves, q = idxs.shape
+    q = idxs.shape[1]
     out = torch.zeros(q, dtype=torch.int64, device=stacked.device)
     if q == 0 or s * w == 0:
         return out
@@ -458,27 +459,40 @@ def gather_expr_count(stacked: torch.Tensor, idxs: torch.Tensor,
     bsi = has_bsi(tape)
     lib = load()
     dev, stream = stacked.device, _stream(stacked)
-    if variant == "staged":
-        # One buffer: tape | tiles (offset into urows, distinct slots) |
-        # urows | qpos.
-        sizes = [len(r) for r in urows]
-        tiles = np.stack([np.cumsum([0] + sizes[:-1]), sizes], axis=1).astype(np.int32)
-        buf = _to_device(np.concatenate([tape_np, tiles.ravel(), *urows, qpos.ravel()]), dev)
-        tiles_at = buf.data_ptr() + 4 * len(tape)
-        urows_at = tiles_at + 4 * tiles.size
-        qpos_at = urows_at + 4 * sum(sizes)
-        err = lib.pt_k1_staged(
-            stacked.data_ptr(), s * w, buf.data_ptr(), len(tape), n_leaves, tiles_at,
-            len(urows), urows_at, qpos_at, q, max(sizes), stages, int(bsi),
-            out.data_ptr(), stream)
-    else:
-        buf = _to_device(np.concatenate([tape_np, idx_np.ravel()]), dev)
-        err = lib.pt_k1_streaming(
-            stacked.data_ptr(), s * w, buf.data_ptr(), len(tape),
-            buf.data_ptr() + 4 * len(tape), q, int(bsi), out.data_ptr(), stream)
+    # The library launches on the current device and reads its attributes
+    # (the staged variant's shared-memory limit): make the stack's current.
+    with torch.cuda.device(dev):
+        if variant == "staged":
+            err = _launch_staged(lib, stacked, tape_np, urows, qpos, stages, bsi,
+                                 out, stream)
+        else:
+            buf = _to_device(np.concatenate([tape_np, idx_np.ravel()]), dev)
+            err = lib.pt_k1_streaming(
+                stacked.data_ptr(), s * w, buf.data_ptr(), len(tape_np),
+                buf.data_ptr() + 4 * len(tape_np), q, int(bsi), out.data_ptr(), stream)
     _check_launch(f"gather_expr_count ({variant})", err)
     _count(LAUNCHES, "gather_expr_count", f"gather_expr_count_{variant}")
     return out
+
+
+def _launch_staged(lib, stacked, tape_np, urows, qpos, stages, bsi, out,
+                   stream) -> int:
+    """The staged variant's launch; returns the library's cudaError_t.
+    One buffer: tape | tiles (offset into urows, distinct slots) | urows
+    | qpos."""
+    _, s, w = stacked.shape
+    q, n_leaves = qpos.shape
+    sizes = [len(r) for r in urows]
+    tiles = np.stack([np.cumsum([0] + sizes[:-1]), sizes], axis=1).astype(np.int32)
+    buf = _to_device(np.concatenate([tape_np, tiles.ravel(), *urows, qpos.ravel()]),
+                     stacked.device)
+    tiles_at = buf.data_ptr() + 4 * len(tape_np)
+    urows_at = tiles_at + 4 * tiles.size
+    qpos_at = urows_at + 4 * sum(sizes)
+    return lib.pt_k1_staged(
+        stacked.data_ptr(), s * w, buf.data_ptr(), len(tape_np), n_leaves, tiles_at,
+        len(urows), urows_at, qpos_at, q, max(sizes), stages, int(bsi),
+        out.data_ptr(), stream)
 
 
 # -------------------------------------------------------------------- K2
@@ -523,9 +537,10 @@ def masked_plane_counts(stack: torch.Tensor,
     if r == 0 or s == 0 or w == 0:
         return out
     lib = load()
-    err = lib.pt_masked_plane_counts(
-        stack.data_ptr(), None if mask is None else mask.data_ptr(), r, s, w,
-        out.data_ptr(), _stream(stack))
+    with torch.cuda.device(stack.device):
+        err = lib.pt_masked_plane_counts(
+            stack.data_ptr(), None if mask is None else mask.data_ptr(), r, s, w,
+            out.data_ptr(), _stream(stack))
     _check_launch("masked_plane_counts", err)
     _count(LAUNCHES, "masked_plane_counts")
     return out
@@ -577,10 +592,11 @@ def bsi_minmax(planes: torch.Tensor, mask: Optional[torch.Tensor] = None,
     n_blocks = -(-s * w // K3_BLOCK_WORDS)
     part = torch.empty((n_blocks, 2), dtype=torch.int64, device=planes.device)
     lib = load()
-    err = lib.pt_bsi_minmax(
-        planes.data_ptr(), None if mask is None else mask.data_ptr(), d1 - 1, s * w,
-        int(maximize), part.data_ptr(), n_blocks, bits.data_ptr(), count.data_ptr(),
-        _stream(planes))
+    with torch.cuda.device(planes.device):
+        err = lib.pt_bsi_minmax(
+            planes.data_ptr(), None if mask is None else mask.data_ptr(), d1 - 1, s * w,
+            int(maximize), part.data_ptr(), n_blocks, bits.data_ptr(), count.data_ptr(),
+            _stream(planes))
     _check_launch("bsi_minmax", err)
     _count(LAUNCHES, "bsi_minmax")
     return bits, count

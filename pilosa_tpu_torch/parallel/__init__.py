@@ -1,4 +1,5 @@
-"""Single-GPU query engine: device-tensor caches and the batched kernels."""
+"""The node's query engine over its shard partitions: device-tensor caches
+and the batched kernels."""
 
 from __future__ import annotations
 
@@ -26,10 +27,11 @@ class EngineConfig:
         most 8). The reference defaults to 0. The port defaults to serial
         because its container walk holds the GIL: on the pool each plane
         took 4-5x longer than serially on the H100's host (PERF.md).
-    mesh_devices: the reference's engine mesh width. The port's engine
-        runs on one device, and a server refuses a value above 1: one
-        process over several devices is a difference by design (several
-        devices serve as ranks of the collective plane instead).
+    mesh_devices: the engine's shard partitions (parallel/mesh.py), the
+        reference's engine mesh width: N > 0 gives N partitions placed
+        round-robin over the local devices (on a host with N or more
+        cards, the reference's first N devices; on one card or the CPU,
+        N partitions there), 0 one per local card (one on the CPU).
     leaf_cache_bytes, stack_cache_bytes, memo_entries, aux_memo_entries:
         cache bounds (0 = auto). Auto means: the env override
         (PILOSA_LEAF_CACHE_BYTES / PILOSA_STACK_CACHE_BYTES /

@@ -1,15 +1,28 @@
-"""Single-GPU query engine: resident leaf planes and stacks in device
-memory, counted by the hand-written kernels of ops/kernels.py.
+"""One node's query engine: resident leaf planes and stacks in device
+memory over the node's shard partitions, counted by the hand-written
+kernels of ops/kernels.py.
 
-The counterpart of pilosa_tpu/parallel/engine.py for one CUDA device (or
-the CPU, when the holder was opened with device="cpu"). A PQL tree
-(Row / Intersect / Union / Difference / Xor, BSI and time-quantum Range)
-is canonicalized by plan/signature.py; its leaf planes are gathered once
-from the fragments into (S, W) int32 tensors on the device and cached,
-keyed on the fragments' (incarnation, generation) fingerprints.
+The counterpart of pilosa_tpu/parallel/engine.py. A PQL tree (Row /
+Intersect / Union / Difference / Xor, BSI and time-quantum Range) is
+canonicalized by plan/signature.py; its leaf planes are gathered once
+from the fragments and cached, keyed on the fragments' (incarnation,
+generation) fingerprints.
+
+The engine runs over a mesh of N partitions (parallel/mesh.py; `[engine]
+mesh-devices`, one per local card by default, one on the CPU): an
+(S, W) leaf plane is padded to S_padded = a multiple of N shard slots
+and held as ``Blocks``, one contiguous (S_padded / N, W) int32 block per
+partition on that partition's device, padding slots zero; a stack is N
+(U, S_padded / N, W) blocks. Every entry point launches its kernel on
+each partition's block before it reads any result, so partitions on
+different cards run at once, and reduces the partials itself (the
+reference's psum): counts summed on partition 0's device, per-shard
+counts and bitmaps joined in shard order and trimmed, Min/Max folded as
+K3's own reduce folds its blocks. There is no fallback to fewer
+partitions: a partition that cannot be placed or launched fails the call.
 
 - ``count`` and ``count_batch`` run K1 (``gather_expr_count``) over a
-  resident (U, S, W) stack of the batch's distinct leaves, the query's
+  resident (U, S_padded, W) stack of the batch's distinct leaves, the query's
   expression compiled to a postfix op tape (``lower_tape``; BSI compares
   unroll into per-plane codes). A single Count is the batch of one: Q=1,
   idxs = arange(L).
@@ -41,8 +54,6 @@ defaults:
   the ladder's bottom rung. On the card a real fault of a kernel raises
   DeviceKernelFault out of the query; only a CPU-device engine or an
   injected fault is served one rung down.
-
-Not in this engine (yet): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ from ..pql.ast import Call
 from ..tier import TierConfig
 from ..tier.manager import TierManager
 from . import EngineConfig
+from .mesh import engine_mesh, pad_shards
 from .device_health import (
     OOM, RUNTIME, DeviceDispatchError, DeviceDispatchTimeout, DeviceKernelFault,
     DevicePlaneHealth, classify_device_error,
@@ -366,6 +378,37 @@ def _pop_elems(a: np.ndarray) -> np.ndarray:
     return np.bitwise_count(a.view(np.uint16))
 
 
+class Blocks(tuple):
+    """A leaf plane (S_padded, W) or a stack (U, S_padded, W) held as one
+    contiguous block of S_padded / N shard slots per partition, block p
+    on partition p's device (its shard axis is the last but one). Byte
+    and element counts cover every block, padding included, as the
+    reference's padded planes do."""
+
+    __slots__ = ()
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.nbytes for b in self)
+
+    def numel(self) -> int:
+        return sum(b.numel() for b in self)
+
+    def joined(self, n_shards: Optional[int] = None) -> torch.Tensor:
+        """The blocks joined in shard order on block 0's device, trimmed to
+        the first `n_shards` slots when given (one block: no copy)."""
+        return _join(list(self), n_shards)
+
+
+def _join(parts: Sequence[torch.Tensor], n_shards: Optional[int] = None) -> torch.Tensor:
+    dev = parts[0].device
+    out = parts[0] if len(parts) == 1 else torch.cat(
+        [t.to(dev) for t in parts], dim=-2)
+    if n_shards is not None and n_shards != out.shape[-2]:
+        out = out.narrow(-2, 0, n_shards)
+    return out
+
+
 def _settled(t: torch.Tensor) -> torch.Tensor:
     """Wait for the device work that produces `t`: CUDA reports a fault at
     the sync point, not at the launch, so a guarded call that keeps its
@@ -375,9 +418,45 @@ def _settled(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _host_shards(parts: Sequence[torch.Tensor], n_shards: int) -> np.ndarray:
+    """Per-(row, shard) int32 counts of the partitions, (R, S_padded / N)
+    each, joined in shard order on the host and trimmed: (R, S) int64."""
+    return np.concatenate([p.cpu().numpy() for p in parts],
+                          axis=1)[:, :n_shards].astype(np.int64)
+
+
+def _host_total(parts: Sequence[torch.Tensor]) -> np.ndarray:
+    """The partitions' int64 partials summed, on the host."""
+    out = parts[0].cpu().numpy()
+    for p in parts[1:]:
+        out = out + p.cpu().numpy()
+    return out
+
+
+def _fold_minmax(parts: Sequence[Tuple[np.ndarray, int]], maximize: bool):
+    """The partitions' K3 answers (bits, count) folded as K3's second
+    launch folds its blocks: the extreme value among partitions that
+    consider a column wins and the counts of those holding it add up; with
+    none, bits all 0 (max) or all 1 (min) and count 0, which is what the
+    reference's global scan over the whole plane gives."""
+    best = None
+    for bits, count in parts:
+        if count == 0:
+            continue
+        value = int(sum(int(b) << i for i, b in enumerate(bits)))
+        if best is None or (value > best[0] if maximize else value < best[0]):
+            best = [value, bits, count]
+        elif value == best[0]:
+            best[2] += count
+    if best is None:
+        bits = parts[0][0]
+        return (np.zeros_like(bits) if maximize else np.ones_like(bits)), 0
+    return best[1], best[2]
+
+
 class DeviceCount:
-    """One Count left on the device: the unsynchronized int64 scalar of a
-    K1 launch. int() and np.asarray() wait for it and give the count
+    """One Count left on the device: the unsynchronized int64 scalar of
+    K1's launches, summed over the partitions on partition 0's device. int() and np.asarray() wait for it and give the count
     (np.asarray of a CUDA tensor alone raises); `tensor` is the scalar."""
 
     __slots__ = ("tensor",)
@@ -399,11 +478,13 @@ class DeviceCount:
 
 
 class ShardedQueryEngine:
-    def __init__(self, holder, config: Optional[EngineConfig] = None,
+    def __init__(self, holder, mesh=None, config: Optional[EngineConfig] = None,
                  device=None, tier_config=None, traffic_fn=None,
                  resilience_config=None):
+        """`mesh` lists the partitions' devices (parallel/mesh.py); without
+        one, `config.mesh_devices` places them over the local devices of
+        `device`'s kind (the holder's device by default)."""
         self.holder = holder
-        self.device = torch.device(device) if device is not None else holder.device
         if config is None:
             # No config (library/test use): honor the env spellings of the
             # reference's [engine] section directly.
@@ -414,6 +495,8 @@ class ShardedQueryEngine:
                 gather_workers=int(os.environ.get(
                     "PILOSA_TPU_ENGINE_GATHER_WORKERS",
                     EngineConfig.gather_workers)),
+                mesh_devices=int(os.environ.get(
+                    "PILOSA_TPU_ENGINE_MESH_DEVICES", 0)),
                 leaf_cache_bytes=int(os.environ.get(
                     "PILOSA_TPU_ENGINE_LEAF_CACHE_BYTES", 0)),
                 stack_cache_bytes=int(os.environ.get(
@@ -432,6 +515,17 @@ class ShardedQueryEngine:
                     "PILOSA_TPU_ENGINE_PLAN_CACHE",
                     EngineConfig.plan_cache)),
             )
+        if mesh is None:
+            mesh = engine_mesh(
+                config.mesh_devices,
+                torch.device(device) if device is not None else holder.device)
+        # The partitions' devices; partition 0's is the engine's own: the
+        # partial results reduce there, and its kind (card or CPU) decides
+        # the fault ladder's rungs.
+        self.mesh: List[torch.device] = [torch.device(d) for d in mesh]
+        if not self.mesh:
+            raise ValueError("an engine mesh needs at least one partition")
+        self.device = self.mesh[0]
         if tier_config is None:
             tier_config = TierConfig.from_env()
         # Delta-refresh budget: a stale resident tensor is refreshed by a
@@ -461,16 +555,18 @@ class ShardedQueryEngine:
         gw = int(config.gather_workers)
         self._gather_workers = gw if gw > 0 else min(8, os.cpu_count() or 1)
         self._gather_pool = None  # lazy ThreadPoolExecutor
-        # (index, leaf, shards) -> (fingerprint, (S, W) tensor)
-        self._leaf_cache: Dict[Tuple, Tuple[Tuple, torch.Tensor]] = {}
+        # (index, leaf, shards) -> (fingerprint, (S_padded, W) Blocks)
+        self._leaf_cache: Dict[Tuple, Tuple[Tuple, Blocks]] = {}
         self._leaf_bytes = 0
-        # (index, leaves, shards) -> (fingerprint, (U, S, W) tensor)
-        self._stack_cache: Dict[Tuple, Tuple[Tuple, torch.Tensor]] = {}
+        # (index, leaves, shards) -> (fingerprint, (U, S_padded, W) Blocks)
+        self._stack_cache: Dict[Tuple, Tuple[Tuple, Blocks]] = {}
         self._stack_bytes = 0
         # Device-cache budgets (bytes, LRU-evicted). The stacks duplicate
         # the leaf planes they are built from, so both caches are bounded
         # by bytes: 16 GiB each on a card (80 GB H100), 512 MiB on the CPU;
         # [tier] hbm-bytes, when set, is the combined budget split evenly.
+        # They count padded bytes over all partitions; every plane splits
+        # evenly, so each device holds its partitions' share of them.
         default_budget = (16 << 30) if self.device.type == "cuda" else (1 << 29)
         if tier_config.hbm_bytes > 0:
             default_budget = max(1, int(tier_config.hbm_bytes) // 2)
@@ -558,6 +654,11 @@ class ShardedQueryEngine:
                 resident_fn=self._tier_resident,
             )
 
+    @property
+    def n_devices(self) -> int:
+        """The number of partitions (the reference's mesh size)."""
+        return len(self.mesh)
+
     def stack_generation(self, index: str) -> int:
         """O(1) write epoch of an index's resident leaf stacks (bumped by
         every fragment mutation, core/fragment.py WriteEpoch)."""
@@ -628,6 +729,9 @@ class ShardedQueryEngine:
             return False
 
     def _hbm_headroom(self) -> int:
+        # Global bytes are the tightest device's too: every plane splits
+        # evenly over the partitions, so each device's share of the budget
+        # and of the resident bytes is the same fraction.
         with self._lock:
             return self._leaf_budget - self._leaf_bytes
 
@@ -868,8 +972,9 @@ class ShardedQueryEngine:
                 key = next(iter(self._stack_cache))
                 self._stack_bytes -= self._stack_cache.pop(key)[1].nbytes
                 self.counters["stack_evictions"] += 1
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+        for dev in {d for d in self.mesh if d.type == "cuda"}:
+            with torch.cuda.device(dev):
+                torch.cuda.empty_cache()
         self._demote_keys(evicted)
 
     def _byte_cache_put(self, cache: Dict, key, entry: Tuple, budget: int,
@@ -911,16 +1016,26 @@ class ShardedQueryEngine:
             )
         )
 
-    def _upload(self, buf: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(buf.view(np.int32)).to(self.device)
+    def _s_padded(self, n_shards: int) -> int:
+        return pad_shards(n_shards, len(self.mesh))
+
+    def _upload(self, buf: np.ndarray) -> Blocks:
+        """An (S_padded, W) host plane split into the partitions' blocks,
+        each copied to its partition's device."""
+        per = buf.shape[0] // len(self.mesh)
+        host = buf.view(np.int32)
+        return Blocks(torch.from_numpy(host[p * per:(p + 1) * per]).to(dev)
+                      for p, dev in enumerate(self.mesh))
 
     def _gather_leaf(self, index: str, leaf: Leaf,
-                     shards: Tuple[int, ...]) -> torch.Tensor:
-        """(S, W) int32 plane of one leaf on the device, cached until a
-        member fragment's fingerprint moves; a stale entry is refreshed by
-        a delta scatter where the journal allows, a demoted one promoted
-        from the host tier, anything else gathered from the fragments."""
+                     shards: Tuple[int, ...]) -> Blocks:
+        """(S_padded, W) int32 plane of one leaf in the partitions' blocks,
+        cached until a member fragment's fingerprint moves; a stale entry
+        is refreshed by a delta scatter where the journal allows, a
+        demoted one promoted from the host tier, anything else gathered
+        from the fragments."""
         key = (index, leaf, shards)
+        s_padded = self._s_padded(len(shards))
         frags = [self.holder.fragment(index, leaf.field, leaf.view, s)
                  for s in shards]
         # Fingerprint BEFORE the read: a write racing the gather leaves
@@ -957,10 +1072,10 @@ class ShardedQueryEngine:
                         return arr
                 buf = None
                 if self.tier is not None:
-                    buf = self.tier.promote(key, frags, fingerprint, len(shards))
+                    buf = self.tier.promote(key, frags, fingerprint, s_padded)
                 tier_hit = buf is not None
                 if buf is None:
-                    buf = self._host_gather(frags, leaf.row)
+                    buf = self._host_gather(frags, leaf.row, s_padded)
                 if sp is not NOP_SPAN:
                     sp.tag(kind="tier-promote" if tier_hit else "cold",
                            bytes=int(buf.nbytes))
@@ -994,11 +1109,13 @@ class ShardedQueryEngine:
                 )
             return self._gather_pool
 
-    def _host_gather(self, frags, row: int) -> np.ndarray:
+    def _host_gather(self, frags, row: int,
+                     s_padded: Optional[int] = None) -> np.ndarray:
         """Cold-path host assembly of one leaf's (S, W) uint32 plane
-        buffer. The per-shard container walks are independent pure reads
-        (fragment reads are lock-free by design), so they thread-pool."""
-        buf = np.zeros((len(frags), WORDS_PER_ROW), dtype=np.uint32)
+        buffer, zero rows to `s_padded` when given. The per-shard
+        container walks are independent pure reads (fragment reads are
+        lock-free by design), so they thread-pool."""
+        buf = np.zeros((s_padded or len(frags), WORDS_PER_ROW), dtype=np.uint32)
         live = [(i, f) for i, f in enumerate(frags) if f is not None]
         if len(live) > 1 and self._gather_workers > 1:
             def fill(item):
@@ -1074,18 +1191,32 @@ class ShardedQueryEngine:
         cols[1::2] = w64 * 2 + 1
         return cols, v64.view(np.uint32)
 
-    def _scatter(self, arr: torch.Tensor, index: List[np.ndarray],
-                 vals: np.ndarray) -> Tuple[torch.Tensor, int]:
-        """new = arr.clone(); new[index] = vals, with the index tensors on
-        the device. Returns (new, host -> device bytes moved)."""
-        def run():
-            ix = tuple(torch.from_numpy(a).to(arr.device) for a in index)
-            new = arr.clone()
-            new[ix] = torch.from_numpy(vals.view(np.int32)).to(arr.device)
-            return new
+    def _scatter(self, blocks: Blocks, updates) -> Tuple[Blocks, int]:
+        """Apply collected updates to a cached leaf or stack: each update
+        goes to the block that holds its shard (coords' last member, the
+        shard position), which is cloned and scattered into, as the
+        reference's functional `.at[].set`; a block no update names is
+        kept as it is. Returns (new blocks, host -> device bytes moved)."""
+        per = blocks[0].shape[-2]
+        by_block: Dict[int, List] = {}
+        for co, cols, vals in updates:
+            by_block.setdefault(co[-1] // per, []).append(
+                (co[:-1] + (co[-1] % per,), cols, vals))
+        out, moved = list(blocks), 0
+        for p, part in by_block.items():
+            index = [self._coords(part, a) for a in range(len(part[0][0]))]
+            index.append(np.concatenate([c for _, c, _ in part]))
+            vals = np.concatenate([v for _, _, v in part])
 
-        moved = sum(a.nbytes for a in index) + vals.nbytes
-        return self._oom_guard(None, run), moved
+            def run(arr=blocks[p], index=index, vals=vals):
+                ix = tuple(torch.from_numpy(a).to(arr.device) for a in index)
+                new = arr.clone()
+                new[ix] = torch.from_numpy(vals.view(np.int32)).to(arr.device)
+                return new
+
+            out[p] = self._oom_guard(None, run)
+            moved += sum(a.nbytes for a in index) + vals.nbytes
+        return Blocks(out), moved
 
     @staticmethod
     def _coords(updates, axis: int) -> np.ndarray:
@@ -1094,8 +1225,8 @@ class ShardedQueryEngine:
 
     def _leaf_delta(self, key, row: int, stale, frags, fingerprint,
                     evicted: Optional[List] = None):
-        """Refresh a stale cached (S, W) leaf; None = caller must
-        full-regather. `evicted` collects evicted keys for demotion."""
+        """Refresh a stale cached leaf; None = caller must full-regather.
+        `evicted` collects evicted keys for demotion."""
         old_fp, arr = stale
         if self._delta_max_fraction <= 0 or len(old_fp) != len(fingerprint):
             return None
@@ -1107,15 +1238,9 @@ class ShardedQueryEngine:
         )
         if updates is None:
             return None
-        if not updates:
-            # Nothing in THIS row changed: republish the same tensor under
-            # the fresh fingerprint (zero bytes moved).
-            new_arr, moved = arr, 0
-        else:
-            new_arr, moved = self._scatter(
-                arr, [self._coords(updates, 0),
-                      np.concatenate([c for _, c, _ in updates])],
-                np.concatenate([v for _, _, v in updates]))
+        # Nothing in THIS row changed: republish the same blocks under the
+        # fresh fingerprint (zero bytes moved).
+        new_arr, moved = self._scatter(arr, updates) if updates else (arr, 0)
         with self._lock:
             self.counters["leaf_delta_hits"] += 1
             self.counters["delta_bytes"] += moved
@@ -1127,8 +1252,9 @@ class ShardedQueryEngine:
         return new_arr
 
     def _stack_delta(self, key, index: str, leaves, shards, stale, fp):
-        """Refresh a stale (U, S, W) stack with one scattered update — no
-        host walk, no member re-gather, no restack. None = full rebuild."""
+        """Refresh a stale stack with one scattered update per block that
+        holds a changed shard — no host walk, no member re-gather, no
+        restack. None = full rebuild."""
         old_fp, arr = stale
         if self._delta_max_fraction <= 0 or len(old_fp) != len(fp):
             return None
@@ -1148,13 +1274,7 @@ class ShardedQueryEngine:
         updates = self._collect_updates(members(), arr.numel())
         if updates is None:
             return None
-        if not updates:
-            new_arr, moved = arr, 0
-        else:
-            new_arr, moved = self._scatter(
-                arr, [self._coords(updates, 0), self._coords(updates, 1),
-                      np.concatenate([c for _, c, _ in updates])],
-                np.concatenate([v for _, _, v in updates]))
+        new_arr, moved = self._scatter(arr, updates) if updates else (arr, 0)
         with self._lock:
             self.counters["stack_delta_hits"] += 1
             self.counters["delta_bytes"] += moved
@@ -1165,19 +1285,20 @@ class ShardedQueryEngine:
         return new_arr
 
     def _leaf_tensor(self, index: str, leaves: Sequence[Leaf],
-                     shards: Tuple[int, ...]) -> Tuple[torch.Tensor, ...]:
+                     shards: Tuple[int, ...]) -> Tuple[Blocks, ...]:
         return tuple(self._gather_leaf(index, leaf, shards) for leaf in leaves)
 
     def _stacked_leaf_tensor(self, index: str, leaves: Sequence[Leaf],
-                             shards: Tuple[int, ...]) -> torch.Tensor:
-        """One resident (U, S, W) tensor for a leaf list, refreshed by one
-        scattered update when a member fragment moved (the journal
-        allowing), else rebuilt from the leaf cache (re-gathering only
-        stale leaves)."""
+                             shards: Tuple[int, ...]) -> Blocks:
+        """One resident (U, S_padded, W) stack for a leaf list, in the
+        partitions' blocks, refreshed by scattered updates when a member
+        fragment moved (the journal allowing), else rebuilt from the leaf
+        cache (re-gathering only stale leaves)."""
         leaves = tuple(leaves)
         if not leaves:
-            return torch.zeros((0, len(shards), WORDS_PER_ROW),
-                               dtype=torch.int32, device=self.device)
+            per = self._s_padded(len(shards)) // len(self.mesh)
+            return Blocks(torch.zeros((0, per, WORDS_PER_ROW), dtype=torch.int32,
+                                      device=dev) for dev in self.mesh)
         fp = self._fingerprints(index, leaves, shards)
         key = (index, leaves, shards)
 
@@ -1204,7 +1325,8 @@ class ShardedQueryEngine:
                 if stacked is not None:
                     return stacked
             arrs = self._leaf_tensor(index, leaves, shards)
-            stacked = self._oom_guard(None, lambda: torch.stack(arrs))
+            stacked = self._oom_guard(None, lambda: Blocks(
+                torch.stack([a[p] for a in arrs]) for p in range(len(self.mesh))))
             with self._lock:
                 self.counters["stack_misses"] += 1
                 self._stack_bytes = self._byte_cache_put(
@@ -1506,13 +1628,24 @@ class ShardedQueryEngine:
 
     def _count_launch(self, index: str, plan: CompiledPlan,
                       shards: Tuple[int, ...]) -> Callable[[], torch.Tensor]:
-        """The plan's leaves stacked on the device and K1 over them as a
-        batch of one, to run under the fault guard."""
+        """The plan's leaves stacked on the partitions and K1 over them as
+        a batch of one, to run under the fault guard."""
         stacked = self._stacked_leaf_tensor(index, plan.leaves, shards)
         idxs = torch.arange(len(plan.leaves), dtype=torch.int32).reshape(-1, 1)
         tape = _lowered(plan).tape
         self._bump("count_dispatches")
-        return lambda: kernels.gather_expr_count(stacked, idxs, tape)
+        return lambda: self._k1(stacked, idxs, tape)
+
+    @staticmethod
+    def _k1(stacked: Blocks, idxs: torch.Tensor, tape) -> torch.Tensor:
+        """K1 launched on every partition's block before any result is
+        read; the partial (Q,) int64 counts summed on partition 0's device
+        (the reference's psum over the shard axis)."""
+        parts = [kernels.gather_expr_count(block, idxs, tape) for block in stacked]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part.to(total.device)
+        return total
 
     def count_async(self, index: str, call: Call, shards: Sequence[int],
                     plan: Optional[CompiledPlan] = None) -> DeviceCount:
@@ -1624,24 +1757,32 @@ class ShardedQueryEngine:
         tape = _lowered(plans[0]).tape
 
         def launch():
-            counts = kernels.gather_expr_count(stacked, idx_t, tape)
+            counts = self._k1(stacked, idx_t, tape)
             if inverse is not None:
-                counts = counts[torch.from_numpy(inverse).to(self.device)]
+                counts = counts[torch.from_numpy(inverse).to(counts.device)]
             return counts
 
         self._bump("count_dispatches")
         return self._device_call(plans[0].sig_tuple, launch)
 
+    def _per_partition(self, leaves: Sequence[Blocks]):
+        """The partitions' argument tuples: partition p's block of every
+        leaf, in leaf order."""
+        return [tuple(leaf[p] for leaf in leaves) for p in range(len(self.mesh))]
+
     def bitmap(self, index: str, call: Call, shards: Sequence[int],
                plan: Optional[CompiledPlan] = None) -> Row:
         """Evaluate a set-op tree over all shards; returns a Row whose
-        segments stay on the device (one (W,) plane per shard)."""
+        segments stay on partition 0's device (one (W,) plane per shard):
+        each partition evaluates its block, and the blocks are joined in
+        shard order and trimmed."""
         shards = tuple(shards)
         plan = plan or self.plan(index, call)
         leaves = self._leaf_tensor(index, plan.leaves, shards)
+        fn = _lowered(plan).bitmap
         self._bump("bitmap_dispatches")
-        planes = self._device_call(plan.sig_tuple, lambda: _settled(
-            _lowered(plan).bitmap(leaves)))  # (S, W)
+        planes = self._device_call(plan.sig_tuple, lambda: _settled(_join(
+            [fn(part) for part in self._per_partition(leaves)], len(shards))))  # (S, W)
         return Row({shard: planes[i] for i, shard in enumerate(shards)})
 
     def bitmap_batch(self, index: str, calls: Sequence[Call],
@@ -1670,11 +1811,18 @@ class ShardedQueryEngine:
         n_calls = len(calls)
         slots, idxs, inverse, _ = self._batch_slot_gather(plans, n_calls)
         stacked = self._stacked_leaf_tensor(index, list(slots), shards)
-        idx_t = [torch.from_numpy(ix.astype(np.int64)).to(self.device)
-                 for ix in idxs]
+        idx_host = [torch.from_numpy(ix.astype(np.int64)) for ix in idxs]
+
+        def run():
+            outs = []
+            for block in stacked:
+                idx_t = [ix.to(block.device) for ix in idx_host]
+                outs.append(_batch_eval(
+                    plan0.ir, lambda i, b=block, ix=idx_t: b.index_select(0, ix[i])))
+            return _settled(_join(outs, len(shards)))
+
         self._bump("bitmap_dispatches")
-        planes = self._device_call(plan0.sig_tuple, lambda: _settled(_batch_eval(
-            plan0.ir, lambda i: stacked.index_select(0, idx_t[i]))))  # (Qd, S, W)
+        planes = self._device_call(plan0.sig_tuple, run)  # (Qd, S, W)
         return [
             Row({shard: planes[qi if inverse is None else int(inverse[qi]), i]
                  for i, shard in enumerate(shards)})
@@ -1682,10 +1830,16 @@ class ShardedQueryEngine:
         ]
 
     def _src_plane(self, index: str, src_call: Call,
-                   shards: Tuple[int, ...]) -> torch.Tensor:
+                   shards: Tuple[int, ...]) -> Blocks:
+        """A TopN source's or BSI filter's plane, in the partitions'
+        blocks."""
         plan = self.plan(index, src_call)
         leaves = self._leaf_tensor(index, plan.leaves, shards)
-        return _lowered(plan).bitmap(leaves).contiguous()
+        return self._src_blocks(plan, leaves)
+
+    def _src_blocks(self, plan: CompiledPlan, leaves: Sequence[Blocks]) -> Blocks:
+        fn = _lowered(plan).bitmap
+        return Blocks(fn(part).contiguous() for part in self._per_partition(leaves))
 
     def _src_parts(self, index: str, src_call: Optional[Call]):
         """(plan, memo signature, memo leaves) of a TopN source or BSI
@@ -1745,18 +1899,21 @@ class ShardedQueryEngine:
             row_counts = self._aux_probe(rkey, rows_fp)
             if row_counts is None:
                 self._bump("topn_dispatches")
-                row_counts = self._device_call(None, lambda: kernels.masked_plane_counts(
-                    rows_tensor, None).cpu().numpy().astype(np.int64))
+                row_counts = self._device_call(None, lambda: _host_shards(
+                    [kernels.masked_plane_counts(b, None) for b in rows_tensor],
+                    len(shards)))
                 self._aux_store(rkey, rows_fp, row_counts)
         if plan is not None:
             flt_leaves = self._leaf_tensor(index, plan.leaves, shards)
 
             def run():
-                src = _lowered(plan).bitmap(flt_leaves).contiguous()  # (S, W)
-                inter = kernels.masked_plane_counts(rows_tensor, src)
-                src_counts = kernels.masked_plane_counts(src.unsqueeze(0), None)[0]
-                return (inter.cpu().numpy().astype(np.int64),
-                        src_counts.cpu().numpy().astype(np.int64))
+                src = self._src_blocks(plan, flt_leaves)  # (S_padded, W)
+                inter = [kernels.masked_plane_counts(b, m)
+                         for b, m in zip(rows_tensor, src)]
+                src_counts = [kernels.masked_plane_counts(m.unsqueeze(0), None)
+                              for m in src]
+                return (_host_shards(inter, len(shards)),
+                        _host_shards(src_counts, len(shards))[0])
 
             self._bump("topn_dispatches", 2)
             inter, src_counts = self._device_call(None, run)
@@ -1792,11 +1949,11 @@ class ShardedQueryEngine:
                       if plan is not None else None)
 
         def run():
-            src = None
-            if plan is not None:
-                src = _lowered(plan).bitmap(flt_leaves).contiguous()
-            counts = kernels.masked_plane_counts(rows_tensor, src)
-            return counts.sum(dim=1, dtype=torch.int64).cpu().numpy()
+            src = (self._src_blocks(plan, flt_leaves) if plan is not None
+                   else (None,) * len(rows_tensor))
+            parts = [kernels.masked_plane_counts(b, m).sum(dim=1, dtype=torch.int64)
+                     for b, m in zip(rows_tensor, src)]
+            return _host_total(parts)
 
         self._bump("topn_dispatches")
         value = self._device_call(None, run)
@@ -1814,7 +1971,8 @@ class ShardedQueryEngine:
         (the caller composes the weighted sum in Python ints): K2 over the
         (D+1, S, W) plane stack masked by the filter, summed over S.
         kind='min'/'max' returns (bits (depth,) int32, count): K3's
-        bit-sliced scan over every shard at once."""
+        bit-sliced scan over every shard of each partition, the partitions'
+        (value, count) pairs folded by _fold_minmax."""
         shards = tuple(shards)
         view = VIEW_BSI_GROUP_PREFIX + field
         leaves = [Leaf(field, view, i) for i in range(bit_depth + 1)]
@@ -1827,19 +1985,21 @@ class ShardedQueryEngine:
         hit = self._aux_probe(mkey, fp)
         if hit is not None:
             return hit
-        planes = self._stacked_leaf_tensor(index, leaves, shards)  # (D+1, S, W)
+        planes = self._stacked_leaf_tensor(index, leaves, shards)  # (D+1, S_padded, W)
         flt_leaves = (self._leaf_tensor(index, plan.leaves, shards)
                       if plan is not None else None)
 
         def run():
-            flt = None
-            if plan is not None:
-                flt = _lowered(plan).bitmap(flt_leaves).contiguous()
+            flt = (self._src_blocks(plan, flt_leaves) if plan is not None
+                   else (None,) * len(planes))
             if kind == "sum":
-                counts = kernels.masked_plane_counts(planes, flt)  # (D+1, S)
-                return counts.sum(dim=1, dtype=torch.int64).cpu().numpy()
-            bits, count = kernels.bsi_minmax(planes, flt, maximize=kind == "max")
-            return bits.cpu().numpy(), int(count)
+                return _host_total([
+                    kernels.masked_plane_counts(b, m).sum(dim=1, dtype=torch.int64)
+                    for b, m in zip(planes, flt)])  # (D+1,)
+            parts = [kernels.bsi_minmax(b, m, maximize=kind == "max")
+                     for b, m in zip(planes, flt)]
+            return _fold_minmax([(bits.cpu().numpy(), int(count))
+                                 for bits, count in parts], kind == "max")
 
         value = self._device_call(None, run)
         self._aux_store(mkey, fp, value)

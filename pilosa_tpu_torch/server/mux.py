@@ -133,6 +133,13 @@ class MuxClosed(MuxError):
     """Clean EOF at a frame boundary (peer closed the connection)."""
 
 
+class MuxPeerClosed(MuxError):
+    """The peer ended the connection (clean EOF or reset) while this
+    call waited for its response, as a peer's MuxServer.close() does.
+    The call may have run, so only an idempotent request may ride HTTP
+    instead; any other surfaces it like an HTTP socket error."""
+
+
 class MuxUnavailable(PilosaError):
     """The mux path cannot carry this request (disabled, peer demoted,
     handshake failed, inflight cap full, oversized frame). The caller
@@ -544,11 +551,13 @@ class _ClientConn:
                 waiter.result = (kind, meta, payload)
                 waiter.event.set()
         except MuxClosed as e:
-            err = MuxError(f"mux connection to {self.netloc} closed: {e}")
+            err = MuxPeerClosed(f"mux connection to {self.netloc} closed: {e}")
         except MuxProtocolError as e:
             if self.stats:
                 self.stats.bump("protocol_errors")
             err = e
+        except ConnectionResetError as e:
+            err = MuxPeerClosed(f"mux connection to {self.netloc} reset: {e}")
         except OSError as e:
             err = MuxError(f"mux recv from {self.netloc} failed: {e}")
         self._teardown(err)
@@ -786,6 +795,13 @@ class MuxTransport:
                 f"mux response from {netloc} timed out after {self.timeout}s"
             )
         res = waiter.result
+        if isinstance(res, MuxPeerClosed) and (
+                idempotent or method.upper() in ("GET", "HEAD")):
+            # The peer closed its listener with this call in flight: a
+            # replay is harmless, and the peer's HTTP server may still
+            # serve it (the HTTP client's RemoteDisconnected rule).
+            raise MuxUnavailable(
+                f"{res}; retrying over HTTP") from res
         if isinstance(res, Exception):
             raise res
         _kind, meta, payload = res
@@ -893,7 +909,10 @@ class MuxServer:
             try:
                 sock, _addr = self._sock.accept()
             except OSError:
-                return  # listener closed
+                return  # listener shut down
+            if self._stop.is_set():
+                sock.close()
+                return
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             t = threading.Thread(
                 target=self._serve_conn, args=(sock,),
@@ -930,6 +949,15 @@ class MuxServer:
                     M_ERROR: b"cluster key mismatch",
                 }, b"")
                 return
+            if self._stop.is_set():
+                # Accepted just before close(): refuse the handshake so
+                # the peer demotes this node to HTTP instead of sending
+                # calls down a connection that is about to end.
+                io.send_frame(KIND_HELLO_ACK, 0, {
+                    M_VERSION: str(MUX_VERSION).encode("ascii"),
+                    M_ERROR: b"server closing",
+                }, b"")
+                return
             io.send_frame(KIND_HELLO_ACK, 0, {
                 M_VERSION: str(MUX_VERSION).encode("ascii"),
             }, b"")
@@ -940,7 +968,10 @@ class MuxServer:
                 failpoints.fire("mux-frame-recv", target=peer)
                 if kind != KIND_CALL:
                     raise MuxProtocolError(f"unexpected frame kind {kind}")
-                self._pool.submit(self._handle_call, io, sid, meta, payload)
+                try:
+                    self._pool.submit(self._handle_call, io, sid, meta, payload)
+                except (RuntimeError, AttributeError):
+                    return  # close() shut the pool down: end the connection
         except MuxClosed:
             pass
         except MuxProtocolError as e:
@@ -1024,6 +1055,13 @@ class MuxServer:
     def close(self):
         self._stop.set()
         if self._sock is not None:
+            # shutdown() first: close() alone leaves a thread blocked in
+            # accept() holding the listener open, so a peer's redial is
+            # still accepted and then dropped instead of being refused.
+            try:
+                self._sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 self._sock.close()
             except OSError:

@@ -19,8 +19,9 @@ reads and pushes standing queries. A geo follower cluster tails a
 leader's CDC (geo/), node-to-node traffic rides the persistent mux
 transport when `[transport] enabled` (server/mux.py), and the autoscaler
 turns sustained load into joins and leaves (cluster/autoscale.py), as in
-the reference. Refused: an engine mesh wider than one device (a
-difference by design: one process drives one device).
+the reference. `engine_config.mesh_devices` sets the engine's shard
+partitions (parallel/mesh.py): N partitions round-robin over the local
+cards, one per card by default.
 
 The collective plane: `open()` joins the torch.distributed job the
 reference's variables describe (parallel/distributed.py; the reference
@@ -41,7 +42,7 @@ from typing import List, Optional
 
 from ..cluster.node import Cluster, Node, STATE_NORMAL, STATE_RESIZING, STATE_STARTING
 from ..core.holder import Holder, resolve_device
-from ..errors import PilosaError, QueryError
+from ..errors import PilosaError
 from ..executor import Executor
 from ..logger import NopLogger
 from ..stats import InMemoryStatsClient
@@ -110,7 +111,6 @@ class Server:
         # The card unless the caller asks for the CPU; without CUDA this
         # raises before anything is built.
         self.device = resolve_device(device)
-        self._refuse_peer_settings(engine_config)
         self.data_dir = data_dir
         self.host = host
         self.port = port
@@ -427,17 +427,6 @@ class Server:
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self.opened = False
-
-    @staticmethod
-    def _refuse_peer_settings(engine_config) -> None:
-        """The one server setting the port refuses, by design: an engine
-        mesh wider than one device (one process drives one device)."""
-        if engine_config is not None and engine_config.mesh_devices > 1:
-            raise QueryError(
-                "the server setting engine_config.mesh_devices > 1 is not "
-                "ported, by design: one process drives one device (ROADMAP "
-                "Queue 3), and several devices serve as ranks of the "
-                "collective plane")
 
     # ------------------------------------------------------------ lifecycle
 

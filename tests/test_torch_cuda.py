@@ -432,7 +432,8 @@ def test_delta_scatter_on_card_equals_rebuilt_stack(cuda_device):
     eng = ShardedQueryEngine(h)
     fresh = None
     try:
-        old = eng._stacked_leaf_tensor("i", leaves, shards)
+        # The engine's one partition: its block is the whole stack.
+        old = eng._stacked_leaf_tensor("i", leaves, shards).joined()
         assert old.is_cuda
         kept = old.clone()
         base = eng.snapshot()
@@ -441,7 +442,7 @@ def test_delta_scatter_on_card_equals_rebuilt_stack(cuda_device):
         first = int(np.flatnonzero(np.unpackbits(plane.view(np.uint8),
                                                  bitorder="little"))[0])
         assert fld.clear_bit(4, 2 * SHARD_WIDTH + first)
-        new = eng._stacked_leaf_tensor("i", leaves, shards)
+        new = eng._stacked_leaf_tensor("i", leaves, shards).joined()
         snap = eng.snapshot()
         assert snap["stack_delta_hits"] == base["stack_delta_hits"] + 1
         assert snap["full_refresh_bytes"] == base["full_refresh_bytes"]
@@ -449,7 +450,7 @@ def test_delta_scatter_on_card_equals_rebuilt_stack(cuda_device):
         # Functional: a reader holding the old tensor still reads it.
         assert torch.equal(old, kept) and not torch.equal(old, new)
         fresh = ShardedQueryEngine(h)
-        rebuilt = fresh._stacked_leaf_tensor("i", leaves, shards)
+        rebuilt = fresh._stacked_leaf_tensor("i", leaves, shards).joined()
         torch.cuda.synchronize()
         assert torch.equal(new, rebuilt)
         host = np.stack([[h.fragment("i", "f", "standard", s).plane_np(leaf.row)
@@ -1035,3 +1036,143 @@ def test_count_after_migrate_install_on_card(cuda_device):
     finally:
         ex.close()
         h.close()
+
+
+# ------------------------------------------- one node over several partitions
+
+
+def _partition_reads(eng, shards):
+    """Every engine entry point of the read path over the planted holder:
+    Counts (single, async, batched with a duplicate), a bitmap and a
+    batch of them, TopN with and without a filter, Sum/Min/Max with and
+    without one."""
+    from pilosa_tpu_torch.pql.parser import parse
+
+    def call(q):
+        return parse(q).calls[0]
+
+    pairs = [(0, 1), (2, 3), (0, 1), (4, 5)]
+    batch = [call(f"Intersect(Row(f={a}), Row(f={b}))") for a, b in pairs]
+    flt = call("Row(f=2)")
+    depth = eng.holder.index("i").field("v").bsi_group("v").bit_depth()
+    with eng.memos_off():
+        out = {
+            "count": eng.count("i", batch[0], shards),
+            "async": int(eng.count_async("i", batch[1], shards)),
+            "batch": eng.count_batch("i", batch, shards).tolist(),
+            "bitmap": eng.bitmap("i", call("Union(Row(f=1), Row(f=3))"),
+                                 shards).columns().tolist(),
+            "bitmap_batch": [r.columns().tolist()
+                             for r in eng.bitmap_batch("i", batch[:2], shards)],
+            "topn": eng.topn_counts("i", "f", list(range(6)), shards).tolist(),
+            "topn_f": eng.topn_counts("i", "f", list(range(6)), shards, flt).tolist(),
+            "shard_counts": [None if a is None else a.tolist() for a in eng.topn_shard_counts(
+                "i", "f", [5, 0, 3], shards, flt)],
+        }
+        for kind in ("sum", "min", "max"):
+            for f in (None, flt):
+                got = eng.bsi_val_count("i", "v", kind, depth, shards, f)
+                out[(kind, f is None)] = (got.tolist() if kind == "sum"
+                                          else (got[0].tolist(), got[1]))
+    return out
+
+
+def _partition_holder():
+    """_planted_card_holder's field f over 5 shards (not a multiple of 4)
+    and an int field v whose maximum sits in shards 0 and 4 (a tie across
+    partitions)."""
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    h, _ = _planted_card_holder(n_rows=6, n_shards=5)
+    v = h.index("i").create_field("v", FieldOptions(type="int", min=0, max=1000))
+    rng = np.random.default_rng(4)
+    cols = np.unique(rng.integers(0, 5 * SHARD_WIDTH, 3000))
+    vals = rng.integers(0, 900, len(cols))
+    cols = np.concatenate([cols, [7, 4 * SHARD_WIDTH + 9]])
+    vals = np.concatenate([vals, [1000, 1000]])
+    v.import_value(cols.tolist(), vals.tolist())
+    return h
+
+
+def _launches(fn):
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    fn()
+    torch.cuda.synchronize()
+    return {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("placement", ["one_card", "per_card"])
+def test_partitioned_engine_on_card_equals_one_partition(cuda_device, placement):
+    """An engine of 4 partitions on the card (all on cuda:0, or one per
+    card where the host has several) answers every entry point as the
+    one-partition engine does; K1, K2 and K3 launch once per partition
+    per device call, each block on its partition's device; a Set
+    refreshes only the written shard's block."""
+    from pilosa_tpu_torch.parallel.engine import Leaf, ShardedQueryEngine
+    from pilosa_tpu_torch.parallel.mesh import engine_mesh
+    from pilosa_tpu_torch.pql.parser import parse
+
+    n_cards = torch.cuda.device_count()
+    if placement == "per_card" and n_cards < 2:
+        pytest.skip("needs two or more cards")
+    mesh = (["cuda:0"] * 4 if placement == "one_card"
+            else engine_mesh(4, "cuda"))
+    h = _partition_holder()
+    shards = tuple(range(5))
+    one = ShardedQueryEngine(h, mesh=["cuda:0"])
+    four = ShardedQueryEngine(h, mesh=mesh)
+    try:
+        assert _partition_reads(four, shards) == _partition_reads(one, shards)
+        stack = four._stacked_leaf_tensor("i", [Leaf("f", "standard", r) for r in range(6)],
+                                          shards)
+        assert [b.device for b in stack] == four.mesh == [torch.device(d) for d in mesh]
+        assert all(b.shape == (6, 2, stack[0].shape[2]) for b in stack)
+        call = parse("Intersect(Row(f=0), Row(f=1))").calls[0]
+        depth = h.index("i").field("v").bsi_group("v").bit_depth()
+        with four.memos_off():
+            n1 = _launches(lambda: four.count("i", call, shards))
+            n2 = _launches(lambda: four.count_batch("i", [call, call], shards))
+            n3 = _launches(lambda: four.topn_counts("i", "f", [0, 1, 2], shards))
+            n4 = _launches(lambda: four.bsi_val_count("i", "v", "max", depth, shards))
+        assert n1["gather_expr_count"] == n2["gather_expr_count"] == 4, (n1, n2)
+        assert n3["masked_plane_counts"] == 4 and n4["bsi_minmax"] == 4, (n3, n4)
+        before = four._stacked_leaf_tensor("i", [Leaf("f", "standard", r) for r in range(6)],
+                                           shards)
+        base = four.snapshot()
+        plane = h.fragment("i", "f", "standard", 3).plane_np(1)
+        col = int(np.flatnonzero(np.unpackbits(plane.view(np.uint8), bitorder="little") == 0)[0])
+        assert h.index("i").field("f").set_bit(1, 3 * SHARD_WIDTH + col)
+        after = four._stacked_leaf_tensor("i", [Leaf("f", "standard", r) for r in range(6)],
+                                          shards)
+        assert [p for p in range(4) if after[p] is not before[p]] == [1]
+        assert four.snapshot()["full_refresh_bytes"] == base["full_refresh_bytes"]
+        assert four.count("i", call, shards) == one.count("i", call, shards)
+    finally:
+        four.close()
+        one.close()
+        h.close()
+
+
+def test_kernels_launch_on_a_second_card(cuda_device):
+    """K1 (both variants), K2 and K3 on tensors of cuda:1 while cuda:0 is
+    the current device: each wrapper makes the tensor's device current for
+    its launch, and the answers equal the twins."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    dev = torch.device("cuda", 1)
+    rng = np.random.default_rng(9)
+    stacked = rand_stack(rng, (6, 4, 1024), dev)
+    idxs = torch.tensor([[0, 2, 4], [1, 3, 5]], dtype=torch.int32)
+    tape = lower_tape(("Intersect", (leaf(0), leaf(1))))
+    with torch.cuda.device(0):
+        for variant in VARIANTS:
+            got = kernels.gather_expr_count(stacked, idxs, tape, variant=variant)
+            assert got.device == dev
+            assert torch.equal(got, kernels.gather_expr_count_plain(stacked, idxs, tape))
+        mask = stacked[0]
+        assert torch.equal(kernels.masked_plane_counts(stacked, mask),
+                           kernels.masked_plane_counts_plain(stacked, mask))
+        bits, count = kernels.bsi_minmax(stacked, mask, True)
+        pbits, pcount = kernels.bsi_minmax_plain(stacked, mask, True)
+        assert torch.equal(bits, pbits) and int(count) == int(pcount)

@@ -77,7 +77,9 @@ def plant(holder, n_shards=4, n_rows=4, per_row=300, seed=7, index="i"):
 def words(arr, *lead) -> np.ndarray:
     """A cached plane or stack of either engine as uint32 words, cut to
     the leading sizes `lead` (the reference pads the shard axis, and its
-    stacks' leaf axis to a power of two)."""
+    stacks' leaf axis to a power of two; the port's are joined first)."""
+    if isinstance(arr, tengine.Blocks):  # the port's partition blocks
+        arr = arr.joined()
     a = arr.numpy().view(np.uint32) if isinstance(arr, torch.Tensor) else np.asarray(arr)
     return a[tuple(slice(0, n) for n in lead)]
 

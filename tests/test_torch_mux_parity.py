@@ -11,6 +11,8 @@ the data does.
 
 import json
 import socket
+import threading
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -147,6 +149,63 @@ def test_closed_listener_ends_its_connections(tmp_path, reference):
         assert after["requests_http"] > before["requests_http"], after
         assert after["handshake_fallbacks"] > before["handshake_fallbacks"], after
     finally:
+        for s in servers:
+            s.close()
+
+
+def test_closed_listener_mid_request_falls_back_to_http(tmp_path, reference):
+    """A Count whose sub-query is inside node b's mux dispatch when b's
+    MuxServer.close() runs is answered over HTTP with the reference's
+    answer, and so are the reads after it: the closed connection is not
+    taken for b being down, and a redial is refused, not accepted and
+    dropped."""
+    ports = [free_port_pair() for _ in range(2)]
+    hosts = [f"localhost:{p}" for p in ports]
+    servers = []
+    try:
+        for i, port in enumerate(ports):
+            servers.append(make("torch", tmp_path / f"n{i}", port, hosts, True))
+        load(ports[0], np.random.default_rng(5))
+        a, b = servers
+        assert [post(a.port, "/index/i/query", q) for q in READS] == reference
+        conn = a.mux_transport._conns[b.node.uri]
+        entered, release = threading.Event(), threading.Event()
+        inner = b.mux_server.handler
+
+        class Held:
+            """b's handler, holding the first query it is given."""
+
+            def dispatch(self, method, path, *args, **kwargs):
+                if path.endswith("/query") and not entered.is_set():
+                    entered.set()
+                    release.wait(30.0)
+                return inner.dispatch(method, path, *args, **kwargs)
+
+        b.mux_server.handler = Held()
+        before = a.transport_stats.snapshot()
+        out = {}
+
+        def ask():
+            try:
+                out["r"] = post(a.port, "/index/i/query", READS[0])
+            except urllib.error.HTTPError as e:
+                out["r"] = (e.code, e.read().decode(errors="replace"))
+
+        asker = threading.Thread(target=ask, daemon=True)
+        asker.start()
+        assert entered.wait(30.0)
+        closer = threading.Thread(target=b.mux_server.close, daemon=True)
+        closer.start()
+        assert _wait(lambda: conn.closed)
+        release.set()
+        closer.join(30.0)
+        asker.join(60.0)
+        assert out["r"] == reference[0]
+        assert [post(a.port, "/index/i/query", q) for q in READS] == reference
+        after = a.transport_stats.snapshot()
+        assert after["requests_http"] > before["requests_http"], after
+    finally:
+        release.set()
         for s in servers:
             s.close()
 

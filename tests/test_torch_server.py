@@ -31,7 +31,6 @@ import torch
 import pilosa_tpu_torch
 from pilosa_tpu.parallel import EngineConfig as JEngineConfig
 from pilosa_tpu.server.server import Server as JServer
-from pilosa_tpu_torch.errors import QueryError
 from pilosa_tpu_torch.server.server import Server as TServer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -280,13 +279,13 @@ def test_route_answers_like_the_reference_node(walked, route):
     {"engine_config": "mesh"},
 ], ids=lambda kw: next(iter(kw)))
 def test_peer_settings_are_refused(tmp_path, kw):
-    """An engine mesh (by design) raises the typed not-ported error naming
-    the setting. Every other peer setting is lifted: the server builds and
-    the setting does what it does on pilosa_tpu (a joining node is
-    admitted by its seed, a replica opens its key store read-only, a Set
-    gets CDC position 1, a follower builds its geo manager and tailer, the
-    mux transport is installed on the shared client, the autoscaler takes
-    the interval)."""
+    """No peer setting is refused any more: the server builds and the
+    setting does what it does on pilosa_tpu (a joining node is admitted by
+    its seed, a replica opens its key store read-only, a Set gets CDC
+    position 1, a follower builds its geo manager and tailer, the mux
+    transport is installed on the shared client, the autoscaler takes the
+    interval, and an engine mesh of 2 builds an engine of 2 partitions
+    that answers)."""
     from pilosa_tpu_torch.cdc import CdcConfig
     from pilosa_tpu_torch.cluster.autoscale import AutoscaleConfig
     from pilosa_tpu_torch.geo import GeoConfig
@@ -340,24 +339,34 @@ def test_peer_settings_are_refused(tmp_path, kw):
             s.cdc.close()
             s.holder.close()
         return
-    if name != "engine_config":
-        s = TServer(data_dir=str(tmp_path / "g"), port=1, device="cpu",
+    if name == "engine_config":
+        s = TServer(data_dir=str(tmp_path / "e"), device="cpu",
                     cache_flush_interval=0, **{name: value})
+        s.holder.open()
         try:
-            if name == "geo_config":
-                assert s.geo is not None and s.executor.geo is s.geo
-                assert s.geo.status()["role"] == "follower"
-            elif name == "transport_config":
-                assert s.client.mux is s.mux_transport is not None
-                assert s.mux_server is not None
-            else:
-                assert s.autoscaler.config.interval == 5.0
+            s.api.create_index("i")
+            s.api.create_field("i", "f")
+            s.api.query("i", "Set(5, f=1) Set(3000000, f=1)")
+            assert s.api.query("i", "Count(Row(f=1))")[0] == 2
+            assert s.executor.engine.n_devices == 2
+            assert s.executor.engine.mesh == [torch.device("cpu")] * 2
         finally:
-            s.close()
+            s.executor.close()
+            s.holder.close()
         return
-    with pytest.raises(QueryError, match=f"not ported.*|{name}") as ei:
-        TServer(data_dir=None, port=1, device="cpu", **{name: value})
-    assert "not ported" in str(ei.value) and name in str(ei.value)
+    s = TServer(data_dir=str(tmp_path / "g"), port=1, device="cpu",
+                cache_flush_interval=0, **{name: value})
+    try:
+        if name == "geo_config":
+            assert s.geo is not None and s.executor.geo is s.geo
+            assert s.geo.status()["role"] == "follower"
+        elif name == "transport_config":
+            assert s.client.mux is s.mux_transport is not None
+            assert s.mux_server is not None
+        else:
+            assert s.autoscaler.config.interval == 5.0
+    finally:
+        s.close()
 
 
 def free_port():

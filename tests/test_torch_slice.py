@@ -224,11 +224,12 @@ def test_respellings_share_one_plan_and_fit_the_kernel(pair):
 
 
 def test_calls_outside_the_slice_raise_not_ported(pair):
-    """An engine mesh stays outside the port (by design): it raises
-    instead of answering. A point-in-time read is in: on a holder without
-    change capture it raises the JAX package's typed error. The read
-    path's peer fan-out is in: a two-node executor queries its peer for
-    the shards the peer owns and reduces the answer with its own."""
+    """An engine mesh is in: a server with `mesh_devices = 2` builds an
+    engine of 2 partitions that answers as the JAX package does. A
+    point-in-time read is in: on a holder without change capture it
+    raises the JAX package's typed error. The read path's peer fan-out is
+    in: a two-node executor queries its peer for the shards the peer owns
+    and reduces the answer with its own."""
     jex, tex = pair
     from pilosa_tpu.executor import ExecOptions as JExecOptions
     from pilosa_tpu_torch.cluster.hash import ModHasher
@@ -242,9 +243,14 @@ def test_calls_outside_the_slice_raise_not_ported(pair):
     with pytest.raises(Exception) as ej:
         jex.execute("i", "Count(Row(f=1))", opt=JExecOptions(at_position=1))
     assert str(ei.value) == str(ej.value)
-    with pytest.raises(QueryError, match="not ported"):
-        Server(data_dir=None, device="cpu",
-               engine_config=TorchEngineConfig(mesh_devices=2))
+    srv = Server(data_dir=None, device="cpu",
+                 engine_config=TorchEngineConfig(mesh_devices=2))
+    srv.executor.holder = tex.holder
+    try:
+        assert srv.executor.engine.n_devices == 2
+        assert srv.executor.execute("i", CORPUS[2]) == jex.execute("i", CORPUS[2])
+    finally:
+        srv.executor.close()
 
     class Peer:
         """Answers every forwarded Count with 1000 and records its shards."""
