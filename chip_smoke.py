@@ -157,7 +157,15 @@ Phases, each of which fails the run if it fails:
              probe closes the plane and CollectiveCount climbs; the
              resumed rank read `abort` at the aborted barriers and every
              rank entered the same number of reduces; then SIGTERM to
-             every rank, each exits 0 with its last counters. (j) a
+             every rank, each exits 0 with its last counters. (i4) the
+             four ranks again, each with `[engine] mesh-devices` 2 (8
+             partitions on the card): (i1)'s first 64 Counts, (i2)'s
+             queries from one rank, and v = V_MAX written to a null
+             column of two shards one rank holds in its two partitions,
+             then Max with and without the filter; every answer equal
+             to (i)'s one-partition answer and numpy, K1/K2/K3 launched
+             exactly 2 times per rank per collective entry, K1 staged
+             once per rank per entry. (j) a
              cluster that changes shape, and the change stream: (j1)
              three server processes on the card with data directories
              (replica_n = 2, the jump hasher, live rebalance), each
@@ -252,7 +260,8 @@ Phases, each of which fails the run if it fails:
              in every path, K2 and K3 in (h2); in (i): K1 on every rank
              in (i1), K1, K2 and K3 on every rank in (i2), the plain
              twins at 0 on every rank, each rank resetting and reporting
-             its own counters; in (j): K1 in the join, the leave, the
+             its own counters, and in (i4) each kernel I4_MESH times per
+             rank per entry; in (j): K1 in the join, the leave, the
              joined node's Count and the standing query, K1, K2 and K3
              in each (j2), K2 and not K1 on the point-in-time path; in
              (l): K1 in its Counts, batches and HTTP levels, K2 in its
@@ -1254,8 +1263,10 @@ def main_path(torch, pt, kernels, args, rng, report):
     planes_dir = tempfile.mkdtemp(prefix="pilosa-torch-planes-")
     try:
         planes = write_planes(H, bsi, out["bsi"]["depth"], planes_dir)
-        main_path_i(torch, kernels, H, bsi, out["bsi"]["depth"], rng, out,
-                    report["nvidia_smi"], phases, planes)
+        prev = main_path_i(torch, kernels, H, bsi, out["bsi"]["depth"], rng, out,
+                           report["nvidia_smi"], phases, planes)
+        main_path_i4(torch, kernels, H, bsi, out["bsi"]["depth"], out,
+                     report["nvidia_smi"], phases, planes, prev)
         main_path_j(torch, kernels, H, bsi, out["bsi"]["depth"], rng, start, end, out,
                     report["nvidia_smi"], phases, planes)
         main_path_k1(torch, kernels, H, rng, out, report["nvidia_smi"], phases, planes)
@@ -1586,13 +1597,19 @@ def main_path_l(torch, pt, kernels, holder, ex, H, bsi, ctx, rng, start, end, ou
                     lat.append(dt)
             k1 = kernels.LAUNCHES["gather_expr_count"]
             assert k1 > 0 and k1 % P == 0, k1
+            # K1's host work and staging once per device call: one copy per
+            # distinct device among the partitions, not one per launch.
+            staged = kernels.STAGED["gather_expr_count"]
+            assert staged == k1 // P * len(set(eng4.mesh)), (staged, k1)
             end(ph, "gather_expr_count", quiet=(eng, eng4))
             levels[c] = dict(queries=n, wall_s=wall_s, qps=n / wall_s, p50_ms=pct(lat, 50),
-                             p99_ms=pct(lat, 99), k1_launches=k1)
+                             p99_ms=pct(lat, 99), k1_launches=k1, staging_copies=staged,
+                             staging_per_count=staged / n)
             log(f"main (l3) C={c}: {n} distinct Counts over HTTP from a Server with "
                 f"mesh-devices {P} equal numpy; {levels[c]['qps']:.1f} queries/s, p50 "
                 f"{levels[c]['p50_ms']:.3f} ms, p99 {levels[c]['p99_ms']:.3f} ms; K1 "
-                f"launched {k1} times ({k1 // P} device calls x {P} partitions)")
+                f"launched {k1} times ({k1 // P} device calls x {P} partitions); staging "
+                f"copies {staged} ({staged / n:.3f} per Count)")
         lo["http"] = levels
         lo["l3_s"] = time.perf_counter() - t0
         lo["engine"] = eng4.snapshot()
@@ -2395,7 +2412,7 @@ def unordered_pairs(rng, n_rows: int) -> np.ndarray:
 
 
 def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
-                per_client=512, per_client_c8=256, per_client_c32=128, n_keys=1 << 20,
+                per_client=512, per_client_c8=256, per_client_c32=64, n_keys=1 << 20,
                 device=None):
     """Path (g): one pilosa node over HTTP on the card. (g1) an in-process
     Server handed the 256-shard holder of (a)-(f); (g2) concurrent distinct
@@ -2460,7 +2477,7 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
         levels = {}
         want = {}  # numpy's count per pair, shared by the levels
         for c in (1, 8, 32):
-            # C = 8 runs 256 queries per client and C = 32 128, not 512:
+            # C = 8 runs 256 queries per client and C = 32 64, not 512:
             # the script's time limit also holds paths (h)-(j).
             per = {1: per_client, 8: per_client_c8, 32: per_client_c32}[c]
             n = c * per
@@ -2487,7 +2504,11 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
             e1 = eng.snapshot()
             k1 = {k: kernels.LAUNCHES[k] for k in ("gather_expr_count", "gather_expr_count_staged",
                                                     "gather_expr_count_streaming")}
+            # One host-to-device staging copy per K1 device call.
+            staged = kernels.STAGED["gather_expr_count"]
+            assert staged == k1["gather_expr_count"], (staged, k1)
             lv = dict(clients=c, queries=n, wall_s=wall_s, qps=n / wall_s,
+                      staging_copies=staged, staging_per_count=staged / n,
                       p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), max_ms=max(lat) * 1e3,
                       first_ms=clients[0][0][0] * 1e3, batcher=bd,
                       mean_group=(bd["enqueued"] / bd["launches"]) if bd["launches"] else None,
@@ -2509,7 +2530,8 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
                 f"{lv['p99_ms']:.3f} ms, max {lv['max_ms']:.3f} ms (first "
                 f"{lv['first_ms']:.3f} ms); gen-2 GCs {gcp.n} ({gcp.ms:.1f} ms); "
                 f"batcher {bd} (mean group "
-                f"{lv['mean_group']}); K1 {k1}; stack misses {lv['stack_misses']}; "
+                f"{lv['mean_group']}); K1 {k1}; staging copies {staged} "
+                f"({lv['staging_per_count']:.3f} per Count); stack misses {lv['stack_misses']}; "
                 f"device {dev_ms} ms of {wall_s * 1e3:.1f} ms wall, idle share "
                 f"{lv['idle_share']}; p50 per stage of the last traces (ms) "
                 f"{lv['stages_p50_ms']}")
@@ -3410,13 +3432,18 @@ from pilosa_tpu_torch.server.server import Server
 
 ctl = cs.WorkerCommands(torch, kernels, cfg, rank)
 device = cfg["device"]  # None: the card; "cpu" rehearses the path without one
+if device is None and cfg.get("mesh_devices"):
+    # (i4): each rank on a card of its own where there are several (its
+    # partitions stay there), all on cuda:0 on a one-card machine.
+    device = f"cuda:{rank % torch.cuda.device_count()}"
 hosts = [f"localhost:{p}" for p in cfg["ports"]]
 srv = Server(
     data_dir=None, port=cfg["ports"][rank], cluster_hosts=hosts,
     replica_n=cfg["replica_n"], cache_flush_interval=0, anti_entropy_interval=0,
     member_monitor_interval=1.0, logger=Logger(stream=sys.stderr),
     engine_config=EngineConfig(leaf_cache_bytes=cfg["engine_leaf"],
-                               stack_cache_bytes=cfg["engine_stack"]),
+                               stack_cache_bytes=cfg["engine_stack"],
+                               mesh_devices=cfg.get("mesh_devices", 0)),
     collective_config=CollectiveConfig(timeout_ms=cfg["timeout_ms"],
                                        leaf_budget_bytes=cfg["leaf_budget"]),
     device=device)
@@ -3437,11 +3464,13 @@ while not srv.collective.active():
 t0 = time.perf_counter()
 desc = srv.collective._descriptor("count", "big", queries=[])
 mine = desc["slots"][rank]
+mesh = srv.collective.partitions()
 for r in range(H.shape[0]):
-    srv.collective._global_leaf("big", Leaf("f", "standard", r), mine, desc["k"])
+    srv.collective._global_leaf("big", Leaf("f", "standard", r), mine, desc["k"], mesh)
 ctl.sync()
 ready = dict(rank=rank, node=srv.node.id, owned=len(owned), slots=len(mine),
-             k=desc["k"], fill_s=fill_s, resident_s=time.perf_counter() - t0,
+             mine=mine, k=desc["k"], d_local=desc["dLocal"], mesh=[str(d) for d in mesh],
+             fill_s=fill_s, resident_s=time.perf_counter() - t0,
              leaf_gib=srv.collective._leaf_bytes / 2**30)
 del H, V
 
@@ -3460,6 +3489,7 @@ def report():
     ctl.sync()
     return dict(
         launches=dict(kernels.LAUNCHES), plain=dict(kernels.PLAIN_CALLS),
+        staged=dict(kernels.STAGED),
         engine=eng.snapshot() if eng is not None else None,
         collective=srv.collective.snapshot(), batcher=srv.batcher.snapshot(),
         counters=dict(srv.stats.snapshot().get("counters", {})),
@@ -3744,7 +3774,7 @@ def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, planes,
         fbits = np.unpackbits(H[fa].view(np.uint8), axis=1, bitorder="little").view(bool)
         want_vc = bsi["want_vc"]
         name, reps0 = begin("i2_collective_other")
-        timed = {}
+        timed, answers = {}, {}
         for srv_rank in range(I_RANKS):
             port = port_of[srv_rank]
 
@@ -3752,6 +3782,7 @@ def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, planes,
                 t0 = time.perf_counter()
                 got = query(port, "big", pql)
                 timed.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+                answers.setdefault(label, (pql, got))
                 return got
 
             assert run("nest", nest) == [want_nest], srv_rank
@@ -3874,6 +3905,172 @@ def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, planes,
             job.close()
         shutil.rmtree(work, ignore_errors=True)
     out["i"] = i
+    # What (i4) holds its answers against: (i)'s one-partition answers,
+    # each equal to numpy's.
+    first = every[:per_client]
+    return dict(counts=[(int(a), int(b), want[(int(a), int(b))]) for a, b in first],
+                answers=answers, fa=fa)
+
+
+I4_MESH = 2         # (i4): [engine] mesh-devices of every rank
+I4_COUNTS = 64      # (i4): distinct Counts at C = 1 (a cut: PERF.md §4)
+
+
+def main_path_i4(torch, kernels, H, bsi, depth, out, smi, phases, planes, prev,
+                 n_counts=I4_COUNTS, device=None):
+    """Path (i4): (i)'s four rank processes again, each with `[engine]
+    mesh-devices` I4_MESH (8 partitions on cuda:0 on a one-card machine;
+    a rank per card where there are four): every rank holds its k slots
+    as I4_MESH blocks and launches K1/K2/K3 once per partition per
+    collective entry, exactly, read from each rank's launch counters.
+    (i4a) (i1)'s first `n_counts` distinct Counts at C = 1; (i4b) (i2)'s
+    nest, TopN with and without a filter and Sum/Min/Max with and without
+    a filter; every answer equal to (i)'s one-partition answer, which
+    (i) held equal to numpy; (i4c) V_MAX written to a null column of two
+    shards that one rank holds in two different partitions: Max with and
+    without the filter against numpy, the maximum tied across them."""
+    import shutil
+    import tempfile
+
+    n_rows, n_shards, n_words = H.shape
+    i4 = {"ranks": I_RANKS, "mesh_devices": I4_MESH, "smi": smi}
+    work = tempfile.mkdtemp(prefix="pilosa-torch-ranks-i4-")
+    ctl = os.path.join(work, "ctl")
+    os.makedirs(ctl)
+    job = None
+    t_path = time.perf_counter()
+    try:
+        ports = free_ports(I_RANKS + 1)
+        cfg = dict(here=HERE, coordinator=f"localhost:{ports[-1]}", ports=ports[:I_RANKS],
+                   replica_n=H_REPLICAS, engine_leaf=5 << 30, engine_stack=3 << 30,
+                   timeout_ms=I_TIMEOUT_MS, leaf_budget=I_LEAF_BUDGET,
+                   client_timeout=I_CLIENT_TIMEOUT, ctl=ctl, mesh_devices=I4_MESH,
+                   f_path=planes["f_path"], v_path=planes["v_path"], device=device)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        job = RankJob(cfg, work)
+        ready = job.all("ready", timeout=900)
+        i4["start_s"] = time.perf_counter() - t0
+        for r in ready:
+            assert r["d_local"] == I4_MESH == len(r["mesh"]) and r["k"] % I4_MESH == 0, r
+        assert sum(r["slots"] for r in ready) == n_shards, ready
+        i4["ready"] = [{k: v for k, v in r.items() if k != "mine"} for r in ready]
+        log(f"main (i4) [{smi}]: {I_RANKS} rank processes of {I4_MESH} partitions each, up "
+            f"in {i4['start_s']:.1f} s: " + "; ".join(
+                f"rank {r['rank']} on {', '.join(r['mesh'])} counts {r['slots']} shards "
+                f"(k {r['k']}, {r['k'] // I4_MESH} per partition), f resident "
+                f"{r['leaf_gib']:.2f} GiB" for r in ready))
+
+        def entries_phase(name, fn, kernel, exact=True):
+            """fn() with every rank's counters reset around it; on every
+            rank `kernel` ran I4_MESH times per collective entry (at least
+            that, with `exact` False: the engine's own launches join)."""
+            job.all("reset")
+            reps0 = job.all("report")
+            result = fn()
+            reps = job.all("report")
+            per_rank = []
+            for r, (rep, rep0) in enumerate(zip(reps, reps0)):
+                ran = rep["plain"] if device == "cpu" else rep["launches"]
+                assert device == "cpu" or not any(rep["plain"].values()), (name, r, rep["plain"])
+                assert not rep["collective"]["fallbacks"], (name, r, rep["collective"])
+                entries = rep["collective"]["entries"] - rep0["collective"]["entries"]
+                assert entries > 0, (name, r)
+                n = ran[kernel]
+                assert (n == I4_MESH * entries) if exact else (
+                    n >= I4_MESH * entries and n % I4_MESH == 0), (name, r, kernel, n, entries)
+                per_rank.append(dict(entries=entries, launches=n,
+                                     staged=rep["staged"]["gather_expr_count"]))
+            phases[name] = {"launches": sum_launches(reps),
+                            "plain_calls": {k: sum(rep["plain"][k] for rep in reps)
+                                            for k in reps[0]["plain"]}}
+            log(f"counters {name}: {kernel} per rank (entries, launches, K1 staging copies) "
+                f"{[(p['entries'], p['launches'], p['staged']) for p in per_rank]}")
+            return result, per_rank
+
+        # ---- (i4a) (i1)'s Counts at C = 1 over the partitioned ranks
+        counts = prev["counts"][:n_counts]
+        work_q = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b, _ in counts]]
+        (wall_s, clients), per_rank = entries_phase(
+            "i4a_collective_count_c1",
+            lambda: http_clients(ports[:I_RANKS], "big", work_q), "gather_expr_count")
+        lat = []
+        for (a, b, w), (dt, results) in zip(counts, clients[0]):
+            assert results == [w], (a, b, results, w)
+            lat.append(dt)
+        staged = [p["staged"] for p in per_rank]
+        assert device == "cpu" or all(st == p["entries"] for st, p in zip(staged, per_rank)), \
+            per_rank
+        i4["i4a"] = dict(queries=len(counts), wall_s=wall_s, qps=len(counts) / wall_s,
+                         p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), per_rank=per_rank)
+        log(f"main (i4a) [{smi}] C=1: {len(counts)} distinct Counts over HTTP round-robin "
+            f"over {I_RANKS} ranks of {I4_MESH} partitions equal (i)'s one-partition answers "
+            f"(= numpy); {i4['i4a']['qps']:.1f} queries/s, p50 {i4['i4a']['p50_ms']:.3f} ms, "
+            f"p99 {i4['i4a']['p99_ms']:.3f} ms; K1 {I4_MESH} per rank per entry, one staging "
+            f"copy per rank per entry")
+
+        # ---- (i4b) (i2)'s other queries from rank 0
+        kernel_of = {"nest": "gather_expr_count", "topn": "masked_plane_counts",
+                     "topn_filter": "masked_plane_counts", "sum": "masked_plane_counts",
+                     "sum_filter": "masked_plane_counts", "min": "bsi_minmax",
+                     "min_filter": "bsi_minmax", "max": "bsi_minmax",
+                     "max_filter": "bsi_minmax"}
+        b = {}
+        for label, (pql, want) in prev["answers"].items():
+            got, per_rank = entries_phase(
+                f"i4b_{label}", lambda: query(ports[0], "big", pql), kernel_of[label],
+                exact=label != "topn_filter")  # its phase 1 runs on each engine too
+            assert got == want, (label, pql, got, want)
+            b[label] = per_rank
+        i4["i4b"] = b
+        log(f"main (i4b) [{smi}]: from rank 0 {', '.join(b)} equal (i)'s one-partition "
+            f"answers (= numpy); K1/K2/K3 {I4_MESH} per rank per entry (TopN with a filter: "
+            f"phase 1 on the engines, per partition too)")
+
+        # ---- (i4c) a maximum tied across two partitions of one rank
+        fa = prev["fa"]
+        held = max(ready, key=lambda r: r["slots"])
+        mine, per = held["mine"], held["k"] // I4_MESH
+        assert len(mine) > per, (len(mine), per)
+        planted = []
+        for shard in (mine[0], mine[per]):  # partitions 0 and 1 of one rank
+            col = int(np.flatnonzero(~bsi["nn"][shard])[0])
+            f_bit = (int(H[fa, shard, col >> 5]) >> (col & 31)) & 1
+            planted.append((shard, col, f_bit))
+            assert query(ports[0], "big", f"SetValue(col={shard * n_words * 32 + col}, "
+                                          f"v={V_MAX})") == [None]
+        fbits = np.unpackbits(H[fa].view(np.uint8), axis=1, bitorder="little").view(bool)
+        want_vc = bsi["want_vc"]
+        c = {}
+        for flt, mask, extra in (("", bsi["nn"], 2),
+                                 (f"Row(f={fa}), ", bsi["nn"] & fbits,
+                                  sum(f for _, _, f in planted))):
+            v0, c0 = want_vc("max", mask)
+            want = (v0, c0) if not extra else ((V_MAX, c0 + extra) if v0 == V_MAX
+                                               else (V_MAX, extra))
+            got, per_rank = entries_phase(
+                f"i4c_max{'_filter' if flt else ''}",
+                lambda: query(ports[0], "big", f"Max({flt}field=v)")[0], "bsi_minmax")
+            assert (got["value"], got["count"]) == want, (flt, got, want)
+            c["max_filter" if flt else "max"] = dict(answer=want, per_rank=per_rank)
+        i4["i4c"] = dict(rank=held["rank"], planted=planted, **c)
+        log(f"main (i4c) [{smi}]: v={V_MAX} written to a null column of shards "
+            f"{planted[0][0]} and {planted[1][0]}, partitions 0 and 1 of rank {held['rank']}: "
+            f"Max(field=v) "
+            f"{c['max']['answer']}, Max(Row(f={fa}), field=v) {c['max_filter']['answer']}, "
+            f"equal numpy, every holder counted")
+
+        finals = job.stop()
+        for r, fin in enumerate(finals):
+            assert device == "cpu" or not any(fin["plain"].values()), (r, fin["plain"])
+        i4["seconds"] = time.perf_counter() - t_path
+        log(f"main (i4) [{smi}]: SIGTERM, every rank exited 0; path (i4) took "
+            f"{i4['seconds']:.1f} s")
+    finally:
+        if job is not None:
+            job.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["i4"] = i4
 
 
 # ------------------------------------------------------------ path (j)
@@ -3883,7 +4080,7 @@ J_SHARDS = 64        # (j1)-(j2) hold config 5's first 64 shards (a cut: PERF.md
 J_CLIENTS = 8
 J_COUNT_ROWS = 32    # the clients' Counts read rows 0..31 of f
 J_WRITE_EVERY = 4    # every 4th request of a client is a Set or a Clear
-J_WINDOW_S = 3.0     # client load before a move starts and after it ends
+J_WINDOW_S = 2.0     # client load before a move starts and after it ends
 J_MOVE_LIMIT_S = 300  # a join or a leave that takes longer fails the run
 J_THINK_S = 0.05     # each client's pause between requests
 J_EV_SHARDS = 64     # (j3): index ev, 64 shards x 128 rows of f (1 GiB)
@@ -3903,6 +4100,7 @@ out = [None] * len(cfg["counts"])
 
 def run(i):
     conns = [http.client.HTTPConnection("localhost", p, timeout=600) for p in ports]
+    used = [time.monotonic()] * len(conns)
     counts, writes = cfg["counts"][i], cfg["writes"][i]
     res, j, w, refused = [], 0, 0, []
     while not os.path.exists(stop) and time.time() < cfg["deadline"]:
@@ -3911,7 +4109,14 @@ def run(i):
             w += 1
         else:
             kind, k, q = "c", j % len(counts), counts[j % len(counts)]
-        conn = conns[(i + j) % len(ports)]
+        c = (i + j) % len(ports)
+        conn = conns[c]
+        # A server ends a keep-alive connection idle for 60 s (a write
+        # retried through a long cutover keeps the others idle that
+        # long): reuse one only well inside that, as the port's own
+        # client does (InternalClient.IDLE_REUSE_S).
+        if time.monotonic() - used[c] > 20:
+            conn.close()
         t0, p0 = time.time(), time.perf_counter()
         tries = 0
         while True:
@@ -3922,6 +4127,7 @@ def run(i):
             except (OSError, http.client.HTTPException) as e:
                 conn.close()  # reconnects on the next request
                 status, body = 0, repr(e)
+            used[c] = time.monotonic()
             # The one refusal a client sends again is the reference's
             # retryable one: a write that met a cutover past the server's
             # cutover wait ("shard migrated to a new owner"); Set and

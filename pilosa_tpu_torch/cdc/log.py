@@ -163,6 +163,9 @@ class CdcLog:
         self._keys = set()
         # Pathless base images: key -> (cut_pos, roaring bytes).
         self._mem_bases: Dict[str, Tuple[int, bytes]] = {}
+        # Whether any base image exists: a consumer at cursor 0 then
+        # needs a bootstrap, since positions 1.. do not carry that data.
+        self.has_bases = False
         self.incarnation = os.urandom(8).hex()
         if self.path:
             self._open()
@@ -195,6 +198,9 @@ class CdcLog:
         else:
             self._persist_meta()
         self.last_pos = self.base_pos
+        base_dir = self._base_dir()
+        self.has_bases = os.path.isdir(base_dir) and any(
+            not n.endswith(".tmp") for n in os.listdir(base_dir))
 
         def note(rec):
             self._offsets.append((rec.position, self.size))
@@ -332,6 +338,7 @@ class CdcLog:
         return cut_pos, data
 
     def _set_base_locked(self, key: str, cut_pos: int, data: bytes) -> None:
+        self.has_bases = True
         if self.path is None:
             self._mem_bases[key] = (cut_pos, data)
             return

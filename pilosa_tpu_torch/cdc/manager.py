@@ -153,6 +153,14 @@ class CdcManager:
         with log.lock:
             return log.last_pos, time.time()
 
+    def has_bases(self, index: str) -> bool:
+        """Whether the index holds base images (data cut at capture or
+        folded out of the log): a consumer starting at cursor 0 must
+        bootstrap to see it (X-Pilosa-Cdc-Bases)."""
+        log = self.require_log(index)
+        with log.lock:
+            return log.has_bases
+
     def bootstrap(self, index: str) -> dict:
         """Snapshot re-seed for a consumer whose cursor fell behind
         retention (the rebalance begin/catch-up shape, generalized):

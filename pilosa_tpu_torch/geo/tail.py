@@ -24,8 +24,10 @@ would otherwise report negative lag and serve arbitrarily stale reads).
 Per-link breaker: consecutive failures double the backoff from
 geo.backoff up to geo.backoff-max; the first success resets it. A 410
 (cursor behind retention, or index recreated under a new incarnation)
-is not a failure — it routes to GET /cdc/bootstrap, which re-pulls
-compressed base images, installs them wholesale (merge could not undo
+is not a failure — it routes to GET /cdc/bootstrap, as does a new link
+at cursor 0 whose leader reports base images (X-Pilosa-Cdc-Bases: data
+older than capture, which no stream position carries). The bootstrap
+re-pulls compressed base images, installs them wholesale (merge could not undo
 clears between the stale cursor and the cut), and resumes from the
 returned cut position; overlap re-applies idempotently.
 
@@ -282,9 +284,12 @@ class GeoTailer:
         try:
             failpoints.fire("geo-tail", leader)
             self.counters["polls"] += 1
+            # A new link polls without parking, so that it learns at once
+            # whether the leader holds data older than capture.
             data, headers = self.client.cdc_stream(
                 leader, link.index, link.pos, incarnation=link.incarnation,
-                timeout=POLL_TIMEOUT, max_bytes=MAX_BYTES)
+                timeout=POLL_TIMEOUT if link.incarnation else 0,
+                max_bytes=MAX_BYTES)
         except ClientError as e:
             if e.status == 410:
                 # Behind retention or recreated index: not a link
@@ -305,6 +310,12 @@ class GeoTailer:
             self._link_failed(link)
             return False
         self._contact_ok()
+        if link.pos == 0 and link.incarnation is None \
+                and headers.get("x-pilosa-cdc-bases"):
+            # A new link to a leader whose data from before capture sits
+            # in base images, which no stream position carries: install
+            # them first, then resume from their cut.
+            return self._bootstrap_link(leader, link)
         try:
             applied, touched = self._apply_chunk(link, data)
         except Exception:

@@ -111,6 +111,9 @@ LAUNCHES: Dict[str, int] = {"gather_expr_count": 0, "gather_expr_count_staged": 
                             "bsi_minmax": 0}
 PLAIN_CALLS: Dict[str, int] = {"gather_expr_count": 0, "masked_plane_counts": 0,
                                "bsi_minmax": 0}
+# Host-to-device copies of K1's staging buffer: one per distinct device
+# per device call, whatever the number of blocks.
+STAGED: Dict[str, int] = {"gather_expr_count": 0}
 
 
 # The server launches from many threads: a count is one locked add.
@@ -125,7 +128,7 @@ def _count(counters: Dict[str, int], *names: str) -> None:
 
 def reset_counters() -> None:
     with _count_lock:
-        for d in (LAUNCHES, PLAIN_CALLS):
+        for d in (LAUNCHES, PLAIN_CALLS, STAGED):
             for k in d:
                 d[k] = 0
 
@@ -414,8 +417,70 @@ def k1_tiles(idx_np: np.ndarray) -> Tuple[List[np.ndarray], np.ndarray]:
 def _to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:
     """One host-to-device copy that does not wait for the stream: staged
     through pinned memory from PyTorch's caching host allocator, which
-    keeps the pinned block until the copy has run."""
+    keeps the pinned block until the copy has run. Counted in STAGED."""
+    _count(STAGED, "gather_expr_count")
     return torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
+
+
+class _K1Staging:
+    """K1's host work for one device call, done once whatever the number
+    of blocks: the variant, the staged ring's tiles, and the one int32
+    buffer every launch reads (streaming: tape | idxs; staged: tape |
+    tiles (offset into urows, distinct slots) | urows | qpos), with the
+    element offset of each part."""
+
+    __slots__ = ("variant", "stages", "bsi", "q", "n_leaves", "n_tape", "host",
+                 "tiles_at", "n_tiles", "urows_at", "qpos_at", "max_distinct")
+
+    def __init__(self, idxs: torch.Tensor, tape: List[int], variant: Optional[str]):
+        idx_np = np.ascontiguousarray(idxs.numpy())
+        tape_np = np.asarray(tape, dtype=np.int32)
+        self.n_leaves, self.q = idx_np.shape
+        self.n_tape = len(tape_np)
+        # Tapes with BSI codes run the kernels' instantiation that keeps
+        # the two compare masks; set-op tapes keep the registers for the
+        # rest.
+        self.bsi = has_bsi(tape)
+        self.stages = 0
+        if variant != "streaming" and (self.q > 1 or variant == "staged"):
+            urows, qpos = k1_tiles(idx_np)
+            distinct = max(len(r) for r in urows)
+            if variant is None:
+                variant, self.stages = k1_plan(distinct, self.q)
+            else:
+                self.stages = k1_ring_stages(distinct)
+                if self.stages < 2:
+                    raise ValueError(
+                        f"{distinct} distinct slots do not fit the staged variant's ring "
+                        f"({RING_BYTES // (2 * RING_SLOT_BYTES)} at most)")
+        self.variant = variant or "streaming"
+        if self.variant == "staged":
+            sizes = [len(r) for r in urows]
+            tiles = np.stack([np.cumsum([0] + sizes[:-1]), sizes], axis=1).astype(np.int32)
+            self.host = np.concatenate([tape_np, tiles.ravel(), *urows, qpos.ravel()])
+            self.tiles_at = self.n_tape
+            self.n_tiles = len(urows)
+            self.urows_at = self.tiles_at + tiles.size
+            self.qpos_at = self.urows_at + sum(sizes)
+            self.max_distinct = max(sizes)
+        else:
+            self.host = np.concatenate([tape_np, idx_np.ravel()])
+
+    def launch(self, lib, block: torch.Tensor, buf: torch.Tensor,
+               out: torch.Tensor) -> int:
+        """One launch over `block` reading `buf` (this staging's buffer on
+        the block's device); returns the library's cudaError_t."""
+        _, s, w = block.shape
+        at = buf.data_ptr()
+        if self.variant == "staged":
+            return lib.pt_k1_staged(
+                block.data_ptr(), s * w, at, self.n_tape, self.n_leaves,
+                at + 4 * self.tiles_at, self.n_tiles, at + 4 * self.urows_at,
+                at + 4 * self.qpos_at, self.q, self.max_distinct, self.stages,
+                int(self.bsi), out.data_ptr(), _stream(block))
+        return lib.pt_k1_streaming(
+            block.data_ptr(), s * w, at, self.n_tape, at + 4 * self.n_tape, self.q,
+            int(self.bsi), out.data_ptr(), _stream(block))
 
 
 def gather_expr_count(stacked: torch.Tensor, idxs: torch.Tensor,
@@ -427,72 +492,71 @@ def gather_expr_count(stacked: torch.Tensor, idxs: torch.Tensor,
     with the tape in one buffer; `tape` the postfix op codes. `variant`
     names the kernel variant (k1_plan chooses when it is None); naming
     "staged" for slots that do not fit its ring raises."""
+    return gather_expr_count_blocks([stacked], idxs, tape, variant)[0]
+
+
+def gather_expr_count_blocks(blocks: Sequence[torch.Tensor], idxs: torch.Tensor,
+                             tape: Sequence[int],
+                             variant: Optional[str] = None) -> List[torch.Tensor]:
+    """K1 over every block of one device call: the (Q,) int64 counts of
+    each (U, S_b, W) block (the same U slots over its own shards), one
+    launch per block on the block's device, made current for it. The
+    host work runs once: the checks, k1_tiles and k1_plan, and the one
+    staging buffer, copied once to each distinct device among the blocks
+    (STAGED counts the copies). The ring plan depends on `idxs` and Q
+    alone, so every block takes the same variant; blocks must agree in U,
+    W and dtype. CPU blocks run the plain twin."""
     tape = [int(c) for c in tape]
-    _check_k1(stacked, idxs, tape)
+    if not blocks:
+        raise ValueError("no blocks")
+    _check_k1(blocks[0], idxs, tape)
+    for block in blocks[1:]:
+        _check_k1_like(blocks[0], block)
     if variant is not None and variant not in K1_VARIANTS:
         raise ValueError(f"unknown K1 variant {variant!r}")
-    if not stacked.is_cuda:
-        return gather_expr_count_plain(stacked, idxs, tape)
-    u, s, w = stacked.shape
-    if (s * w) % 4 or stacked.data_ptr() % 16:
-        raise ValueError("K1 needs 16-byte aligned planes (S*W % 4 == 0)")
     q = idxs.shape[1]
-    out = torch.zeros(q, dtype=torch.int64, device=stacked.device)
-    if q == 0 or s * w == 0:
-        return out
-    idx_np = np.ascontiguousarray(idxs.numpy())
-    tape_np = np.asarray(tape, dtype=np.int32)
-    if variant != "streaming" and (q > 1 or variant == "staged"):
-        urows, qpos = k1_tiles(idx_np)
-        distinct = max(len(r) for r in urows)
-        if variant is None:
-            variant, stages = k1_plan(distinct, q)
-        else:
-            stages = k1_ring_stages(distinct)
-            if stages < 2:
-                raise ValueError(
-                    f"{distinct} distinct slots do not fit the staged variant's ring "
-                    f"({RING_BYTES // (2 * RING_SLOT_BYTES)} at most)")
-    variant = variant or "streaming"
-    # Tapes with BSI codes run the kernels' instantiation that keeps the
-    # two compare masks; set-op tapes keep the registers for the rest.
-    bsi = has_bsi(tape)
+    outs: List[Optional[torch.Tensor]] = [None] * len(blocks)
+    on_card = []
+    for i, block in enumerate(blocks):
+        if not block.is_cuda:
+            outs[i] = gather_expr_count_plain(block, idxs, tape)
+            continue
+        _, s, w = block.shape
+        if (s * w) % 4 or block.data_ptr() % 16:
+            raise ValueError("K1 needs 16-byte aligned planes (S*W % 4 == 0)")
+        outs[i] = torch.zeros(q, dtype=torch.int64, device=block.device)
+        if q and s * w:
+            on_card.append(i)
+    if not on_card:
+        return outs
+    staging = _K1Staging(idxs, tape, variant)
     lib = load()
-    dev, stream = stacked.device, _stream(stacked)
-    # The library launches on the current device and reads its attributes
-    # (the staged variant's shared-memory limit): make the stack's current.
-    with torch.cuda.device(dev):
-        if variant == "staged":
-            err = _launch_staged(lib, stacked, tape_np, urows, qpos, stages, bsi,
-                                 out, stream)
-        else:
-            buf = _to_device(np.concatenate([tape_np, idx_np.ravel()]), dev)
-            err = lib.pt_k1_streaming(
-                stacked.data_ptr(), s * w, buf.data_ptr(), len(tape_np),
-                buf.data_ptr() + 4 * len(tape_np), q, int(bsi), out.data_ptr(), stream)
-    _check_launch(f"gather_expr_count ({variant})", err)
-    _count(LAUNCHES, "gather_expr_count", f"gather_expr_count_{variant}")
-    return out
+    bufs: Dict[torch.device, torch.Tensor] = {}
+    for i in on_card:
+        block = blocks[i]
+        dev = block.device
+        # The library launches on the current device and reads its
+        # attributes (the staged variant's shared-memory limit): make the
+        # block's current.
+        with torch.cuda.device(dev):
+            if dev not in bufs:
+                bufs[dev] = _to_device(staging.host, dev)
+            err = staging.launch(lib, block, bufs[dev], outs[i])
+        _check_launch(f"gather_expr_count ({staging.variant})", err)
+        _count(LAUNCHES, "gather_expr_count", f"gather_expr_count_{staging.variant}")
+    return outs
 
 
-def _launch_staged(lib, stacked, tape_np, urows, qpos, stages, bsi, out,
-                   stream) -> int:
-    """The staged variant's launch; returns the library's cudaError_t.
-    One buffer: tape | tiles (offset into urows, distinct slots) | urows
-    | qpos."""
-    _, s, w = stacked.shape
-    q, n_leaves = qpos.shape
-    sizes = [len(r) for r in urows]
-    tiles = np.stack([np.cumsum([0] + sizes[:-1]), sizes], axis=1).astype(np.int32)
-    buf = _to_device(np.concatenate([tape_np, tiles.ravel(), *urows, qpos.ravel()]),
-                     stacked.device)
-    tiles_at = buf.data_ptr() + 4 * len(tape_np)
-    urows_at = tiles_at + 4 * tiles.size
-    qpos_at = urows_at + 4 * sum(sizes)
-    return lib.pt_k1_staged(
-        stacked.data_ptr(), s * w, buf.data_ptr(), len(tape_np), n_leaves, tiles_at,
-        len(urows), urows_at, qpos_at, q, max(sizes), stages, int(bsi),
-        out.data_ptr(), stream)
+def _check_k1_like(first: torch.Tensor, block: torch.Tensor) -> None:
+    """A further block of one K1 call: the first block's slots (U), width
+    (W) and dtype, contiguous."""
+    if block.dim() != 3 or block.dtype != first.dtype \
+            or block.shape[0] != first.shape[0] or block.shape[2] != first.shape[2]:
+        raise ValueError(f"block {tuple(block.shape)} {block.dtype} does not match "
+                         f"the first block {tuple(first.shape)} {first.dtype} in U, W "
+                         "and dtype")
+    if not block.is_contiguous():
+        raise ValueError("blocks must be contiguous")
 
 
 # -------------------------------------------------------------------- K2

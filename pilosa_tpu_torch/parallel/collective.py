@@ -19,27 +19,40 @@ Design (the reference's, with its names):
   (already key-translated) call and its canonical plan signature
   (plan/signature.py); every rank plans it itself and refuses on a
   different signature (schema divergence).
-- **Three program kinds, each on its kernel.** `_run_count`: the batch's
-  distinct leaves stacked, K1 (`gather_expr_count`, k1_plan choosing the
-  variant) gives Q int64 counts, then one all_reduce(SUM). `_run_topn`:
-  the filter's plane masks K2 (`masked_plane_counts`) over the candidate
-  rows, summed to (R,), then one all_reduce(SUM). `_run_bsi`: Sum is K2
-  over the (D+1, k, W) planes and one all_reduce; Min/Max is K3
-  (`bsi_minmax`) on each rank, then one all_gather of every rank's
-  (count, bits), combined as K3's own block reduce combines its blocks:
-  ranks with count 0 drop out, the best value wins, and the counts of
-  the ranks holding it add up — one collective where the reference's
-  global bit scan makes D dependent ones. Counts are int64 throughout,
-  so the reference's 15-bit split sums have no counterpart.
-- **Resident blocks.** Each rank keeps its (k, W) leaf blocks and
-  (U, k, W) stacks on its device, invalidated by per-fragment
-  (incarnation, generation) fingerprints, refreshed by a scatter of the
-  dirty words into a clone (as the engine's delta path does), assembled
-  from the tier manager's compressed host image when cold, and demoted
-  through the same tier when evicted.
+- **Each rank over its local partitions.** A rank holds its k shard
+  slots as Blocks over its partitions (the devices of its engine's
+  `[engine] mesh-devices`, or a one-process job's `mesh_devices`:
+  distributed.global_mesh), d_local of them: k pads to a multiple of
+  d_local and slot s lives in partition s // (k / d_local), as the
+  reference shards over its processes' local devices. The descriptor
+  carries the leader's d_local (and a one-process job's meshDevices); a
+  rank holding another number refuses.
+- **Three program kinds, each on its kernel, once per partition.**
+  `_run_count`: each partition's blocks of the batch's distinct leaves
+  stacked, K1 (`gather_expr_count_blocks`: k1_plan and the staging buffer
+  once for the entry) gives Q int64 counts per partition, summed on
+  partition 0's device, then one all_reduce(SUM). `_run_topn`: the
+  filter's plane masks K2 (`masked_plane_counts`) over the candidate
+  rows of each partition, summed to (R,), then one all_reduce(SUM).
+  `_run_bsi`: Sum is K2 over each partition's (D+1, k / d_local, W)
+  planes and one all_reduce; Min/Max is K3 (`bsi_minmax`) on each
+  partition, folded as the engine folds its blocks, then one all_gather
+  of every rank's (count, bits), combined as K3's own block reduce
+  combines its blocks: ranks with count 0 drop out, the best value
+  wins, and the counts of the ranks holding it add up — one collective
+  where the reference's global bit scan makes D dependent ones. Counts
+  are int64 throughout, so the reference's 15-bit split sums have no
+  counterpart.
+- **Resident blocks.** Each rank keeps its leaf Blocks and stack Blocks
+  on its partitions' devices, keyed with the mesh width, invalidated by
+  per-fragment (incarnation, generation) fingerprints, refreshed by a
+  scatter of the dirty words into a clone of the written slot's block
+  (as the engine's delta path does), assembled from the tier manager's
+  compressed host image when cold, and demoted through the same tier
+  when evicted; byte budgets count every block.
 - **Batched entries.** `count_batch` evaluates N same-signature Counts in
-  ONE descriptor: one sequence slot, one barrier, one K1 launch, one
-  reduce. The micro-batcher feeds it (sched/batcher.py collective_count).
+  ONE descriptor: one sequence slot, one barrier, one K1 launch per
+  partition, one reduce. The micro-batcher feeds it (sched/batcher.py collective_count).
 - **Failure semantics.** Every rank passes a named barrier before the
   reduce. Its outcome is one atomic decision in the job's store
   (distributed.barrier): a rank that is late finds `abort` and never
@@ -87,7 +100,7 @@ from .device_health import (
     BARRIER_TIMEOUT, BROADCAST, CollectivePlaneHealth, DeviceKernelFault,
     classify_device_error,
 )
-from .engine import ShardedQueryEngine, _lowered
+from .engine import Blocks, ShardedQueryEngine, _fold_minmax, _lowered
 
 DEFAULT_TIMEOUT_MS = int(os.environ.get("PILOSA_COLLECTIVE_TIMEOUT_MS", "10000"))
 SEQ_KEY = "pilosa-collective/seq"
@@ -169,6 +182,10 @@ class CollectiveBackend:
                     "PILOSA_COLLECTIVE_DELTA_MAX_FRACTION", "0.25")),
             )
         self.config = cfg
+        # The mesh width of a one-process job (the reference's attribute):
+        # N partitions placed as engine_mesh places an engine's; None takes
+        # the engine's own (`[engine] mesh-devices`).
+        self.mesh_devices: Optional[int] = None
         self.enabled = bool(int(cfg.enabled))
         self.single_process = bool(int(cfg.single_process))
         self.timeout_ms = int(cfg.timeout_ms)
@@ -293,6 +310,22 @@ class CollectiveBackend:
         eng = getattr(ex, "_engine", None)
         return getattr(eng, "tier", None)
 
+    def partitions(self, mesh_devices: Optional[int] = None) -> List[torch.device]:
+        """This rank's partition devices (distributed.global_mesh): N
+        placed as engine_mesh places an engine's when `mesh_devices` is N
+        (a one-process descriptor's meshDevices), else the engine's own
+        mesh, from `[engine] mesh-devices` (built or not)."""
+        if mesh_devices:
+            return distributed.global_mesh(mesh_devices, self.holder.device)
+        ex = getattr(self.server, "executor", None)
+        eng = getattr(ex, "_engine", None)
+        if eng is not None:
+            return list(eng.mesh)
+        cfg = getattr(ex, "engine_config", None)
+        n = (cfg.mesh_devices if cfg is not None
+             else int(os.environ.get("PILOSA_TPU_ENGINE_MESH_DEVICES", 0)))
+        return distributed.global_mesh(n, self.holder.device)
+
     # ---------------------------------------------------------- leader side
 
     def count(self, index: str, call) -> int:
@@ -301,7 +334,7 @@ class CollectiveBackend:
 
     def count_batch(self, index: str, calls: Sequence) -> List[int]:
         """N same-canonical-signature Counts in ONE collective entry:
-        one sequence slot, one barrier, one K1 launch per rank, one
+        one sequence slot, one barrier, one K1 launch per partition, one
         reduce. The calls need not be distinct; duplicates compute once
         and fan back out. Returns per-call counts in input order."""
         calls = list(calls)
@@ -380,17 +413,25 @@ class CollectiveBackend:
                     reason="inactive",
                 )
             slots = placement(self.server.cluster, index, n_shards, n_proc)
+            mesh_devices = None
+            d_local = len(self.partitions())
         else:
             slots = [list(range(n_shards))]
-        # One device per rank: k is the largest rank's shard count (the
-        # reference pads it to a multiple of its local device count).
+            mesh_devices = self.mesh_devices
+            d_local = mesh_devices or len(self.partitions())
+        # k: the largest rank's shard count, padded to a multiple of the
+        # partitions per rank. A rank's partitions come from its own
+        # server's settings, so the leader's d_local travels with k and a
+        # rank holding another number refuses (_verify_mesh_layout).
         k = max(max(len(s) for s in slots), 1)
+        k = -(-k // d_local) * d_local
         return {
             "type": "collective-exec", "kind": kind,
             "index": index, "query": query, "queries": queries,
             "field": field, "rows": rows,
             "bsiKind": bsi_kind, "depth": depth, "nShards": n_shards,
-            "slots": slots, "k": k, "processes": n_proc,
+            "slots": slots, "k": k, "dLocal": d_local,
+            "meshDevices": mesh_devices,
             "timeoutMs": self.timeout_ms, "sig": sig,
             # The leader's routing view: peers whose epoch diverges
             # refuse (clean fan-out fallback) rather than contributing
@@ -511,6 +552,7 @@ class CollectiveBackend:
                                         reason="placement")
         if n_proc > 1:
             self._verify_ownership(index, my_shards)
+        mesh = self._verify_mesh_layout(desc, n_proc, k)
 
         kind = desc["kind"]
         queries = desc.get("queries")
@@ -523,13 +565,13 @@ class CollectiveBackend:
             calls = [parse(q).calls[0] for q in queries]
 
         if kind == "count":
-            out = self._run_count(desc, index, calls, my_shards, k, trace)
+            out = self._run_count(desc, index, calls, my_shards, k, mesh, trace)
         elif kind == "topn":
             out = self._run_topn(desc, index, calls[0] if calls else None,
-                                 my_shards, k, trace)
+                                 my_shards, k, mesh, trace)
         elif kind == "bsi":
             out = self._run_bsi(desc, index, calls[0] if calls else None,
-                                my_shards, k, trace)
+                                my_shards, k, mesh, trace)
         else:
             raise CollectiveUnavailable(f"unknown collective kind: {kind}")
         if int(getattr(cluster, "routing_epoch", 0)) != epoch0:
@@ -562,15 +604,30 @@ class CollectiveBackend:
 
     @staticmethod
     def _verify_job(desc: dict, n_proc: int) -> None:
-        """The counterpart of the reference's mesh-layout check: the
-        descriptor was placed for this job's world size (one device per
-        rank, so no device order to verify)."""
-        n_desc = int(desc.get("processes", len(desc["slots"])))
-        if n_desc != n_proc or len(desc["slots"]) != n_proc:
+        """The descriptor was placed for this job's world size."""
+        if len(desc["slots"]) != n_proc:
             raise CollectiveUnavailable(
-                f"descriptor spans {n_desc} processes, job has {n_proc}",
+                f"descriptor spans {len(desc['slots'])} processes, job has {n_proc}",
                 reason="placement",
             )
+
+    def _verify_mesh_layout(self, desc: dict, n_proc: int, k: int) -> List[torch.device]:
+        """This rank's partitions for the entry, checked against the
+        descriptor (the counterpart of the reference's mesh-layout check):
+        the leader's d_local partitions, k a multiple of them, so that slot
+        s lands in partition s // (k / d_local) on every rank. In the
+        reference every process has the same local device count; here a
+        rank's partitions come from its own `[engine] mesh-devices`, so a
+        rank that holds another number refuses."""
+        mesh = self.partitions(desc.get("meshDevices") if n_proc == 1 else None)
+        d_local = int(desc.get("dLocal") or len(mesh))
+        if len(mesh) != d_local or k % d_local:
+            raise CollectiveUnavailable(
+                f"rank {distributed.process_index()} holds {len(mesh)} partitions; "
+                f"the descriptor places k = {k} slots over {d_local} per rank",
+                reason="placement",
+            )
+        return mesh
 
     def _barrier_client(self):
         if self._barrier_store is None:
@@ -735,11 +792,25 @@ class CollectiveBackend:
             out.append((coords, cols, vals))
         return out
 
-    def _delta_scatter(self, arr: torch.Tensor, updates) -> torch.Tensor:
-        """Apply (coords, cols, vals) updates to this rank's resident block
-        through a clone (readers holding the old tensor keep it), as the
-        engine's delta path does: a 1-bit write moves a few scattered
-        words, not the plane."""
+    def _delta_scatter(self, arr: Blocks, updates) -> Blocks:
+        """Apply (coords, cols, vals) updates to this rank's resident
+        blocks, each in its own partition's block (slot s in block
+        s // (k / d_local)), through a clone of the touched blocks only
+        (readers holding the old ones keep them), as the engine's delta
+        path does: a 1-bit write moves a few scattered words, not the
+        plane."""
+        per = arr[0].shape[-2]
+        by_part: Dict[int, List] = {}
+        for coords, cols, vals in updates:
+            local = coords[:-1] + (coords[-1] % per,)
+            by_part.setdefault(coords[-1] // per, []).append((local, cols, vals))
+        out = list(arr)
+        for p, part in by_part.items():
+            out[p] = self._scatter(arr[p], part)
+        return Blocks(out)
+
+    @staticmethod
+    def _scatter(arr: torch.Tensor, updates) -> torch.Tensor:
         ix = [np.concatenate([np.full(len(c), co[a], np.int64)
                               for co, c, _ in updates])
               for a in range(arr.dim() - 1)]
@@ -750,9 +821,6 @@ class CollectiveBackend:
         new[tuple(torch.from_numpy(a).to(dev) for a in ix)] = \
             torch.from_numpy(vals.view(np.int32)).to(dev)
         return new
-
-    def _upload(self, block: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(block.view(np.int32)).to(self.holder.device)
 
     def _byte_put(self, cache: Dict, key, entry: Tuple, budget: int,
                   used: int, evicted: Optional[List] = None) -> int:
@@ -796,12 +864,15 @@ class CollectiveBackend:
                     self._count("demotions")
 
     def _global_leaf(self, index: str, leaf, my_shards: List[int],
-                     k: int) -> torch.Tensor:
-        """This rank's (k, W) block of one leaf — RESIDENT: cached per
-        process, invalidated by this process's own fragment generations,
-        delta-refreshed from the dirty-word journals, and assembled from
-        the compressed tier image when cold."""
-        key = (index, leaf, tuple(my_shards), k)
+                     k: int, mesh: Sequence[torch.device]) -> Blocks:
+        """This rank's (k, W) block of one leaf, held as Blocks of
+        k / d_local slots over its partitions `mesh` — RESIDENT: cached
+        per process, invalidated by this process's own fragment
+        generations, delta-refreshed from the dirty-word journals, and
+        assembled from the compressed tier image when cold."""
+        # The mesh width in the key, as the reference's: the same shards
+        # and k over another number of partitions is another layout.
+        key = (index, leaf, tuple(my_shards), k, len(mesh))
         frags = [self.holder.fragment(index, leaf.field, leaf.view, s)
                  for s in my_shards]
         fp = self._leaf_fingerprint(index, leaf, my_shards, frags)
@@ -841,7 +912,7 @@ class CollectiveBackend:
         tier_hit = block is not None
         if block is None:
             block = self._local_block(index, leaf, my_shards, k, frags)
-        arr = self._upload(block)
+        arr = distributed.make_global_planes(block, mesh)
         with self._lock:
             if tier_hit:
                 self.counters["tier_promotes"] += 1
@@ -854,13 +925,14 @@ class CollectiveBackend:
         return arr
 
     def _global_stack(self, index: str, leaves, my_shards: List[int],
-                      k: int) -> torch.Tensor:
-        """This rank's (L, k, W) stack of leaves (TopN rows, BSI planes)
-        — RESIDENT like the leaves: fingerprint-invalidated,
+                      k: int, mesh: Sequence[torch.device]) -> Blocks:
+        """This rank's (L, k, W) stack of leaves (TopN rows, BSI planes),
+        held as Blocks of (L, k / d_local, W) over its partitions —
+        RESIDENT like the leaves: fingerprint-invalidated,
         delta-refreshed, LRU-bounded. BSI plane sets are stable per field;
         TopN candidate stacks cache per rows-tuple."""
         leaves = list(leaves)
-        key = (index, tuple(leaves), tuple(my_shards), k)
+        key = (index, tuple(leaves), tuple(my_shards), k, len(mesh))
         frags = [
             [self.holder.fragment(index, leaf.field, leaf.view, s)
              for s in my_shards]
@@ -918,7 +990,7 @@ class CollectiveBackend:
                 block = self._local_block(index, leaf, my_shards, k, frags[u])
             blocks.append(block)
         block = np.stack(blocks)
-        arr = self._upload(block)
+        arr = distributed.make_global_planes(block, mesh)
         with self._lock:
             self.counters["full_refreshes"] += 1
             self.counters["full_refresh_bytes"] += int(block.nbytes)
@@ -964,23 +1036,27 @@ class CollectiveBackend:
                 reason="schema",
             )
 
-    def _filter(self, desc, index: str, call, my_shards: List[int], k: int):
+    def _filter(self, desc, index: str, call, my_shards: List[int], k: int, mesh):
         """(lowered filter, its leaf blocks, signature) of a TopN source
         or BSI filter; (None, None, ()) without one."""
         if call is None:
             return None, None, ()
         plan = self._compile(index, call)
         self._check_sig(desc, plan)
-        leaves = tuple(self._global_leaf(index, leaf, my_shards, k)
+        leaves = tuple(self._global_leaf(index, leaf, my_shards, k, mesh)
                        for leaf in plan.leaves)
         sig = self._sig_tuple(plan)
         return self._fn(("filter", sig), lambda: _lowered(plan)), leaves, sig
 
     @staticmethod
-    def _mask(low, leaves) -> Optional[torch.Tensor]:
-        return None if low is None else low.bitmap(leaves).contiguous()
+    def _masks(low, leaves, n: int) -> List[Optional[torch.Tensor]]:
+        """The filter's plane on each of the n partitions (None: none)."""
+        if low is None:
+            return [None] * n
+        return [low.bitmap(tuple(leaf[p] for leaf in leaves)).contiguous()
+                for p in range(n)]
 
-    def _run_count(self, desc, index, calls, my_shards, k, trace=None):
+    def _run_count(self, desc, index, calls, my_shards, k, mesh, trace=None):
         # Duplicates (N clients asking the SAME hot query) compute once.
         queries = [str(c) for c in calls]
         uniq: Dict[str, int] = {}
@@ -992,7 +1068,7 @@ class CollectiveBackend:
         plans = [self._compile(index, c) for c in ucalls]
         for plan in plans:
             self._check_sig(desc, plan)
-        blocks = {leaf: self._global_leaf(index, leaf, my_shards, k)
+        blocks = {leaf: self._global_leaf(index, leaf, my_shards, k, mesh)
                   for plan in plans for leaf in plan.leaves}
         slots, idxs, inverse, _ = ShardedQueryEngine._batch_slot_gather(
             plans, len(plans))
@@ -1000,28 +1076,35 @@ class CollectiveBackend:
                         lambda: _lowered(plans[0]).tape)
 
         def compute():
-            stacked = torch.stack([blocks[leaf] for leaf in slots])  # (U, k, W)
-            counts = self._launch(lambda: kernels.gather_expr_count(
-                stacked, torch.from_numpy(np.stack(idxs)), tape))
+            # Each partition's (U, k / d_local, W) stack of the batch's
+            # leaves; K1 once per partition, staged once for the entry.
+            stacks = [torch.stack([blocks[leaf][p] for leaf in slots])
+                      for p in range(len(mesh))]
+            counts = self._launch(lambda: _fold_sum(kernels.gather_expr_count_blocks(
+                stacks, torch.from_numpy(np.stack(idxs)), tape)))
             return counts if inverse is None else counts[torch.from_numpy(inverse)]
 
         totals = self._settle(desc, trace, len(plans), compute).numpy()
         return totals[[uniq[q] for q in queries]]
 
-    def _run_topn(self, desc, index, call, my_shards, k, trace=None):
+    def _row_totals(self, stacked: Blocks, low, flt) -> torch.Tensor:
+        """K2 once per partition over its (R, k / d_local, W) block, each
+        masked by the filter's plane there; the (R,) int64 row totals
+        summed on partition 0's device, then brought to the host."""
+        return self._launch(lambda: _fold_sum([
+            kernels.masked_plane_counts(b, m).sum(dim=1, dtype=torch.int64)
+            for b, m in zip(stacked, self._masks(low, flt, len(stacked)))]))
+
+    def _run_topn(self, desc, index, call, my_shards, k, mesh, trace=None):
         field = desc["field"]
         rows = [int(r) for r in desc["rows"]]
         leaves = [Leaf(field, VIEW_STANDARD, r) for r in rows]
-        stacked = self._global_stack(index, leaves, my_shards, k)  # (R, k, W)
-        low, flt, _ = self._filter(desc, index, call, my_shards, k)
+        stacked = self._global_stack(index, leaves, my_shards, k, mesh)
+        low, flt, _ = self._filter(desc, index, call, my_shards, k, mesh)
+        return self._settle(desc, trace, len(rows),
+                            lambda: self._row_totals(stacked, low, flt)).numpy()
 
-        def compute():
-            return self._launch(lambda: kernels.masked_plane_counts(
-                stacked, self._mask(low, flt)).sum(dim=1, dtype=torch.int64))
-
-        return self._settle(desc, trace, len(rows), compute).numpy()
-
-    def _run_bsi(self, desc, index, call, my_shards, k, trace=None):
+    def _run_bsi(self, desc, index, call, my_shards, k, mesh, trace=None):
         field = desc["field"]
         depth = int(desc["depth"])
         kind = desc["bsiKind"]
@@ -1038,26 +1121,39 @@ class CollectiveBackend:
             )
         view = VIEW_BSI_GROUP_PREFIX + field
         leaves = [Leaf(field, view, i) for i in range(depth + 1)]
-        planes = self._global_stack(index, leaves, my_shards, k)  # (D+1, k, W)
-        low, flt, _ = self._filter(desc, index, call, my_shards, k)
+        planes = self._global_stack(index, leaves, my_shards, k, mesh)
+        low, flt, _ = self._filter(desc, index, call, my_shards, k, mesh)
         if kind == "sum":
-            def total():
-                return self._launch(lambda: kernels.masked_plane_counts(
-                    planes, self._mask(low, flt)).sum(dim=1, dtype=torch.int64))
-
-            return self._settle(desc, trace, depth + 1, total).numpy()
+            return self._settle(desc, trace, depth + 1,
+                                lambda: self._row_totals(planes, low, flt)).numpy()
         maximize = kind == "max"
 
         def scan():
+            # K3 once per partition; its (count, bits) rows joined on
+            # partition 0's device, brought to the host once, and folded
+            # as the engine folds its blocks (_fold_minmax).
             def run():
-                bits, count = kernels.bsi_minmax(
-                    planes, self._mask(low, flt), maximize=maximize)
-                return torch.cat([count.reshape(1), bits.to(torch.int64)])
+                rows = []
+                for b, m in zip(planes, self._masks(low, flt, len(planes))):
+                    bits, count = kernels.bsi_minmax(b, m, maximize=maximize)
+                    rows.append(torch.cat([count.reshape(1), bits.to(torch.int64)]))
+                return torch.stack([r.to(rows[0].device) for r in rows])
 
-            return self._launch(run)
+            parts = self._launch(run).numpy()
+            bits, count = _fold_minmax([(r[1:], int(r[0])) for r in parts], maximize)
+            return torch.from_numpy(np.concatenate([[count], bits]).astype(np.int64))
 
         ranks = self._settle(desc, trace, depth + 1, scan, gather=True).numpy()
         return combine_minmax(ranks, depth, maximize)
+
+
+def _fold_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The partitions' partial results summed on partition 0's device
+    (the reference's psum over the shard axis)."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part.to(total.device)
+    return total
 
 
 def combine_minmax(ranks: np.ndarray, depth: int, maximize: bool):

@@ -3,10 +3,11 @@
 The counterpart of pilosa_tpu/parallel/distributed.py. The reference
 joins every host process to one `jax.distributed` job and reduces over a
 global device mesh with XLA-inserted collectives. Here every server
-process joins one `torch.distributed` process group; each rank owns one
-device and the shard planes its node serves, runs the port's hand
-kernels (ops/kernels.py) over its own block, and the ranks combine their
-results with one host reduce.
+process joins one `torch.distributed` process group; each rank holds the
+shard planes its node serves over its own partitions (its engine's
+`[engine] mesh-devices`, parallel/mesh.py), runs the port's hand kernels
+(ops/kernels.py) once per partition, folds the partitions' results on
+partition 0's device, and the ranks combine them with one host reduce.
 
 Why gloo: every reduce of the collective plane carries at most a few
 hundred int64 values (Q counts, R TopN counts, D+1 Sum planes, or one
@@ -16,9 +17,12 @@ two ranks on one device, which is how the plane runs on a one-card
 machine. An NCCL group for ranks that each own a card is later work
 (ROADMAP).
 
-There is no counterpart of the reference's `global_mesh` or
-`make_global_planes`: the process group is the mesh, and a rank's block
-of shard planes is a plain (k, W) tensor on its own device.
+The job's mesh is every rank's partitions in rank order, d_local of them
+per rank: `global_mesh` gives this rank's partition devices, and
+`make_global_planes` splits this rank's (k, W) block of shard planes
+(k a multiple of d_local) into one block of k / d_local slots per
+partition, as the reference's global mesh shards its (S_padded, W)
+arrays over the devices of every process.
 
 The rendezvous is one `TCPStore` at the coordinator address (rank 0
 hosts it). The process group keeps its keys under one prefix; the
@@ -38,11 +42,14 @@ import datetime
 import os
 import threading
 import time
-from typing import Optional
+from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..ops import kernels
+from .engine import Blocks
+from .mesh import engine_mesh
 
 DEFAULT_TIMEOUT_MS = 10000
 BARRIER_PREFIX = "pilosa-collective/barrier"
@@ -215,13 +222,43 @@ def all_gather(values: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
-def process_shard_slots(n_shards: int) -> tuple:
+def global_mesh(limit: Optional[int] = None, device=None) -> List[torch.device]:
+    """This rank's share of the job's mesh: the devices of its partitions,
+    `limit` of them placed over the local devices of `device`'s kind as
+    parallel/mesh.py engine_mesh places an engine's (0 or None: one per
+    local device; a device naming a card keeps them all on that card).
+    The counterpart of the reference's global_mesh(limit); the ranks'
+    meshes in rank order make the job's."""
+    return engine_mesh(int(limit or 0), device)
+
+
+def make_global_planes(local_planes: Union[np.ndarray, torch.Tensor],
+                       mesh: Sequence) -> Blocks:
+    """This rank's (k, W) block of shard planes (or an (L, k, W) stack of
+    them; uint32 or int32) split into len(mesh) blocks of k / d_local
+    slots along the shard axis, block p uploaded to mesh[p]: slot s lives
+    in partition s // (k / d_local). `local_planes` must be exactly this
+    rank's padded slot range (process_shard_slots)."""
+    if isinstance(local_planes, np.ndarray):
+        local_planes = torch.from_numpy(np.ascontiguousarray(local_planes).view(np.int32))
+    d_local = len(mesh)
+    k = local_planes.shape[-2]
+    if k % d_local:
+        raise ValueError(f"{k} slots do not split over {d_local} partitions")
+    per = k // d_local
+    return Blocks(local_planes.narrow(-2, p * per, per).contiguous().to(dev)
+                  for p, dev in enumerate(mesh))
+
+
+def process_shard_slots(n_shards: int, d_local: int = 1) -> tuple:
     """(global_padded, lo, hi): this rank's contiguous slot range after
-    padding the shard axis to a multiple of the world size, one device
-    per rank (the reference pads to the global device count)."""
-    n = process_count()
+    padding the shard axis to a multiple of the job's partition count,
+    world size x d_local (the reference pads to the global device count).
+    Block placement, as the reference's: rank r holds d_local runs of
+    global_padded / (world x d_local) slots."""
+    n = process_count() * int(d_local)
     padded = -(-n_shards // n) * n
-    per = padded // n
+    per = padded // process_count()
     lo = process_index() * per
     return padded, lo, lo + per
 
@@ -230,23 +267,33 @@ _ONE_LEAF = (kernels.OP_PUSH,)
 _AND = (kernels.OP_PUSH, (kernels.OP_ACC | kernels.OP_AND) | 1 << 8)
 
 
-def _k1_total(planes, tape) -> int:
-    """K1 over this rank's stacked (L, k, W) block, then one int64
+def _blocks(planes) -> Blocks:
+    return planes if isinstance(planes, Blocks) else Blocks([planes])
+
+
+def _k1_total(stacks: Sequence[torch.Tensor], tape) -> int:
+    """K1 over this rank's (L, k_p, W) stack of each partition, the
+    partitions' counts summed on partition 0's device, then one int64
     all_reduce(SUM) of the count."""
-    idxs = torch.arange(planes.shape[0], dtype=torch.int32).reshape(-1, 1)
-    local = kernels.gather_expr_count(planes.contiguous(), idxs, tape)
+    idxs = torch.arange(stacks[0].shape[0], dtype=torch.int32).reshape(-1, 1)
+    parts = kernels.gather_expr_count_blocks(stacks, idxs, tape)
+    local = parts[0]
+    for part in parts[1:]:
+        local = local + part.to(local.device)
     return int(all_reduce_sum(local.cpu())[0])
 
 
-def global_count(planes: torch.Tensor) -> int:
-    """Popcount-sum over every rank's (k, W) int32 block of shard planes:
-    K1 with a one-leaf tape over the local block, then one int64
-    all_reduce(SUM). Counts are int64, so the reference's 15-bit split
-    sum has no counterpart."""
-    return _k1_total(planes.unsqueeze(0), _ONE_LEAF)
+def global_count(planes: Union[torch.Tensor, Blocks]) -> int:
+    """Popcount-sum over every rank's (k, W) int32 block of shard planes
+    (a tensor, or Blocks over its partitions): K1 with a one-leaf tape per
+    partition, then one int64 all_reduce(SUM). Counts are int64, so the
+    reference's 15-bit split sum has no counterpart."""
+    return _k1_total([b.unsqueeze(0).contiguous() for b in _blocks(planes)], _ONE_LEAF)
 
 
-def global_and_count(planes_a: torch.Tensor, planes_b: torch.Tensor) -> int:
+def global_and_count(planes_a: Union[torch.Tensor, Blocks],
+                     planes_b: Union[torch.Tensor, Blocks]) -> int:
     """Count(Intersect) over every rank's blocks: K1 with a two-leaf AND
-    tape over the local pair, then one int64 all_reduce(SUM)."""
-    return _k1_total(torch.stack([planes_a, planes_b]), _AND)
+    tape over each partition's pair, then one int64 all_reduce(SUM)."""
+    return _k1_total([torch.stack([a, b]) for a, b in
+                      zip(_blocks(planes_a), _blocks(planes_b))], _AND)

@@ -1639,9 +1639,11 @@ class ShardedQueryEngine:
     @staticmethod
     def _k1(stacked: Blocks, idxs: torch.Tensor, tape) -> torch.Tensor:
         """K1 launched on every partition's block before any result is
-        read; the partial (Q,) int64 counts summed on partition 0's device
-        (the reference's psum over the shard axis)."""
-        parts = [kernels.gather_expr_count(block, idxs, tape) for block in stacked]
+        read, its host work and staging done once for the call
+        (kernels.gather_expr_count_blocks); the partial (Q,) int64 counts
+        summed on partition 0's device (the reference's psum over the
+        shard axis)."""
+        parts = kernels.gather_expr_count_blocks(stacked, idxs, tape)
         total = parts[0]
         for part in parts[1:]:
             total = total + part.to(total.device)
@@ -2005,16 +2007,21 @@ class ShardedQueryEngine:
         self._aux_store(mkey, fp, value)
         return value
 
-    def supports(self, call: Call, index: str):
+    def supports(self, call: Call, index: Optional[str] = None):
         """The compile gate (engine.py:2138-2163 of the JAX package): the
         tree's plan when the plan compiler lowers it onto the engine, else
         False — the executor then walks the tree shard by shard. The
         compiler alone decides (holder lookups, no device work), so e.g. a
         time Range over a field without a quantum, over no populated
         views or over more than 256 views is refused here and answered by
-        the walk. Refusals are counted: a climbing count on a workload
+        the walk. Without `index` (a caller that does not know it yet) the
+        check is syntactic (True) and time Ranges are refused, as in the
+        JAX package. Refusals are counted: a climbing count on a workload
         that should compile is the signal a gate bug would otherwise bury."""
         try:
+            if index is None:
+                self._compile_check(call)
+                return True
             return self.plan(index, call)
         except Exception:
             # Any planning failure (schema, query and timestamp errors, a
@@ -2023,3 +2030,16 @@ class ShardedQueryEngine:
             with self._lock:
                 self.counters["compile_gate_refusals"] += 1
             return False
+
+    def _compile_check(self, call: Call) -> None:
+        if call.name == "Row":
+            return
+        if call.name in ("Intersect", "Union", "Difference", "Xor"):
+            if not call.children:
+                raise QueryError("empty")
+            for ch in call.children:
+                self._compile_check(ch)
+            return
+        if call.name == "Range" and call.has_condition_arg():
+            return
+        raise QueryError(f"not fast-path: {call.name}")

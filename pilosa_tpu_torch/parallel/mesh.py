@@ -12,7 +12,8 @@ A list may name a device more than once: N partitions on one card (or on
 the CPU) are the port's counterpart of the reference's virtual CPU
 devices, which torch does not have. `engine_mesh(n)` places N partitions
 round-robin over the local devices, so on a host with at least N cards
-it is the reference's placement and on one card it is N partitions there.
+it is the reference's placement and on one card it is N partitions there;
+a process given one card by name ("cuda:r") keeps all N on it.
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ SHARD_AXIS = "shards"
 
 
 def local_devices(device=None) -> List[torch.device]:
-    """This process's devices of `device`'s kind: every card (for a card
-    device, starting at its index when it names one), or the CPU alone."""
+    """This process's devices of `device`'s kind: every card for "cuda",
+    the one card a device such as "cuda:2" names (a process given a card
+    keeps its partitions there: a rank of a collective job on a host of
+    several cards must not spread over the other ranks' cards), or the
+    CPU alone."""
     dev = torch.device(device) if device is not None else torch.device("cuda")
     if dev.type != "cuda":
         return [torch.device(dev.type)]
@@ -34,8 +38,11 @@ def local_devices(device=None) -> List[torch.device]:
     if n == 0:
         raise RuntimeError("no CUDA device available; pass device='cpu' "
                            "to run the engine on the CPU")
-    first = dev.index or 0
-    return [torch.device("cuda", (first + i) % n) for i in range(n)]
+    if dev.index is not None:
+        if dev.index >= n:
+            raise RuntimeError(f"device {dev} requested; the host has {n} cards")
+        return [dev]
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def default_mesh(devices: Optional[Sequence] = None,

@@ -733,11 +733,15 @@ class Handler:
         # together, so the consumer computes staleness entirely from
         # leader-side times (its own clock never enters the formula).
         head_pos, head_time = self.api.server.cdc.head(index)
-        return (200, "application/octet-stream", data,
-                {"X-Pilosa-Cdc-Next": str(nxt),
-                 "X-Pilosa-Cdc-Incarnation": incarnation,
-                 "X-Pilosa-Cdc-Head-Pos": str(head_pos),
-                 "X-Pilosa-Cdc-Head-Time": repr(head_time)})
+        headers = {"X-Pilosa-Cdc-Next": str(nxt),
+                   "X-Pilosa-Cdc-Incarnation": incarnation,
+                   "X-Pilosa-Cdc-Head-Pos": str(head_pos),
+                   "X-Pilosa-Cdc-Head-Time": repr(head_time)}
+        # Data older than capture lives only in base images: a consumer
+        # at cursor 0 learns here that it must bootstrap first.
+        if self.api.server.cdc.has_bases(index):
+            headers["X-Pilosa-Cdc-Bases"] = "1"
+        return (200, "application/octet-stream", data, headers)
 
     def handle_cdc_bootstrap(self, query, **kw):
         """GET /cdc/bootstrap?index=X — snapshot re-seed for a consumer

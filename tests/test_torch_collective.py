@@ -18,9 +18,13 @@ that receives descriptors late (after the leader's barrier timed out)
 never enters them, and a peer that drops descriptors makes the leader
 fall back to the HTTP fan-out instead of hanging.
 
-The reference's mesh-width test (test_mesh_width_never_aliases_resident_
-planes) has no counterpart: a rank owns one device, so there is no mesh
-width to vary.
+A rank holds its k slots as Blocks over its own partitions (its
+engine's `[engine] mesh-devices`; one-process jobs take the backend's
+`mesh_devices`, as the reference's does): the mesh width is part of every
+resident key (the mirror of test_mesh_width_never_aliases_resident_
+planes), a write refreshes only its slot's block, and a rank whose
+partition count differs from the descriptor's refuses as a placement
+error.
 """
 
 import datetime
@@ -558,6 +562,114 @@ def test_enter_refuses_a_descriptor_of_another_job_size(holder):
         backend.close()
 
 
+def test_mesh_width_never_aliases_resident_planes(holder):
+    """The resident-cache key carries the mesh width. n_shards=4 pads to
+    k=4 at both mesh_devices=4 and =2, so without the width in the key
+    the second count would resident-hit the 4-partition layout's blocks."""
+    _, exp = _plant(holder)
+    backend, _ = _pod(holder)
+    try:
+        c = _call("Count(Intersect(Row(f=1), Row(f=2)))")
+        want = len(exp[1] & exp[2])
+        backend.mesh_devices = 4
+        assert backend.count("ci", c) == want
+        full0 = backend.counters["full_refreshes"]
+        backend.mesh_devices = 2
+        assert backend.count("ci", c) == want
+        assert backend.counters["full_refreshes"] > full0
+    finally:
+        backend.close()
+
+
+def test_resident_blocks_split_over_partitions_and_refresh_one_block(holder):
+    """At mesh width 3, 4 shards pad to k = 6: each resident leaf is three
+    blocks of two slots (slot s in block s // 2, padding zero), and a Set
+    in shard 3 refreshes block 1 alone by a delta."""
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+    from pilosa_tpu_torch.parallel.engine import Blocks, Leaf
+
+    _, exp = _plant(holder)
+    backend, _ = _pod(holder)
+    try:
+        backend.mesh_devices = 3
+        c = _call("Count(Row(f=1))")
+        assert backend.count("ci", c) == len(exp[1])
+        desc = backend._descriptor("count", "ci", queries=[str(c)])
+        assert (desc["k"], desc["dLocal"], desc["meshDevices"]) == (6, 3, 3)
+        mesh = backend.partitions(3)
+        leaf = Leaf("f", "standard", 1)
+        before = backend._global_leaf("ci", leaf, [0, 1, 2, 3], 6, mesh)
+        assert isinstance(before, Blocks) and [tuple(b.shape) for b in before] == \
+            [(2, 32768)] * 3
+        assert not before[2][1].any()  # padding slot 5
+        col = next(x for x in range(2048) if 3 * SHARD_WIDTH + x not in exp[1])
+        holder.index("ci").field("f").set_bit(1, 3 * SHARD_WIDTH + col)
+        deltas = backend.counters["delta_hits"]
+        after = backend._global_leaf("ci", leaf, [0, 1, 2, 3], 6, mesh)
+        assert backend.counters["delta_hits"] == deltas + 1
+        assert [p for p in range(3) if after[p] is not before[p]] == [1]
+        assert backend.count("ci", c) == len(exp[1]) + 1
+    finally:
+        backend.close()
+
+
+def test_resident_stack_refreshes_the_written_partition_only(holder):
+    """A BSI stack at mesh width 2 (4 shards, k = 4, two per block): a
+    SetValue in shard 2 refreshes block 1 by a delta, block 0 is the same
+    tensor, and Sum and Max see the write."""
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    idx, _ = _plant(holder)
+    v = idx.create_field_if_not_exists("v", FieldOptions(type="int", min=0, max=1000))
+    rng = np.random.default_rng(5)
+    cols = [int(s * SHARD_WIDTH + c) for s in range(4) for c in rng.choice(2048, 40, False)]
+    vals = [int(x) for x in rng.integers(0, 900, len(cols))]
+    v.import_value(cols, vals)
+    backend, _ = _pod(holder)
+    try:
+        backend.mesh_devices = 2
+        depth = v.bsi_group("v").bit_depth()
+        assert backend.bsi_val_count("ci", "v", "sum", depth).tolist()[-1] == len(cols)
+        planes = list(backend._stack_cache.values())[0][1]
+        deltas = backend.counters["delta_hits"]
+        v.set_value(2 * SHARD_WIDTH + 4095, 999)
+        bits, count = backend.bsi_val_count("ci", "v", "max", depth)
+        assert (int(sum(int(b) << i for i, b in enumerate(bits))), count) == (999, 1)
+        assert backend.counters["delta_hits"] == deltas + 1
+        after = list(backend._stack_cache.values())[0][1]
+        assert after[0] is planes[0] and after[1] is not planes[1]
+        sums = backend.bsi_val_count("ci", "v", "sum", depth).tolist()
+        assert sums[-1] == len(cols) + 1
+    finally:
+        backend.close()
+
+
+def test_a_rank_with_another_partition_count_refuses(holder, monkeypatch):
+    """In the reference every process has the same local device count; a
+    port rank's partitions come from its own server, so a rank whose
+    count differs from the descriptor's d_local refuses as a placement
+    error (the counterpart of the mesh-layout check)."""
+    _plant(holder)
+    backend, server = _pod(holder)
+    monkeypatch.setattr(distributed, "process_count", lambda: 2)
+    server.cluster.nodes.append(Node(id="n1", process_idx=1))
+    server.cluster.node.process_idx = 0
+    monkeypatch.setattr(backend, "_verify_ownership", lambda *a: None)
+    try:
+        desc = {"seq": 1, "type": "collective-exec", "kind": "count",
+                "index": "ci", "queries": ["Row(f=1)"], "slots": [[0, 1], [2, 3]],
+                "k": 2, "dLocal": 2, "meshDevices": None, "timeoutMs": 1000,
+                "sig": None, "epoch": 0}
+        assert len(backend.partitions()) == 1  # this rank's engine: one partition
+        with pytest.raises(CollectiveUnavailable, match="partitions") as ei:
+            backend._enter(desc)
+        assert ei.value.reason == "placement"
+        assert backend.counters["reduces"] == 0
+    finally:
+        backend.close()
+
+
 def test_enter_discards_result_when_epoch_advances_mid_execution(holder):
     """A cutover committing while planes are being assembled discards the
     collective result; the leader re-runs through the fan-out."""
@@ -771,7 +883,7 @@ def test_kernel_fault_in_an_entry_raises_out_of_execute(holder, monkeypatch):
     def fault(*a, **kw):
         raise DeviceKernelFault("runtime", None, "planted fault")
 
-    monkeypatch.setattr(collective.kernels, "gather_expr_count", fault)
+    monkeypatch.setattr(collective.kernels, "gather_expr_count_blocks", fault)
     try:
         with pytest.raises(DeviceKernelFault, match="planted"):
             ex.execute("ci", "Count(Intersect(Row(f=1), Row(f=2)))")
@@ -779,7 +891,7 @@ def test_kernel_fault_in_an_entry_raises_out_of_execute(holder, monkeypatch):
         assert Peer.asked == 0
         assert backend.counters["reduces"] == 1  # the rank still reduced
         # A build failure passes through the same way.
-        monkeypatch.setattr(collective.kernels, "gather_expr_count",
+        monkeypatch.setattr(collective.kernels, "gather_expr_count_blocks",
                             lambda *a, **kw: (_ for _ in ()).throw(
                                 kernels.KernelBuildError("no nvcc")))
         with pytest.raises(kernels.KernelBuildError):

@@ -7,12 +7,19 @@ data: answers must be exactly equal (tolerance 0).
    Difference and a Range(v != x) (zero padding must not add to a
    count), topn_counts with and without a source, and bsi_val_count for
    sum, min and max with, without and with an empty filter.
-2. A two-rank port job (two Server processes over gloo, each rank
+2. The same backends with the mesh width set to N = 2, 3 (5 shards
+   padded to 6) and 8: the reference on N devices of its CPU mesh, the
+   port on N partitions of the CPU; equal descriptors' k, Counts,
+   count_batch with duplicates, TopN with and without a filter and
+   Sum/Min/Max with the maximum tied across partitions, each kernel
+   called once per partition.
+3. A two-rank port job (two Server processes over gloo, each rank
    counting only the shards its placement gives it) against one
    pilosa_tpu node holding all the data, through Executor.execute:
    Counts, TopN, Sum/Min/Max, with the maximum of v planted in every
    shard so that Max is tied across the ranks — the collective rung
-   counts every column that holds it, as one node does.
+   counts every column that holds it, as one node does. Once with one
+   partition per rank, once with `[engine] mesh-devices 2` per rank.
 """
 
 import json
@@ -166,6 +173,83 @@ def test_bsi_val_count_equals_the_reference(pods, kind, flt):
             assert got[1] == N_SHARDS  # V_TOP in every shard
 
 
+# ----------------------- one process over N partitions vs the N-device mesh
+
+
+@pytest.fixture(params=[2, 3, 8], ids=lambda n: f"N{n}")
+def mesh_pods(pods, request):
+    """The pods with both backends' mesh width set to N: the reference's
+    on N devices of its CPU test mesh, the port's on N partitions of the
+    CPU. 5 shards pad to k = 6 at N = 2 and 3, and to 8 at N = 8."""
+    jb, tb, jh = pods
+    jb.mesh_devices = tb.mesh_devices = request.param
+    yield jb, tb, jh, request.param
+    jb.mesh_devices = tb.mesh_devices = None
+
+
+def test_descriptors_k_equal_across_packages(mesh_pods):
+    jb, tb, _, n = mesh_pods
+    c = both("Count(Row(f=1))")
+    jd = jb._descriptor("count", "ci", queries=[str(c[0])])
+    td = tb._descriptor("count", "ci", queries=[str(c[1])])
+    assert td["k"] == jd["k"] == -(-N_SHARDS // n) * n
+    assert td["meshDevices"] == jd["meshDevices"] == n
+    assert td["dLocal"] == n
+
+
+def test_mesh_counts_equal_the_reference(mesh_pods):
+    """Count, and count_batch with duplicates, over N partitions: K1 once
+    per partition per entry (the plain twin's calls, on the CPU)."""
+    from pilosa_tpu_torch.ops import kernels
+
+    jb, tb, _, n = mesh_pods
+    args = [(1, 2), (2, 5), (6, 4), (1, 2), (5, 4), (1, 2)]
+    pairs = [both(BATCHES["intersect"].format(a=a, b=b)) for a, b in args]
+    before = kernels.PLAIN_CALLS["gather_expr_count"]
+    got = tb.count_batch("ci", [t for _, t in pairs])
+    assert kernels.PLAIN_CALLS["gather_expr_count"] - before == n
+    assert got == jb.count_batch("ci", [j for j, _ in pairs])
+    for shape in ("difference-range", "between"):
+        j, t = both(BATCHES[shape].format(a=3, b=5))
+        assert tb.count("ci", t) == jb.count("ci", j)
+
+
+@pytest.mark.parametrize("src", [None, "Count(Row(f=2))"], ids=["no-filter", "filter"])
+def test_mesh_topn_equals_the_reference(mesh_pods, src):
+    from pilosa_tpu_torch.ops import kernels
+
+    jb, tb, _, n = mesh_pods
+    rows = [6, 1, 3, 2, 9]
+    jsrc, tsrc = both(src) if src else (None, None)
+    before = kernels.PLAIN_CALLS["masked_plane_counts"]
+    got = tb.topn_counts("ci", "f", rows, tsrc)
+    assert kernels.PLAIN_CALLS["masked_plane_counts"] - before == n
+    assert got.tolist() == np.asarray(jb.topn_counts("ci", "f", rows, jsrc)).tolist()
+
+
+@pytest.mark.parametrize("flt", [None, "Count(Row(f=4))"], ids=["no-filter", "filter"])
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+def test_mesh_bsi_val_count_equals_the_reference(mesh_pods, kind, flt):
+    """Sum, Min and Max over N partitions; V_TOP sits in every shard, so
+    the maximum ties across partitions and every holder counts."""
+    from pilosa_tpu_torch.ops import kernels
+
+    jb, tb, jh, n = mesh_pods
+    depth = jh.index("ci").field("v").bsi_group("v").bit_depth()
+    jf, tf = both(flt) if flt else (None, None)
+    name = "masked_plane_counts" if kind == "sum" else "bsi_minmax"
+    before = kernels.PLAIN_CALLS[name]
+    got = tb.bsi_val_count("ci", "v", kind, depth, tf)
+    assert kernels.PLAIN_CALLS[name] - before == n
+    want = jb.bsi_val_count("ci", "v", kind, depth, jf)
+    if kind == "sum":
+        assert got.tolist() == np.asarray(want).tolist()
+    else:
+        assert (got[0].tolist(), got[1]) == (np.asarray(want[0]).tolist(), want[1])
+        if flt is None and kind == "max":
+            assert got[1] == N_SHARDS
+
+
 # ------------------------------------- a two-rank port job vs one JAX node
 
 QUERIES = [
@@ -205,6 +289,9 @@ JOB_WORKER = textwrap.dedent("""
     os.environ["PILOSA_JAX_PROCESS_ID"] = str(pid)
 
     from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import EngineConfig
+    from pilosa_tpu_torch.pql.parser import parse
     from pilosa_tpu_torch.server.server import Server
 
     job = json.load(open(f"{tmp}/job.json"))
@@ -220,7 +307,8 @@ JOB_WORKER = textwrap.dedent("""
     hosts = [f"localhost:{port0}", f"localhost:{port1}"]
     s = Server(data_dir=None, port=[port0, port1][pid], cluster_hosts=hosts,
                replica_n=1, cache_flush_interval=0, anti_entropy_interval=0,
-               member_monitor_interval=0.2, executor_workers=0, device="cpu")
+               member_monitor_interval=0.2, executor_workers=0, device="cpu",
+               engine_config=EngineConfig(mesh_devices=job["mesh_devices"]))
     s.open()
     try:
         # Every node holds all the data; the placement decides which
@@ -234,21 +322,30 @@ JOB_WORKER = textwrap.dedent("""
         for col, val in zip(data["vcols"].tolist(), data["vvals"].tolist()):
             idx.field("v").set_value(col, val)
         if pid == 1:
+            # Rank 0 queries only once this rank holds all its data.
+            open(f"{tmp}/loaded", "w").close()
             while not os.path.exists(f"{tmp}/done"):
                 time.sleep(0.05)
             print("WORKER1_OK")
             sys.exit(0)
         deadline = time.time() + 30
-        while time.time() < deadline and not s.collective.active():
+        while time.time() < deadline and not (
+                s.collective.active() and os.path.exists(f"{tmp}/loaded")):
             time.sleep(0.1)
-        assert s.collective.active()
+        assert s.collective.active() and os.path.exists(f"{tmp}/loaded")
         owned = [sh for sh in range(job["n_shards"]) if any(
             n.id == s.node.id for n in s.cluster.shard_nodes("ci", sh))]
         answers = {q: plain(s.executor.execute("ci", q)[0]) for q in job["queries"]}
         raw = urllib.request.urlopen(f"http://{hosts[0]}/debug/vars", timeout=5).read()
         counters = json.loads(raw)["counters"]
+        desc = s.collective._descriptor("count", "ci", queries=[])
+        # This rank's K1 calls (the plain twin's, on the CPU) in one entry.
+        before = kernels.PLAIN_CALLS["gather_expr_count"]
+        s.collective.count("ci", parse("Count(Row(f=2))").calls[0].children[0])
+        k1_per_entry = kernels.PLAIN_CALLS["gather_expr_count"] - before
         json.dump({"answers": answers, "counters": counters, "owned": owned,
-                   "collective": s.collective.snapshot()},
+                   "collective": s.collective.snapshot(), "k": desc["k"],
+                   "d_local": desc["dLocal"], "k1_per_entry": k1_per_entry},
                   open(f"{tmp}/answers.json", "w"), default=str)
         print("WORKER0_OK")
     finally:
@@ -280,16 +377,36 @@ def placed_ports():
 
 
 def test_two_rank_job_equals_one_reference_node(tmp_path):
+    got = two_rank_job(tmp_path, mesh_devices=0)
+    assert (got["d_local"], got["k1_per_entry"]) == (1, 1)
+
+
+def test_two_rank_job_over_two_partitions_per_rank_equals_one_reference_node(tmp_path):
+    """Each rank with `[engine] mesh-devices 2`: its k slots held as two
+    blocks, K1/K2/K3 launched once per partition, the same answers."""
+    got = two_rank_job(tmp_path, mesh_devices=2)
+    assert got["d_local"] == 2 and got["k"] % 2 == 0
+    assert got["k1_per_entry"] == 2
+    assert got["collective"]["leaf_cache_entries"] > 0
+
+
+def two_rank_job(tmp_path, mesh_devices):
+    """A two-rank port job (each rank's engine with `mesh_devices`)
+    answering QUERIES through the collective plane, held against one
+    pilosa_tpu node with all the data; returns rank 0's report."""
     rows, cols, vals = seeded_data()
     np.savez(tmp_path / "data.npz", rows=np.asarray(rows), cols=np.asarray(cols),
              vcols=np.asarray(list(vals)), vvals=np.asarray(list(vals.values())))
     (tmp_path / "job.json").write_text(json.dumps(
-        {"queries": QUERIES, "n_shards": N_SHARDS, "v_min": V_MIN, "v_max": V_MAX}))
+        {"queries": QUERIES, "n_shards": N_SHARDS, "v_min": V_MIN, "v_max": V_MAX,
+         "mesh_devices": mesh_devices}))
     script = tmp_path / "worker.py"
     script.write_text(JOB_WORKER)
     ports = placed_ports()
     coord = f"localhost:{free_port()}"
-    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo",
+    # One OpenMP thread per rank: the ranks' CPU twins share the box with
+    # the other test workers, and oversubscribed thread pools stall them.
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "1",
            "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
     procs = [subprocess.Popen(
         [sys.executable, str(script), coord, str(pid), str(ports[0]), str(ports[1]),
@@ -305,8 +422,9 @@ def test_two_rank_job_equals_one_reference_node(tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.communicate(timeout=30)
-    for rc, out, err in outs:
-        assert rc == 0, f"worker failed rc={rc}\nstdout:{out}\nstderr:{err[-3000:]}"
+    assert all(rc == 0 for rc, _, _ in outs), "\n".join(
+        f"worker {pid} rc={rc}\nstdout:{out}\nstderr:{err[-3000:]}"
+        for pid, (rc, out, err) in enumerate(outs))
     got = json.load(open(tmp_path / "answers.json"))
     assert 0 < len(got["owned"]) < N_SHARDS  # each rank counts a part
 
@@ -326,3 +444,4 @@ def test_two_rank_job_equals_one_reference_node(tmp_path):
     assert counters["CollectiveCount"] == 5
     assert counters["CollectiveTopN"] == 2
     assert counters["CollectiveValCount"] == 7
+    return got

@@ -1176,3 +1176,51 @@ def test_kernels_launch_on_a_second_card(cuda_device):
         bits, count = kernels.bsi_minmax(stacked, mask, True)
         pbits, pcount = kernels.bsi_minmax_plain(stacked, mask, True)
         assert torch.equal(bits, pbits) and int(count) == int(pcount)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_k1_blocks_stage_once_per_device(cuda_device, variant):
+    """gather_expr_count_blocks over 4 blocks on the card copies its one
+    staging buffer once per distinct device per call (once here; once per
+    card where the blocks spread over several), launches K1 once per
+    block, and each block's counts equal the twin; an engine of 4
+    partitions on cuda:0 stages once per Count and answers as one
+    partition does."""
+    from pilosa_tpu_torch.parallel.engine import ShardedQueryEngine
+    from pilosa_tpu_torch.pql.parser import parse
+
+    rng = np.random.default_rng(12)
+    devs = [torch.device("cuda", i % torch.cuda.device_count()) for i in range(4)]
+    blocks = [rand_stack(rng, (6, 2, 1024), d) for d in devs]
+    idxs = torch.from_numpy(rng.integers(0, 6, size=(2, 40)).astype(np.int32))
+    tape = lower_tape(("Intersect", (leaf(0), leaf(1))))
+    torch.cuda.synchronize()
+    staged, launches = dict(kernels.STAGED), dict(kernels.LAUNCHES)
+    got = kernels.gather_expr_count_blocks(blocks, idxs, tape, variant=variant)
+    torch.cuda.synchronize()
+    assert kernels.STAGED["gather_expr_count"] - staged["gather_expr_count"] == len(set(devs))
+    assert kernels.LAUNCHES[f"gather_expr_count_{variant}"] \
+        - launches[f"gather_expr_count_{variant}"] == 4
+    for block, part in zip(blocks, got):
+        assert part.device == block.device
+        assert torch.equal(part.cpu(), kernels.gather_expr_count_plain(block.cpu(), idxs, tape))
+
+    h = _partition_holder()
+    shards = tuple(range(5))
+    one = ShardedQueryEngine(h, mesh=["cuda:0"])
+    four = ShardedQueryEngine(h, mesh=["cuda:0"] * 4)
+    try:
+        call = parse("Intersect(Row(f=0), Row(f=1))").calls[0]
+        with four.memos_off(), one.memos_off():
+            want = one.count("i", call, shards)
+            four.count("i", call, shards)  # leaves resident
+            torch.cuda.synchronize()
+            staged = kernels.STAGED["gather_expr_count"]
+            n = _launches(lambda: four.count("i", call, shards))
+            assert four.count("i", call, shards) == want
+        assert n["gather_expr_count"] == 4
+        assert kernels.STAGED["gather_expr_count"] - staged == 2  # two Counts, one copy each
+    finally:
+        four.close()
+        one.close()
+        h.close()

@@ -213,3 +213,39 @@ def test_initialize_reads_the_reference_variables(monkeypatch, env):
 def test_process_shard_slots_cover_the_shards(n_shards):
     padded, lo, hi = dist.process_shard_slots(n_shards)
     assert (padded, lo, hi) == (n_shards, 0, n_shards)
+
+
+@pytest.mark.parametrize("n_shards,d_local,padded", [(5, 2, 6), (5, 3, 6), (8, 8, 8),
+                                                     (9, 4, 12)])
+def test_process_shard_slots_pad_to_the_partitions(n_shards, d_local, padded):
+    """One process: the shard axis pads to a multiple of its partitions
+    (world size x d_local), as the reference pads to its device count."""
+    assert dist.process_shard_slots(n_shards, d_local) == (padded, 0, padded)
+
+
+def test_make_global_planes_and_counts_over_blocks():
+    """A rank's (k, W) block split over its partitions (slot s in block
+    s // (k / d_local), on each partition's device), and the global counts
+    over those Blocks equal the counts over the whole block."""
+    import numpy as np
+
+    from pilosa_tpu_torch.parallel.engine import Blocks
+
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 1 << 32, size=(6, 16), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 1 << 32, size=(6, 16), dtype=np.uint64).astype(np.uint32)
+    mesh = dist.global_mesh(3, "cpu")
+    assert mesh == [torch.device("cpu")] * 3
+    ba, bb = dist.make_global_planes(a, mesh), dist.make_global_planes(b, mesh)
+    assert isinstance(ba, Blocks) and [tuple(x.shape) for x in ba] == [(2, 16)] * 3
+    assert np.array_equal(ba.joined().numpy().view(np.uint32), a)
+    stack = dist.make_global_planes(np.stack([a, b]), mesh)
+    assert [tuple(x.shape) for x in stack] == [(2, 2, 16)] * 3
+    whole_a = torch.from_numpy(a.view(np.int32))
+    whole_b = torch.from_numpy(b.view(np.int32))
+    assert dist.global_count(ba) == dist.global_count(whole_a) == \
+        int(np.unpackbits(a.view(np.uint8)).sum())
+    assert dist.global_and_count(ba, bb) == dist.global_and_count(whole_a, whole_b) == \
+        int(np.unpackbits((a & b).view(np.uint8)).sum())
+    with pytest.raises(ValueError, match="partitions"):
+        dist.make_global_planes(a, dist.global_mesh(4, "cpu"))

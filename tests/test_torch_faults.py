@@ -9,10 +9,12 @@ then host execution), an OOM gets backpressure and a retry instead of a
 client error, half-open probes re-close the breakers, and every answer,
 breaker snapshot and shared counter delta equals the reference's.
 
-Left out: the `device-compile` cases (the port compiles nothing per
-shape, so it has no such failpoint), the deadline cases (the port has no
-scheduler yet) and the routing-epoch half of the chaos test (no cluster).
-Added: a kernel that cannot be built (ops/kernels.py KernelBuildError) is
+The deadline gates between TopN's device chunks and at its phase-2
+boundary (TestDeadlineBetweenChunks) and the chaos test's routing-epoch
+churn (rebalance begin / cutover / commit on the executor's own
+one-node cluster) run on both packages too. Left out: the
+`device-compile` cases (the port compiles nothing per shape, so it has
+no such failpoint). Added: a kernel that cannot be built (ops/kernels.py KernelBuildError) is
 not a device fault: it raises out of the engine and out of
 Executor.execute, untouched by the breakers, the counters and the ladder.
 """
@@ -29,6 +31,7 @@ import torch
 
 import pilosa_tpu
 import pilosa_tpu_torch
+from pilosa_tpu import executor as jexecutor
 from pilosa_tpu import failpoints as jfailpoints
 from pilosa_tpu import stats as jstats
 from pilosa_tpu.cluster.health import ResilienceConfig as JResilienceConfig
@@ -38,7 +41,9 @@ from pilosa_tpu.parallel import EngineConfig as JEngineConfig
 from pilosa_tpu.parallel import device_health as jdh
 from pilosa_tpu.parallel import engine as jengine
 from pilosa_tpu.pql.parser import parse as jparse
+from pilosa_tpu.sched import deadline as jdeadline
 from pilosa_tpu.tier import TierConfig as JTierConfig
+from pilosa_tpu_torch import executor as texecutor
 from pilosa_tpu_torch import failpoints as tfailpoints
 from pilosa_tpu_torch import stats as tstats
 from pilosa_tpu_torch.core.field import FieldOptions as TFieldOptions
@@ -47,6 +52,7 @@ from pilosa_tpu_torch.parallel import EngineConfig as TEngineConfig
 from pilosa_tpu_torch.parallel import device_health as tdh
 from pilosa_tpu_torch.parallel import engine as tengine
 from pilosa_tpu_torch.pql.parser import parse as tparse
+from pilosa_tpu_torch.sched import deadline as tdeadline
 from pilosa_tpu_torch.tier import TierConfig as TTierConfig
 
 N_SHARDS = 2
@@ -57,12 +63,16 @@ JAX = SimpleNamespace(
     Engine=jengine.ShardedQueryEngine, EngineConfig=JEngineConfig,
     TierConfig=JTierConfig, Leaf=jengine.Leaf, pop=jengine._pop_elems,
     parse=jparse, FieldOptions=JFieldOptions, Stats=jstats.InMemoryStatsClient,
+    ExecOptions=jexecutor.ExecOptions, Deadline=jdeadline.Deadline,
+    DeadlineExceededError=jdeadline.DeadlineExceededError,
     Holder=lambda **kw: pilosa_tpu.Holder(None, **kw))
 TORCH = SimpleNamespace(
     name="torch", pkg=pilosa_tpu_torch, fp=tfailpoints, dh=tdh, Res=tdh.ResilienceConfig,
     Engine=tengine.ShardedQueryEngine, EngineConfig=TEngineConfig,
     TierConfig=TTierConfig, Leaf=tengine.Leaf, pop=tengine._pop_elems,
     parse=tparse, FieldOptions=TFieldOptions, Stats=tstats.InMemoryStatsClient,
+    ExecOptions=texecutor.ExecOptions, Deadline=tdeadline.Deadline,
+    DeadlineExceededError=tdeadline.DeadlineExceededError,
     Holder=lambda **kw: pilosa_tpu_torch.Holder(None, device="cpu", **kw))
 BOTH = (JAX, TORCH)
 
@@ -869,7 +879,9 @@ def _broken_build(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "LIBRARY", str(tmp_path / "build" / "lib.so"))
     monkeypatch.setattr(kernels, "_nvcc", lambda: str(tmp_path / "no-such-nvcc"))
     monkeypatch.setattr(kernels, "_lib", None)
-    for name in ("gather_expr_count", "masked_plane_counts", "bsi_minmax"):
+    # K1's launches go through gather_expr_count_blocks (gather_expr_count
+    # calls it too).
+    for name in ("gather_expr_count_blocks", "masked_plane_counts", "bsi_minmax"):
         real = getattr(kernels, name)
 
         def loading(*a, real=real, **kw):
@@ -947,7 +959,7 @@ def _on_card(monkeypatch, ex, queries, fault=None):
     monkeypatch.setattr(ex.engine, "device", torch.device("cuda"))
     raised = []
     if fault is not None:
-        for name in ("gather_expr_count", "masked_plane_counts", "bsi_minmax"):
+        for name in ("gather_expr_count_blocks", "masked_plane_counts", "bsi_minmax"):
             def failing(*a, name=name, **kw):
                 raised.append(name)
                 raise RuntimeError(fault)
@@ -1077,68 +1089,147 @@ def test_kernel_build_failure_raises_out_of_count_batch(monkeypatch, tmp_path):
 # ------------------------------------------------------------ chaos combo
 
 
-@pytest.mark.chaos
-def test_device_chaos_with_tier_churn_like_jax(monkeypatch):
-    """tests/test_device_faults.py's combination proof without its
-    routing-epoch churn (the port has no cluster): seed-pinned
-    device-dispatch faults (error, oom) toggle per round while planes
-    churn through the tier. Every query is correct in both packages;
-    after the faults clear the breakers re-close and a final round runs
-    with zero host-ladder reads."""
+# --------------------------------------------- deadline between chunks
+
+
+class TestDeadlineBetweenChunks:
+    """tests/test_device_faults.py's TestDeadlineBetweenChunks on both
+    packages: a deadline checked between TopN's device chunks answers a
+    503 (DeadlineExceededError) mid-flight, and the phase-2 gate counts
+    DeadlineMidQuery."""
+
+    def test_multichunk_topn_503s_midflight_like_jax(self, monkeypatch):
+        # Force one candidate row per device chunk.
+        monkeypatch.setenv("PILOSA_TOPN_CHUNK_BYTES", "1")
+
+        def body(pk, h):
+            ex = make_executor(pk, h)
+            ticks = {"n": 0}
+
+            def clock():
+                ticks["n"] += 1
+                return float(ticks["n"])
+
+            try:
+                opt = pk.ExecOptions(deadline=pk.Deadline(10.0, clock=clock))
+                with pytest.raises(pk.DeadlineExceededError) as ei:
+                    ex.execute("i", "TopN(f, Row(f=0), n=5)", shards=list(SHARDS), opt=opt)
+                return type(ei.value).__name__
+            finally:
+                ex.close()
+
+        assert same(body) == "DeadlineExceededError"
+
+    def test_phase_boundary_check_counts_like_jax(self):
+        def body(pk, h):
+            ex = make_executor(pk, h)
+            clock = {"now": 0.0}
+            try:
+                opt = pk.ExecOptions(deadline=pk.Deadline(5.0, clock=lambda: clock["now"]))
+                # Expire the budget before the second phase starts: the
+                # phase-2 gate must 503 and count.
+                orig = ex._execute_topn_shards
+
+                def expiring(index, c, shards, o):
+                    out = orig(index, c, shards, o)
+                    clock["now"] = 100.0
+                    return out
+
+                ex._execute_topn_shards = expiring
+                with pytest.raises(pk.DeadlineExceededError):
+                    ex.execute("i", "TopN(f, n=3)", shards=list(SHARDS), opt=opt)
+                return h.stats.snapshot()["counters"].get("DeadlineMidQuery", 0)
+            finally:
+                ex.close()
+
+        assert same(body) >= 1
+
+
+# ------------------------------------------------------------ chaos combo
+
+
+def _chaos(pk, h, cutover):
+    """The combination proof: seed-pinned device-dispatch faults (error,
+    oom) toggle per round while planes churn through the tier and, with
+    `cutover`, routing epochs advance mid-round (rebalance begin /
+    cutover / commit on the executor's own one-node cluster: placement
+    never changes, the epoch re-read gates still fire). Every query is
+    correct; after the faults clear the breakers re-close and a final
+    round runs with zero host-ladder reads."""
     from tests.conftest import FakeClock
 
-    def body(pk, h):
-        rng = random.Random(1234)
-        clock = FakeClock()
-        ex = make_executor(pk, h, device_breaker_failures=2, device_breaker_backoff=1.0,
-                           device_sig_failures=2)
-        eng = ex.engine
-        eng.device_health.clock = clock
-        queries = ["Count(Row(f=0))", "Count(Intersect(Row(f=0),Row(f=1)))",
-                   "Count(Union(Row(f=1),Row(f=2),Row(f=3)))",
-                   "Count(Difference(Row(f=4),Row(f=0)))", "Count(Xor(Row(f=2),Row(f=5)))"]
-        expect = [ex.execute("i", q)[0] for q in queries]
-        fld = h.index("i").field("f")
-        actions = []
-        try:
-            for rnd in range(8):
-                pk.fp.reset()
-                action = rng.choice(["none", "error", "oom", "error"])
-                actions.append(action)
-                if action == "error":
-                    pk.fp.configure("device-dispatch", "error", count=rng.randint(1, 3))
-                elif action == "oom":
-                    pk.fp.configure("device-dispatch", "oom", count=rng.randint(1, 2))
-                for row in rng.sample(range(6), 2):
-                    eng.tier.demote(("i", pk.Leaf("f", "standard", row), SHARDS))
-                eng.tier.drain()
-                col = 4097 + rnd
-                fld.set_bit(0, col)
-                fld.clear_bit(0, col)
-                for q, want in zip(queries, expect):
-                    assert ex.execute("i", q)[0] == want, (rnd, action, q)
-                clock.advance(rng.choice([0.2, 1.1, 2.5]))
+    rng = random.Random(1234)
+    clock = FakeClock()
+    ex = make_executor(pk, h, device_breaker_failures=2, device_breaker_backoff=1.0,
+                       device_sig_failures=2)
+    eng = ex.engine
+    eng.device_health.clock = clock
+    queries = ["Count(Row(f=0))", "Count(Intersect(Row(f=0),Row(f=1)))",
+               "Count(Union(Row(f=1),Row(f=2),Row(f=3)))",
+               "Count(Difference(Row(f=4),Row(f=0)))", "Count(Xor(Row(f=2),Row(f=5)))"]
+    expect = [ex.execute("i", q)[0] for q in queries]
+    fld = h.index("i").field("f")
+    node = ex.cluster.node
+    actions, epochs = [], []
+    try:
+        for rnd in range(8):
             pk.fp.reset()
-            for _ in range(6):
-                clock.advance(2.0)
-                fld.set_bit(0, 5000)
-                fld.clear_bit(0, 5000)
-                for q, want in zip(queries, expect):
-                    assert ex.execute("i", q)[0] == want
-                if eng.device_health.plane_state() == "closed":
-                    break
-            assert eng.device_health.plane_state() == "closed"
-            host_before = eng.counters["host_counts"] + eng.counters["host_topn"]
-            dispatches = eng.counters["count_dispatches"]
-            fld.set_bit(0, 5001)
-            fld.clear_bit(0, 5001)
+            action = rng.choice(["none", "error", "oom", "error"])
+            actions.append(action)
+            if action == "error":
+                pk.fp.configure("device-dispatch", "error", count=rng.randint(1, 3))
+            elif action == "oom":
+                pk.fp.configure("device-dispatch", "oom", count=rng.randint(1, 2))
+            for row in rng.sample(range(6), 2):
+                eng.tier.demote(("i", pk.Leaf("f", "standard", row), SHARDS))
+            eng.tier.drain()
+            if cutover:
+                ex.cluster.begin_rebalance([node])
+                ex.cluster.apply_cutover("i", rng.randrange(N_SHARDS))
+            col = 4097 + rnd
+            fld.set_bit(0, col)
+            fld.clear_bit(0, col)
+            for q, want in zip(queries, expect):
+                assert ex.execute("i", q)[0] == want, (rnd, action, q)
+            if cutover:
+                ex.cluster.commit_topology([node])
+                epochs.append(ex.cluster.routing_epoch)
+            clock.advance(rng.choice([0.2, 1.1, 2.5]))
+        pk.fp.reset()
+        for _ in range(6):
+            clock.advance(2.0)
+            fld.set_bit(0, 5000)
+            fld.clear_bit(0, 5000)
             for q, want in zip(queries, expect):
                 assert ex.execute("i", q)[0] == want
-            assert eng.counters["host_counts"] + eng.counters["host_topn"] == host_before
-            assert eng.counters["count_dispatches"] > dispatches
-            return expect, actions
-        finally:
-            pk.fp.reset()
-            ex.close()
+            if eng.device_health.plane_state() == "closed":
+                break
+        assert eng.device_health.plane_state() == "closed"
+        host_before = eng.counters["host_counts"] + eng.counters["host_topn"]
+        dispatches = eng.counters["count_dispatches"]
+        fld.set_bit(0, 5001)
+        fld.clear_bit(0, 5001)
+        for q, want in zip(queries, expect):
+            assert ex.execute("i", q)[0] == want
+        assert eng.counters["host_counts"] + eng.counters["host_topn"] == host_before
+        assert eng.counters["count_dispatches"] > dispatches
+        return expect, actions, epochs
+    finally:
+        pk.fp.reset()
+        ex.close()
 
-    same(body)
+
+@pytest.mark.chaos
+def test_device_chaos_with_tier_churn_like_jax(monkeypatch):
+    """tests/test_device_faults.py's combination proof, its device and
+    tier half: the same answers and fault schedule in both packages."""
+    same(lambda pk, h: _chaos(pk, h, cutover=False))
+
+
+@pytest.mark.chaos
+def test_device_chaos_with_tier_churn_and_cutover_like_jax(monkeypatch):
+    """The same proof with the routing-epoch churn of
+    test_device_chaos_with_tier_churn_and_cutover: the epochs advance
+    alike in both packages and every answer stays correct."""
+    expect, actions, epochs = same(lambda pk, h: _chaos(pk, h, cutover=True))
+    assert len(epochs) == 8 and epochs == sorted(epochs) and epochs[0] < epochs[-1]

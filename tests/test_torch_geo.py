@@ -536,3 +536,38 @@ def test_geo_disabled_operator_surface(tmp_path):
         assert "geo" in json.loads(ei.value.read())["error"]
     finally:
         s.close()
+
+
+def test_follower_of_data_older_than_capture(tmp_path):
+    """Data written before change capture reaches a new follower with no
+    fold of the leader's log: the leader's base images sit at position
+    0, so the follower bootstraps before its first stream chunk, then
+    streams what was written after capture."""
+    plain = Server(data_dir=str(tmp_path / "leader"), cache_flush_interval=0,
+                   executor_workers=0)
+    plain.open()
+    plain.api.create_index("i")
+    plain.api.create_field("i", "f")
+    for col in range(12):
+        plain.api.query("i", f"Set({col * 7 + (col % 2) * SHARD_WIDTH}, f=1)")
+    plain.close()
+    leader = make_leader(tmp_path)
+    servers = [leader]
+    try:
+        log = leader.cdc.log("i")
+        assert log.has_bases and log.base_pos == 0 and log.last_pos == 0
+        leader.api.query("i", "Set(500, f=1)")
+        follower = make_follower(tmp_path, f"localhost:{leader.port}")
+        servers.append(follower)
+        wait_until(lambda: count_row(follower) == 13, msg="pre-capture data")
+        leader.api.query("i", "Set(501, f=1)")
+        wait_until(lambda: count_row(follower) == 14, msg="later writes")
+        for shard in (0, 1):
+            assert frag_bytes(follower, shard=shard) == \
+                frag_bytes(leader, shard=shard)
+        snap = follower.geo.tailer.snapshot()
+        assert snap["bootstraps"] == 1
+        assert log.compactions == 0  # no fold
+    finally:
+        for s in reversed(servers):
+            s.close()

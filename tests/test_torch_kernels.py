@@ -271,6 +271,32 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
     assert kernels.PLAIN_CALLS["gather_expr_count"] == before_p["gather_expr_count"] + 1
 
 
+@pytest.mark.parametrize("q", [1, 3, 300])
+def test_k1_blocks_equal_the_sum_of_per_block_launches(q):
+    """gather_expr_count_blocks over N blocks (the same slots over their
+    own shards) gives each block's gather_expr_count, on the CPU twin;
+    their sum is the count over the joined stack. On the CPU nothing is
+    staged."""
+    rng = np.random.default_rng(q)
+    blocks = [t32(rng.integers(0, 1 << 32, size=(6, s, 64), dtype=np.uint64))
+              for s in (2, 2, 1)]
+    idxs = torch.from_numpy(rng.integers(0, 6, size=(3, q)).astype(np.int32))
+    tape = [push(0), push(1), AND, push(2) | (kernels.OP_ACC | XOR)]
+    staged = dict(kernels.STAGED)
+    got = kernels.gather_expr_count_blocks(blocks, idxs, tape)
+    assert kernels.STAGED == staged
+    assert len(got) == 3
+    for block, part in zip(blocks, got):
+        assert torch.equal(part, kernels.gather_expr_count(block, idxs, tape))
+    whole = kernels.gather_expr_count(torch.cat(blocks, dim=1), idxs, tape)
+    assert torch.equal(got[0] + got[1] + got[2], whole)
+    with pytest.raises(ValueError, match="U, W"):
+        kernels.gather_expr_count_blocks([blocks[0], blocks[1][:4].contiguous()], idxs, tape)
+    with pytest.raises(ValueError, match="U, W"):
+        kernels.gather_expr_count_blocks([blocks[0], blocks[1][:, :, :32].contiguous()],
+                                         idxs, tape)
+
+
 def test_wrappers_check_their_inputs():
     good = torch.zeros((2, 3, 64), dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):

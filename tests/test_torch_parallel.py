@@ -131,6 +131,26 @@ def test_engine_leaf_is_sharded(holder):
     assert arr.nbytes == want.nbytes
 
 
+def test_mesh_on_a_named_card_stays_on_it(monkeypatch):
+    """With four cards (a faked count; nothing launches): "cuda" spreads
+    the partitions round-robin over every card, and a device naming one
+    card keeps them all on it, so a rank given cuda:r stays on its card
+    at any mesh-devices. One card per rank is mesh-devices 1 on cuda:r."""
+    from pilosa_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert tmesh.engine_mesh(0, "cuda") == cards
+    assert tmesh.engine_mesh(6, "cuda") == cards + cards[:2]
+    for r in range(4):
+        assert tmesh.engine_mesh(0, f"cuda:{r}") == [cards[r]]
+        assert tmesh.engine_mesh(1, f"cuda:{r}") == [cards[r]]
+        assert tmesh.engine_mesh(2, f"cuda:{r}") == [cards[r]] * 2
+        assert distributed.global_mesh(None, f"cuda:{r}") == [cards[r]]
+    with pytest.raises(RuntimeError, match="4 cards"):
+        tmesh.engine_mesh(1, "cuda:4")
+
+
 def test_engine_mesh_devices_knob(holder, monkeypatch):
     """[engine] mesh-devices N builds N partitions, from a config or from
     the env spelling when no config is given; 0 is one per local device

@@ -1,7 +1,7 @@
 """Rules of the PyTorch/CUDA port.
 
-(i)   No module of pilosa_tpu_torch, and not chip_smoke.py, imports jax or
-      any pilosa_tpu module. Checked by a static scan of the source: the
+(i)   No module of pilosa_tpu_torch, and not chip_smoke.py or the card
+      tools under tools/, imports jax or any pilosa_tpu module. Checked by a static scan of the source: the
       test environment pre-imports jax (tests/conftest.py), so a
       sys.modules check would prove nothing.
 (ii)  Entry points run on the card unless the caller asks for the CPU:
@@ -26,6 +26,8 @@ PKG = os.path.join(ROOT, "pilosa_tpu_torch")
 
 def port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    tools = os.path.join(ROOT, "tools")
+    out.extend(os.path.join(tools, f) for f in os.listdir(tools) if f.endswith(".py"))
     for dirpath, _, files in os.walk(PKG):
         out.extend(os.path.join(dirpath, f) for f in files if f.endswith(".py"))
     return sorted(out)
@@ -68,6 +70,8 @@ def test_scan_covers_the_package():
                  "cluster/autoscale.py", "devtools/lockcheck.py",
                  "iterator.py", "uri.py", "storage/btree_containers.py"):
         assert must in names
+    others = {os.path.relpath(p, ROOT) for p in port_sources()}
+    assert {"chip_smoke.py", "tools/mesh_cards.py", "tools/k1_qb_sweep.py"} <= others
 
 
 def test_holder_without_device_needs_cuda(tmp_path):
