@@ -79,20 +79,20 @@ Phases, each of which fails the run if it fails:
              beside the kernel-path times: the warm loops of (a), (c) and
              (e) run inside engine.memos_off(). (g) one node over HTTP:
              (g1) an in-process Server on the card handed the same
-             holder; (g2) distinct Count(Intersect(Row, Row)), 512, 256
-             and 128 per client from C = 1, 8 and 32 keep-alive clients (a process
+             holder; (g2) distinct Count(Intersect(Row, Row)), 512, 128
+             and 32 per client from C = 1, 8 and 32 keep-alive clients (a process
              of their own), memos off, at the scheduler's defaults:
              queries/s, p50/p99, the micro-batcher's groups, K1 launches
              by variant, stack misses, the device idle share (1 - the
              profiler's device time / wall time), the p50 of each stage
              in the server's trace recorder; at C >= 8 the batcher
              coalesces and K1 launches fewer times than there are
-             queries; then 512 Counts at C = 8 under cProfile (the
+             queries; then 256 Counts at C = 8 under cProfile (the
              server's top functions by own host time); (g3) one client's 64 Counts over HTTP beside
              Executor.execute; (g4) TopN with and without a filter,
              Sum/Min/Max of v with a filter, and 8 concurrent keyed Rows
              coalesced into bitmap_batch (equal to per-call bitmaps);
-             (g5) a keyed index of 64 row keys and 1,048,576 column keys
+             (g5) a keyed index of 64 row keys and 524,288 column keys
              imported over HTTP, a Count per row key, TopN with keys and
              one Row's column keys against a dict; (g6) `python -m
              pilosa_tpu_torch.cli server` in a subprocess on the card:
@@ -108,8 +108,9 @@ Phases, each of which fails the run if it fails:
              and a sparse field s (8 rows of 4096 bits over all shards),
              with a quarter of the default leaf and stack budgets each;
              (h1) distinct Count(Intersect(Row, Row)), 256 per client
-             from C = 1 client and 64 per client from C = 8 (cut from
-             512 since paths (i) and (j)), round-robin over the nodes,
+             from C = 1 client and 32 per client from C = 8 (cut from
+             512 since paths (i) and (j), from 64 since (i0)), round-robin
+             over the nodes,
              memos off:
              queries/s, p50/p99, K1 launches by variant, the p50 of the
              coordinators' executor.fanout, remote:<peer> and reduce
@@ -125,10 +126,18 @@ Phases, each of which fails the run if it fails:
              Counts differing, the syncer's merge of that fragment, and
              the repaired replica's K1 Count equal to numpy through a
              delta refresh (full_refresh_bytes unmoved); one dense f
-             fragment's block checksums timed. (i) the collective plane:
+             fragment's block checksums timed. (i0) the collective
+             plane's NCCL reduce: a subprocess builds the port's
+             ReduceGroup on NCCL, world 1, on cuda:0 with a TCPStore of
+             its own, reduces and gathers a payload with the status slot
+             on the card, times one all_reduce of 256 int64 beside a
+             one-rank gloo group, fails one reduce by an injected
+             timeout and re-forms the group at generation 1, which
+             reduces again. (i) the collective plane:
              (h)'s servers closed, the same planes of f and v written once
              to .npy files, four server processes on the card, each rank
-             r of 4 in one gloo job (PILOSA_JAX_COORDINATOR /
+             r of 4 in one job whose reduce backend is gloo (the four
+             share the card; PILOSA_JAX_COORDINATOR /
              NUM_PROCESSES / PROCESS_ID), cluster_hosts naming all four,
              replica_n = 2, [collective] enabled with a 3000 ms barrier
              and group timeout and a 2 GiB leaf budget per rank; each
@@ -138,7 +147,7 @@ Phases, each of which fails the run if it fails:
              collective.active() is true and drives each through a
              control directory (reset / report counters, a profiler
              window); (i1) distinct Count(Intersect(Row, Row)), 256 per
-             client at C = 1 and 128 at C = 8, round-robin over the
+             client at C = 1 and 64 at C = 8, round-robin over the
              ranks, every one
              served by the collective plane (CollectiveCount equals the
              query count, no fallback): queries/s, p50/p99, collective
@@ -156,7 +165,11 @@ Phases, each of which fails the run if it fails:
              queries past it without a barrier; SIGCONT, the half-open
              probe closes the plane and CollectiveCount climbs; the
              resumed rank read `abort` at the aborted barriers and every
-             rank entered the same number of reduces; then SIGTERM to
+             rank entered the same number of reduces; (i3b) rank 3's
+             next reduce sleeps past the group's timeout: the Count is
+             answered through the fan-out, every rank counts one group
+             failure and one re-formation, and the plane serves a Count
+             again (equal numpy) within 10 s; then SIGTERM to
              every rank, each exits 0 with its last counters. (i4) the
              four ranks again, each with `[engine] mesh-devices` 2 (8
              partitions on the card): (i1)'s first 64 Counts, (i2)'s
@@ -192,13 +205,14 @@ Phases, each of which fails the run if it fails:
              at positions 1..2048 (Set p50 with capture on and off),
              /cdc/stream from 0 gives every op in order,
              Count(Intersect(Row(f=a), Row(f=b))) with
-             X-Pilosa-At-Position at 4 positions equals a numpy replay
+             X-Pilosa-At-Position at J_PIT_POSITIONS positions equals a numpy replay
              (planes on the card, K2, K1 not launched, the live engine's
              counters unmoved) beside a live Count, and a standing
              Count(Row(f=a)) re-evaluates without a push after a write to
              row b and re-pushes after a write to row a. (k) geo
              replication, the mux transport and the autoscaler: (k1) a
-             leader process over (j3)'s index ev (64 shards x 128 rows,
+             leader process over the first 32 shards of (j3)'s index ev
+             (32 shards x 128 rows, a cut of its 64 for the time limit),
              `[cdc] enabled` with retention-ops 8192, `[geo] role =
              leader`; 8193 Sets of a row the reads never name fold its
              log once) and a follower process that bootstraps the whole
@@ -989,6 +1003,17 @@ def replay_topn(counts, cache, n: int, thr: int = 1):
     return totals[:n]
 
 
+PATH_S = {}  # wall seconds of each timed path, for PERF.md's cuts
+
+
+def timed_path(name, fn, *a, **kw):
+    t0 = time.perf_counter()
+    try:
+        return fn(*a, **kw)
+    finally:
+        PATH_S[name] = round(time.perf_counter() - t0, 1)
+
+
 def main_path(torch, pt, kernels, args, rng, report):
     from pilosa_tpu_torch.pql.parser import parse
 
@@ -1240,21 +1265,22 @@ def main_path(torch, pt, kernels, args, rng, report):
     bsi = main_path_bsi(ex, eng, H, rng, n_shards, start, end, out)
     ctx = dict(pairs_a=pairs_a, nest_q=nest_q, calls=calls, pairs=pairs, wants=wants, fa=fa,
                slots=slots)
-    main_path_f(torch, pt, kernels, ex, eng, H, bsi, start, end, out, ctx)
+    timed_path("f", main_path_f, torch, pt, kernels, ex, eng, H, bsi, start, end, out, ctx)
     out["engine"] = eng.snapshot()
     out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # (l) draws from a generator of its own: the later paths' draws stay
     # as they were before it.
-    main_path_l(torch, pt, kernels, holder, ex, H, bsi, ctx,
-                np.random.default_rng([args.seed, 12]), start, end, out, report["nvidia_smi"])
+    timed_path("l", main_path_l, torch, pt, kernels, holder, ex, H, bsi, ctx,
+               np.random.default_rng([args.seed, 12]), start, end, out, report["nvidia_smi"])
     ex.close()  # (g)'s server serves the same holder and closes it
-    main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out)
+    timed_path("g", main_path_g, torch, pt, kernels, holder, H, bsi, rng, start, end, out)
     # (g)'s server closed the holder and its engine; drop its fragments so
     # that (h)'s nodes do not share the host (and the collector) with them.
     holder.indexes.clear()
     del holder, ex, eng
-    main_path_h(torch, kernels, H, bsi, out["bsi"]["depth"], rng, start, end, out,
-                report["nvidia_smi"])
+    timed_path("h", main_path_h, torch, kernels, H, bsi, out["bsi"]["depth"], rng, start,
+               end, out, report["nvidia_smi"])
+    timed_path("i0", main_path_i0, out, report["nvidia_smi"])
     # (i)'s ranks are processes of their own: each resets and reports its
     # own counters around each of (i)'s paths, and the sums join phases.
     import shutil
@@ -1263,15 +1289,18 @@ def main_path(torch, pt, kernels, args, rng, report):
     planes_dir = tempfile.mkdtemp(prefix="pilosa-torch-planes-")
     try:
         planes = write_planes(H, bsi, out["bsi"]["depth"], planes_dir)
-        prev = main_path_i(torch, kernels, H, bsi, out["bsi"]["depth"], rng, out,
-                           report["nvidia_smi"], phases, planes)
-        main_path_i4(torch, kernels, H, bsi, out["bsi"]["depth"], out,
-                     report["nvidia_smi"], phases, planes, prev)
-        main_path_j(torch, kernels, H, bsi, out["bsi"]["depth"], rng, start, end, out,
-                    report["nvidia_smi"], phases, planes)
-        main_path_k1(torch, kernels, H, rng, out, report["nvidia_smi"], phases, planes)
+        prev = timed_path("i", main_path_i, torch, kernels, H, bsi, out["bsi"]["depth"], rng,
+                          out, report["nvidia_smi"], phases, planes)
+        timed_path("i4", main_path_i4, torch, kernels, H, bsi, out["bsi"]["depth"], out,
+                   report["nvidia_smi"], phases, planes, prev)
+        timed_path("j", main_path_j, torch, kernels, H, bsi, out["bsi"]["depth"], rng, start,
+                   end, out, report["nvidia_smi"], phases, planes)
+        timed_path("k1", main_path_k1, torch, kernels, H, rng, out, report["nvidia_smi"],
+                   phases, planes)
     finally:
         shutil.rmtree(planes_dir, ignore_errors=True)
+    log(f"main: seconds per path {PATH_S}")
+    out["path_s"] = dict(PATH_S)
     launches = {k: sum(p["launches"][k] for p in phases.values())
                 for k in kernels.LAUNCHES}
     out["phases"] = phases
@@ -2412,14 +2441,14 @@ def unordered_pairs(rng, n_rows: int) -> np.ndarray:
 
 
 def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
-                per_client=512, per_client_c8=256, per_client_c32=64, n_keys=1 << 20,
+                per_client=512, per_client_c8=128, per_client_c32=32, n_keys=1 << 19,
                 device=None):
     """Path (g): one pilosa node over HTTP on the card. (g1) an in-process
     Server handed the 256-shard holder of (a)-(f); (g2) concurrent distinct
     Counts from C = 1, 8, 32 keep-alive clients through the scheduler and
     the micro-batcher; (g3) one client's HTTP overhead beside
     Executor.execute; (g4) TopN, Sum/Min/Max and coalesced Rows over HTTP;
-    (g5) a keyed index of 1,048,576 column keys imported over HTTP; (g6)
+    (g5) a keyed index of 524,288 column keys imported over HTTP; (g6)
     `python -m pilosa_tpu_torch.cli server` in a subprocess, restarted on
     its data directory, and a /debug/profile capture."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2538,7 +2567,7 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
         g["g2"] = levels
         # The same traffic at C = 8 under cProfile (slower, so not a level
         # of its own): where the server's host time goes.
-        sel = every[np.arange(8 * 64) % len(every)][::-1]
+        sel = every[np.arange(8 * 32) % len(every)][::-1]
         work = [[f"Count(Intersect(Row(f={a}), Row(f={b})))" for a, b in sel[i::8]]
                 for i in range(8)]
         ph = start("g2_host_profile")
@@ -2629,7 +2658,9 @@ def main_path_g(torch, pt, kernels, holder, H, bsi, rng, start, end, out,
         assert http(port, "POST", "/index/k", {"options": {"keys": True}})[0] == 200
         assert http(port, "POST", "/index/k/field/seg",
                     {"options": {"type": "set", "keys": True}})[0] == 200
-        row_of = rng.integers(0, n_row_keys, n_keys)
+        # Drawn as for 2^20 keys (the count before the time limit cut it),
+        # so that the later paths' draws stay as they were.
+        row_of = rng.integers(0, n_row_keys, 1 << 20)[:n_keys]
         col_keys = [f"u{i}" for i in range(n_keys)]
         row_keys = [f"k{r}" for r in range(n_row_keys)]
         ph = start("g5_keys")
@@ -2846,7 +2877,7 @@ def fold_val_count(srv, kind: str, vals, mask, n_shards: int):
 
 
 def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
-                per_client=256, per_client_c8=64, device=None):
+                per_client=256, per_client_c8=32, device=None):
     """Path (h): a static cluster of four nodes on one card. Four
     in-process Servers, every one with cluster_hosts naming all four,
     replica_n = 2 and the default jump hasher; each holds exactly the
@@ -2962,8 +2993,8 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
         levels = {}
         offset = 0
         for c in (1, 8):
-            # C = 1 runs 256 queries per client and C = 8 64: the
-            # script's time limit also holds paths (i) and (j).
+            # C = 1 runs 256 queries per client and C = 8 32: the
+            # script's time limit also holds paths (i0)-(k).
             per = per_client if c == 1 else per_client_c8
             n = c * per
             sel = every[(offset + np.arange(n)) % len(every)]
@@ -3315,6 +3346,125 @@ def main_path_h(torch, kernels, H, bsi, depth, rng, start, end, out, smi,
 
 # ------------------------------------------------------------ path (i)
 
+I0_TIMEOUT_MS = 1000  # (i0): the one-rank groups' reduce timeout
+I0_VALUES = 256       # (i0): int64 values of the timed reduce
+I0_REPS = 200         # (i0): timed reduces of each backend
+
+# Path (i0): the port's own ReduceGroup on NCCL, world 1, on cuda:0, with
+# a TCPStore of its own, in a process of its own (NCCL's state stays out
+# of the script's). Prints one line, "I0 <json>".
+I0_SCRIPT = r"""
+import json, socket, sys, time
+
+sys.path.insert(0, sys.argv[1])
+timeout_ms, n, reps = int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+import torch
+import torch.distributed as tdist
+
+from pilosa_tpu_torch.parallel import distributed as dist
+
+s = socket.socket()
+s.bind(("localhost", 0))
+port = s.getsockname()[1]
+s.close()
+dev = torch.device("cuda", 0)
+store = tdist.TCPStore("localhost", port, 1, True)
+out = {"device": torch.cuda.get_device_name(0), "timeout_ms": timeout_ms}
+t0 = time.perf_counter()
+group = dist.ReduceGroup(store, "nccl", 0, 1, dev, timeout_ms)
+out["form_ms"] = (time.perf_counter() - t0) * 1e3
+# The plane's payload: the status slot in front of the values, on the card.
+payload = torch.empty(n + 1, dtype=torch.int64, device=dev)
+payload[0] = 0
+payload[1:] = torch.arange(1, n + 1, device=dev)
+got = group.all_reduce_sum(payload.clone())
+assert got.device == dev and torch.equal(got, payload)
+rows = group.all_gather(payload)
+assert rows.device == dev and tuple(rows.shape) == (1, n + 1) and torch.equal(rows[0], payload)
+out["reduce"] = out["gather"] = "equal, on the card"
+gloo = dist.ReduceGroup(tdist.PrefixStore("i0-gloo", store), "gloo", 0, 1, "cpu", timeout_ms)
+x_dev = torch.arange(n, dtype=torch.int64, device=dev)
+x_host = x_dev.cpu()
+
+
+def timed(fn):
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+# One all_reduce of n int64 values on each backend, then each as the
+# plane runs it: NCCL reduces on the card and copies the result to the
+# host; gloo copies the rank's result to the host and reduces there.
+out["nccl_ms"] = timed(lambda: group.all_reduce_sum(x_dev))
+out["gloo_ms"] = timed(lambda: gloo.all_reduce_sum(x_host))
+out["nccl_plane_ms"] = timed(lambda: group.all_reduce_sum(x_dev).cpu())
+out["gloo_plane_ms"] = timed(lambda: gloo.all_reduce_sum(x_dev.cpu()))
+
+
+class NeverDone:
+    # The work of a reduce a peer never comes to.
+    def __init__(self, work):
+        self.work = work
+
+    def is_completed(self):
+        return False
+
+
+real = group._complete
+group._complete = lambda work, timeout_ms=None: real(NeverDone(work), timeout_ms)
+t0 = time.perf_counter()
+try:
+    group.all_reduce_sum(payload.clone())
+    raise AssertionError("the injected timeout did not fail the reduce")
+except dist.ReduceFailed as e:
+    out["failure"] = str(e)
+out["failed_after_ms"] = (time.perf_counter() - t0) * 1e3
+assert group.failed is not None
+t0 = time.perf_counter()
+again = group.reform(1)
+out["reform_ms"] = (time.perf_counter() - t0) * 1e3
+assert again.generation == 1 and torch.equal(again.all_reduce_sum(payload.clone()), payload)
+out["generation"] = again.generation
+again.abort()
+gloo.abort()
+print("I0 " + json.dumps(out), flush=True)
+"""
+
+
+def main_path_i0(out, smi):
+    """Path (i0): the collective plane's NCCL reduce on the one card. A
+    subprocess builds the port's ReduceGroup with NCCL, world 1, on
+    cuda:0: it reduces and gathers a payload with the status slot on the
+    card, times one all_reduce of I0_VALUES int64 values beside the same
+    reduce on a one-rank gloo group, fails one reduce by an injected
+    timeout (a work that never completes) and re-forms the group at
+    generation 1, which reduces again."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", I0_SCRIPT, HERE, str(I0_TIMEOUT_MS),
+                           str(I0_VALUES), str(I0_REPS)],
+                          capture_output=True, text=True, timeout=300, cwd=HERE)
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("I0 ")), None)
+    assert proc.returncode == 0 and line, (proc.returncode, proc.stdout[-2000:],
+                                           proc.stderr[-4000:])
+    i0 = json.loads(line[3:])
+    i0["wall_s"] = time.perf_counter() - t0
+    out["i0"] = i0
+    log(f"main (i0) [{smi}]: NCCL ReduceGroup, world 1, on {i0['device']}: formed in "
+        f"{i0['form_ms']:.1f} ms; reduce and gather of {I0_VALUES} + 1 int64 (the status "
+        f"slot) {i0['reduce']}; one all_reduce of {I0_VALUES} int64 NCCL "
+        f"{i0['nccl_ms']:.4f} ms, gloo {i0['gloo_ms']:.4f} ms (mean of {I0_REPS}, host "
+        f"clock); as the plane reduces (NCCL then one copy to the host; a copy then gloo) "
+        f"{i0['nccl_plane_ms']:.4f} ms against {i0['gloo_plane_ms']:.4f} ms; an injected "
+        f"timeout failed a reduce after {i0['failed_after_ms']:.1f} ms ({i0['failure']}); "
+        f"re-formed at generation {i0['generation']} in {i0['reform_ms']:.1f} ms and "
+        f"reduced again, equal; {i0['wall_s']:.1f} s with the process")
+
+
 I_RANKS = 4
 I_TIMEOUT_MS = 3000      # barrier and process-group timeout of path (i)'s job
 I_CLIENT_TIMEOUT = 5.0   # s: a server's peer requests (30 s by default)
@@ -3475,8 +3625,24 @@ ready = dict(rank=rank, node=srv.node.id, owned=len(owned), slots=len(mine),
 del H, V
 
 
+def stall_reduce(cmd):
+    # The next reduce of this rank sleeps `seconds` first, once: the
+    # peers' reduces time out, and the group re-forms at the next entry.
+    from pilosa_tpu_torch.parallel import distributed
+
+    real = distributed.all_reduce_sum
+
+    def stalled(values):
+        distributed.all_reduce_sum = real
+        time.sleep(cmd["seconds"])
+        return real(values)
+
+    distributed.all_reduce_sum = stalled
+    return {}
+
+
 def spans(limit):
-    per = {"collective.barrier": [], "collective.entry": []}
+    per = {"collective.barrier": [], "collective.entry": [], "collective.reduce": []}
     for t in srv.trace_recorder.traces(index="big", limit=limit):
         for sp in t["spans"]:
             if sp["name"] in per:
@@ -3496,8 +3662,83 @@ def report():
         spans=spans(256), max_mem_gib=ctl.max_mem_gib())
 
 
-ctl.serve(report, srv.close, ready=lambda cmd: ready)
+def count_batch(cmd):
+    # One collective entry of every Count in `queries`, led by this rank.
+    from pilosa_tpu_torch.pql.parser import parse
+
+    calls = [parse(q).calls[0].children[0] for q in cmd["queries"]]
+    t0 = time.perf_counter()
+    counts = srv.collective.count_batch("big", calls)
+    return dict(counts=[int(c) for c in counts], ms=(time.perf_counter() - t0) * 1e3)
+
+
+ctl.serve(report, srv.close, ready=lambda cmd: ready, stall_reduce=stall_reduce,
+          count_batch=count_batch)
 """
+
+
+def reduce_stall(job, port: int, q_rank: int, x_rank: int, qs, reps0, timeout_ms: int) -> dict:
+    """Rank x_rank's next reduce sleeps past the group's timeout: the
+    Count asked of rank q_rank is answered through the fan-out (equal to
+    its want), every rank's reduce fails, and Counts of `qs` are asked
+    again until one goes through the plane, which must happen within
+    10 s of the failure, every answer equal. Returns the numbers; fails
+    unless every rank but the stalled one counted one group failure,
+    every rank one re-formation, and none holds a `broken` reason. The
+    stalled rank's own late reduce may fail, or complete: its peers'
+    parts can have reached it before they gave up (NCCL's small-message
+    protocols write into the receiver's buffers), and it then re-forms
+    at the next barrier all the same."""
+    n = len(reps0)
+    job.ask(x_rank, "stall_reduce", seconds=timeout_ms / 1000.0 + 1.0)
+    pql, w = qs[0]
+    t0 = time.perf_counter()
+    assert query(port, "big", pql) == [w], pql  # through the fan-out
+    failed = time.perf_counter()
+    q1 = job.ask(q_rank, "report")
+    assert q1["collective"]["group_failures"] == reps0[q_rank]["collective"][
+        "group_failures"] + 1, q1["collective"]
+    recovered, n_after = None, 0
+    while time.perf_counter() - failed < 10.0:
+        pql, w = qs[n_after % len(qs)]
+        n_after += 1
+        assert query(port, "big", pql) == [w], pql
+        q2 = job.ask(q_rank, "report")
+        if q2["counters"].get("CollectiveCount", 0) > q1["counters"].get("CollectiveCount", 0):
+            recovered = time.perf_counter() - failed
+            break
+        time.sleep(0.1)
+    assert recovered is not None, q2["collective"]
+    reps = job.all("report")
+
+    def delta(key):
+        return [rep["collective"][key] - rep0["collective"][key]
+                for rep, rep0 in zip(reps, reps0)]
+
+    stall = dict(stalled_rank=x_rank, query_rank=q_rank, stall_s=timeout_ms / 1000.0 + 1.0,
+                 failed_query_s=failed - t0, recovered_s=recovered, counts_after=n_after,
+                 group_failures=delta("group_failures"), group_reforms=delta("group_reforms"),
+                 generation=[rep["collective"]["group_generation"] for rep in reps],
+                 backend=[rep["collective"]["reduce_backend"] for rep in reps],
+                 broken=[rep["collective"]["broken"] for rep in reps])
+    peers = [f for r, f in enumerate(stall["group_failures"]) if r != x_rank]
+    assert peers == [1] * (n - 1), stall
+    assert stall["group_failures"][x_rank] in (0, 1), stall
+    assert stall["group_reforms"] == [1] * n, stall
+    assert stall["broken"] == [None] * n, stall
+    assert len(set(stall["generation"])) == 1, stall
+    return stall
+
+
+def stall_line(stall: dict, timeout_ms: int) -> str:
+    return (f"rank {stall['stalled_rank']}'s reduce stalled {stall['stall_s']:.1f} s (past "
+            f"the {timeout_ms} ms group timeout): the Count on rank {stall['query_rank']} "
+            f"equal numpy through the fan-out in {stall['failed_query_s']:.2f} s; every "
+            f"rank counted group_failures {stall['group_failures']} and group_reforms "
+            f"{stall['group_reforms']}, now at generation {stall['generation'][0]}, reduce "
+            f"backend {stall['backend'][0]}, broken {stall['broken'][0]}; the plane served "
+            f"a Count again (equal numpy) {stall['recovered_s']:.2f} s after the failure, "
+            f"{stall['counts_after']} Count(s) later")
 
 
 class RankJob:
@@ -3606,17 +3847,19 @@ def write_planes(H, bsi, depth: int, work: str) -> dict:
 
 
 def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, planes,
-                per_client=256, per_client_c8=128, device=None):
+                per_client=256, per_client_c8=64, device=None):
     """Path (i): the collective plane on the card. Four server processes,
     each rank r of 4 in one gloo job (PILOSA_JAX_* variables), each with
     cluster_hosts naming all four, replica_n = 2 and the jump hasher,
     each holding its placement's shards of f (the same 256 x 128 planes)
     and v; whole-index queries go through the collective plane: every
     rank runs K1/K2/K3 over its own block and the ranks reduce once over
-    gloo. (i1) distinct Counts at C = 1 and 8, round-robin over the nodes;
+    gloo (the job's rule: they share the card). (i1) distinct Counts at
+    C = 1 and 8, round-robin over the nodes;
     (i2) a nest, TopN with and without a filter, Sum/Min/Max with and
     without a filter from every node, and /internal/collective/count;
-    (i3) one rank stopped (SIGSTOP) for 32 Counts, then resumed."""
+    (i3) one rank stopped (SIGSTOP) for 32 Counts, then resumed; (i3b)
+    one rank's reduce stalled past the group's timeout (reduce_stall)."""
     import shutil
     import signal
     import tempfile
@@ -3890,6 +4133,17 @@ def main_path_i(torch, kernels, H, bsi, depth, rng, out, smi, phases, planes,
             f"{resumed:.2f} s later; the resumed rank read `abort` at {aborts[x_rank]} "
             f"barrier(s) and every rank entered {reduces[0]} reduces")
 
+        # ---- (i3b) one rank's reduce stalled past the group's timeout
+        name, reps0 = begin("i3b_reduce_stalled")
+        stall = reduce_stall(job, port_of[q_rank], q_rank, x_rank, qs, reps0, I_TIMEOUT_MS)
+        finish(name, reps0, "gather_expr_count", quiet=False)
+        assert stall["backend"] == ["gloo"] * I_RANKS, stall
+        # On gloo the stalled rank's reduce fails too: its peers' aborted
+        # groups closed their connections.
+        assert stall["group_failures"] == [1] * I_RANKS, stall
+        i["i3b"] = stall
+        log(f"main (i3b) [{smi}]: " + stall_line(stall, I_TIMEOUT_MS))
+
         # ---- shutdown: SIGTERM, each rank's last report
         finals = job.stop()
         for r, fin in enumerate(finals):
@@ -4085,6 +4339,7 @@ J_MOVE_LIMIT_S = 300  # a join or a leave that takes longer fails the run
 J_THINK_S = 0.05     # each client's pause between requests
 J_EV_SHARDS = 64     # (j3): index ev, 64 shards x 128 rows of f (1 GiB)
 J_EV_OPS = 2048      # (j3): single-bit Sets and Clears recorded by the log
+J_PIT_POSITIONS = 2  # (j3): positions read point-in-time (a cut of 4 for the time limit)
 J_EV_OFF_SETS = 256  # (j3): Sets timed before change capture is enabled
 
 # Path (j)'s clients, one thread each, until the stop file appears: every
@@ -4862,7 +5117,7 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
             bits[r][col] = op == "Set"
             positions.append(srv.cdc.log("ev").last_pos)
             ops.append((op, r, col))
-            if (k + 1) % (J_EV_OPS // 4) == 0:
+            if (k + 1) % (J_EV_OPS // J_PIT_POSITIONS) == 0:
                 checkpoints[positions[-1]] = int(np.count_nonzero(bits[a_ev] & bits[b_ev]))
         assert positions == list(range(1, J_EV_OPS + 1)), positions[:8]
         end(ph, quiet=[])
@@ -4873,7 +5128,8 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
         assert [rec.position for rec in recs] == positions, len(recs)
         assert [rec.shard for rec in recs] == [col // SHARD_WIDTH for _, _, col in ops]
 
-        # Point-in-time Counts at 4 positions against the numpy replay.
+        # Point-in-time Counts at J_PIT_POSITIONS positions against the
+        # numpy replay.
         live_eng = srv.executor.engine
         with live_eng.memos_off():
             live_lat = []
@@ -4942,7 +5198,7 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
 
 # ------------------------------------------------------------ path (k)
 
-K_SHARDS = J_EV_SHARDS  # (k1): the leader's index ev, as (j3) builds it (64 x 128, 1 GiB)
+K_SHARDS = 32  # (k1): the leader's index ev, its first 32 shards x 128 rows (512 MiB; a cut)
 K_WRITERS = 4           # (k1): clients writing to the leader
 K_READERS = 4           # (k1): clients reading from the follower
 K_WRITES = 512          # (k1): single-bit Sets and Clears per writer

@@ -6,7 +6,12 @@ fans every call out over HTTP and reduces in Python; its fast path runs
 ONE SPMD program over a global device mesh instead. Here every server
 process is one rank of a torch.distributed job (parallel/distributed.py):
 each rank runs the port's hand kernels over the shard planes it owns,
-and the ranks combine their results with one host reduce over gloo.
+and the ranks combine their results with one reduce of the job's reduce
+group. The job picks its backend itself (distributed.pick_backend):
+NCCL when every rank's reduce device (partition 0 of its partitions) is
+a card no other rank's is, and the result then stays on the card, is
+reduced there and comes to the host once, reduced; gloo otherwise (a
+CPU rank, or ranks sharing a card), over each rank's host copy.
 
 Design (the reference's, with its names):
 
@@ -40,9 +45,10 @@ Design (the reference's, with its names):
   of every rank's (count, bits), combined as K3's own block reduce
   combines its blocks: ranks with count 0 drop out, the best value
   wins, and the counts of the ranks holding it add up — one collective
-  where the reference's global bit scan makes D dependent ones. Counts
-  are int64 throughout, so the reference's 15-bit split sums have no
-  counterpart.
+  where the reference's global bit scan makes D dependent ones (over
+  NCCL, a rank of several partitions folds them on the host and sends
+  its one row back up to the card). Counts are int64 throughout, so the
+  reference's 15-bit split sums have no counterpart.
 - **Resident blocks.** Each rank keeps its leaf Blocks and stack Blocks
   on its partitions' devices, keyed with the mesh width, invalidated by
   per-fragment (incarnation, generation) fingerprints, refreshed by a
@@ -58,18 +64,26 @@ Design (the reference's, with its names):
   (distributed.barrier): a rank that is late finds `abort` and never
   enters the reduce, so no rank waits inside it for a peer that will not
   come, and no reduce pairs with another sequence's. Each rank runs its
-  kernels before the barrier, so a passed barrier leaves every rank a
-  host copy away from the reduce; every rank then takes part in it, a
-  failing one with a status slot set, so that all raise together. A
+  kernels before the barrier (synchronizing its cards when the result
+  stays on one), so a passed barrier leaves every rank a copy away from
+  the reduce; every rank then takes part in it, a failing one with a
+  status slot set, so that all raise together. A
   barrier timeout or a lost broadcast feeds the plane's breakers
   (device_health.CollectivePlaneHealth) and the leader answers through
   the HTTP fan-out; topology refusals (epoch, ownership, schema,
   placement) fall back without advancing them. A real
   fault of a kernel on a CUDA rank (DeviceKernelFault) and a kernel that
   cannot be built (KernelBuildError) are not served by the fan-out: they
-  raise out of the query, as on every other path of the port. A reduce
-  that fails (the group's timeout ran out) leaves the group unusable:
-  the plane stays off in this process until it restarts.
+  raise out of the query, as on every other path of the port.
+- **A failed reduce re-forms the group.** A reduce that fails (the
+  group's timeout ran out, or the communicator reported an error)
+  aborts this rank's group, advances the job's generation in the store
+  and answers the entry `error` (breaker evidence). The barrier carries
+  the generation the last arriving rank read, so every rank that passes
+  the next one re-forms its group at that generation before the reduce,
+  in the same order; a rank still holding a failed group of that
+  generation refuses (`generation`). The plane goes off (`broken`) only
+  when a re-formation fails, or the job's first group did not form.
 - **Epoch-aware membership** and **total order** as in the reference:
   descriptors carry the leader's routing epoch, and one runner thread
   per process enters descriptors in cluster-wide sequence order
@@ -219,7 +233,7 @@ class CollectiveBackend:
         self._seq_store = None
         self._seq_lock = threading.Lock()
         self._barrier_store = None
-        # Why the group stopped serving, after a reduce failed.
+        # Why the plane stopped serving: a reduce group did not re-form.
         self._broken: Optional[str] = None
         self.counters: Dict[str, int] = {
             "entries": 0,
@@ -235,6 +249,10 @@ class CollectiveBackend:
             # reduces the group failed.
             "reduces": 0, "barrier_aborts": 0, "rank_failures": 0,
             "group_failures": 0,
+            # Reduce groups re-formed after a failure; copies of an
+            # entry's result to the host; milliseconds in the reduce
+            # (host clock, the final copy included).
+            "group_reforms": 0, "host_copies": 0, "reduce_ms": 0.0,
         }
         # Why the fast path refused, by CollectiveUnavailable.reason.
         self.fallbacks: Dict[str, int] = {}
@@ -266,7 +284,7 @@ class CollectiveBackend:
             # cluster without a spanning job would count remote shards as
             # silently empty.
             return self.single_process and len(cluster.nodes) <= 1
-        if self._broken is not None:
+        if self.broken() is not None:
             return False
         if cluster.unavailable:
             # A down node can't reach the barrier; entering would stall
@@ -276,6 +294,13 @@ class CollectiveBackend:
         if len(nodes) != n_proc:
             return False
         return all(n.process_idx is not None for n in nodes)
+
+    def broken(self) -> Optional[str]:
+        """Why the plane is off for good: a reduce group that did not
+        re-form, or the job's first group that did not form (a job the
+        rule sends to NCCL is never served on gloo instead); None while
+        it can serve."""
+        return self._broken or distributed.group_error()
 
     def _count(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -296,7 +321,9 @@ class CollectiveBackend:
             out["leaf_cache_bytes"] = self._leaf_bytes
             out["stack_cache_entries"] = len(self._stack_cache)
             out["stack_cache_bytes"] = self._stack_bytes
-            out["broken"] = self._broken
+        out["broken"] = self.broken()
+        out["reduce_backend"] = distributed.reduce_backend()
+        out["group_generation"] = distributed.group_generation()
         out["health"] = self.health.snapshot()
         return out
 
@@ -634,8 +661,11 @@ class CollectiveBackend:
             self._barrier_store = distributed.connect_store()
         return self._barrier_store
 
-    def _barrier(self, desc: dict, trace=None) -> None:
+    def _barrier(self, desc: dict, trace=None) -> Optional[int]:
+        """Pass the entry's barrier; the job's reduce-group generation
+        the last arriving rank read (None at world size 1)."""
         t0 = time.monotonic()
+        generation = None
         try:
             # Deterministic chaos hook: fires even at world size 1, where
             # the real barrier is a no-op, so the timeout -> breaker ->
@@ -649,8 +679,9 @@ class CollectiveBackend:
                         "no distributed store")
                 seq = int(desc["seq"])
                 try:
-                    distributed.barrier(store, str(seq), n_proc,
-                                        int(desc["timeoutMs"]))
+                    generation = distributed.barrier(
+                        store, str(seq), n_proc, int(desc["timeoutMs"]),
+                        generation_key=distributed.GENERATION_KEY)
                 except distributed.BarrierAborted:
                     self._count("barrier_aborts")
                     raise
@@ -667,15 +698,62 @@ class CollectiveBackend:
                 trace.record("collective.barrier",
                              (time.monotonic() - t0) * 1000.0,
                              seq=desc.get("seq"))
+        return generation
 
-    def _launch(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
-        """Run this rank's kernels and bring the small result to the host
-        (the copy waits for the device, so a fault surfaces here). On a
-        CUDA rank a failure is a kernel fault: classified, then raised as
-        DeviceKernelFault, which no rung serves; a build failure raises
-        as it is."""
+    def _regroup(self, generation: Optional[int]) -> None:
+        """Before the reduce: re-form the job's reduce group when the
+        barrier's generation is past its own (a reduce failed on some rank
+        since). Every rank passed the same barrier and read the same
+        generation, so all re-form together. A group that does not
+        re-form turns the plane off (`broken`)."""
+        if generation is None or distributed.process_count() <= 1:
+            return
+        group = distributed.reduce_group()
+        if group is not None and group.generation == generation and group.failed is None:
+            return
+        if group is not None and group.generation >= generation:
+            raise CollectiveUnavailable(
+                f"the reduce group of generation {group.generation} failed and the "
+                f"barrier read generation {generation}", reason="generation")
         try:
-            return fn().cpu()
+            distributed.regroup(generation)
+        except distributed.ReduceFailed as e:
+            with self._lock:
+                self._broken = str(e)
+            self.logger.error("collective reduce group did not re-form; plane off: %s", e)
+            raise CollectiveUnavailable(f"collective reduce group did not re-form: {e}")
+        with self._lock:
+            self._broken = None
+            self.counters["group_reforms"] += 1
+        self.logger.info("collective reduce group re-formed at generation %d", generation)
+
+    def _reduce_device(self) -> Optional[torch.device]:
+        """The card the job's NCCL group reduces on; None when results
+        are reduced on the host (gloo, or no job)."""
+        group = distributed.reduce_group()
+        return group.device if group is not None and group.backend == "nccl" else None
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        self._count("host_copies")
+        return t.cpu()
+
+    def _launch(self, fn: Callable[[], torch.Tensor], devices: Sequence = ()) -> torch.Tensor:
+        """Run this rank's kernels over its partitions on `devices`. The
+        small result comes to the host (the copy waits for the device),
+        or, when the reduce runs on the card, stays there and every card
+        of `devices` is synchronized: either way a fault surfaces here,
+        before the barrier. On a CUDA rank a failure is a kernel fault:
+        classified, then raised as DeviceKernelFault, which no rung
+        serves; a build failure raises as it is."""
+        try:
+            out = fn()
+            if self._reduce_device() is None:
+                return self._to_host(out)
+            cards = {torch.device(d) for d in devices} | {out.device}
+            for d in cards:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            return out
         except (DeviceKernelFault, kernels.KernelBuildError):
             raise
         except Exception as e:
@@ -692,37 +770,59 @@ class CollectiveBackend:
         (world, n) rank by rank.
 
         The kernels run BEFORE the barrier, so that once it passes, every
-        rank is at most a host copy away from the reduce, well inside the
+        rank is at most a copy away from the reduce, well inside the
         group's timeout (the reference runs its program after the
         barrier: there the program holds the collective). A status slot
         rides in front of the values: a rank whose compute failed still
         arrives and reduces with the slot set, so every rank raises
-        together instead of waiting out the group's timeout."""
+        together instead of waiting out the group's timeout. Over NCCL
+        the payload is built on the reduce device and the reduced result
+        comes to the host once; over gloo the payload is the host copy.
+        A reduce that fails, or completes so late that a peer may have
+        given up on it (distributed.check_late), answers `error`; the
+        job's next barrier re-forms the group (_regroup)."""
         err = None
         try:
             local = compute().to(torch.int64).reshape(n)
             status = 0
         except BaseException as e:  # re-raised below, after the reduce
             err, local, status = e, torch.zeros(n, dtype=torch.int64), 1
+        t_arrive = time.monotonic()
         try:
-            self._barrier(desc, trace)
+            self._regroup(self._barrier(desc, trace))
         except BaseException:
             if err is not None:
                 raise err
             raise
-        payload = torch.cat([torch.tensor([status], dtype=torch.int64), local])
+        t0 = time.monotonic()
         try:
+            dev = self._reduce_device()
+            if dev is None:
+                payload = torch.cat([torch.tensor([status], dtype=torch.int64), local])
+            else:
+                payload = torch.empty(n + 1, dtype=torch.int64, device=dev)
+                payload[0] = status
+                payload[1:] = local
             out = (distributed.all_gather(payload) if gather
                    else distributed.all_reduce_sum(payload))
+            distributed.check_late(time.monotonic() - t_arrive)
+            if dev is not None:
+                out = self._to_host(out)
         except RuntimeError as e:
-            # The group's timeout ran out inside the reduce: gloo's pairs
-            # are not reusable after it, so the plane stays off here.
-            with self._lock:
-                self._broken = str(e)
-                self.counters["group_failures"] += 1
-            self.logger.error("collective reduce failed; plane off: %s", e)
+            # This rank's group is aborted and the job's generation has
+            # moved on: the next barrier re-forms the group everywhere.
+            self._count("group_failures")
+            self.logger.error("collective reduce failed; the group re-forms: %s", e)
+            if err is not None:
+                raise err
             raise CollectiveUnavailable(f"collective reduce failed: {e}")
-        self._count("reduces")
+        ms = (time.monotonic() - t0) * 1000.0
+        with self._lock:
+            self.counters["reduces"] += 1
+            self.counters["reduce_ms"] += ms
+        if trace is not None:
+            # pilint: allow-span(the port's own span; the reference's docs table stays as it is)
+            trace.record("collective.reduce", ms, seq=desc.get("seq"))
         if err is not None:
             raise err
         failed = int(out[:, 0].sum()) if gather else int(out[0])
@@ -1081,8 +1181,10 @@ class CollectiveBackend:
             stacks = [torch.stack([blocks[leaf][p] for leaf in slots])
                       for p in range(len(mesh))]
             counts = self._launch(lambda: _fold_sum(kernels.gather_expr_count_blocks(
-                stacks, torch.from_numpy(np.stack(idxs)), tape)))
-            return counts if inverse is None else counts[torch.from_numpy(inverse)]
+                stacks, torch.from_numpy(np.stack(idxs)), tape)), mesh)
+            if inverse is None:
+                return counts
+            return counts[torch.from_numpy(inverse).to(counts.device)]
 
         totals = self._settle(desc, trace, len(plans), compute).numpy()
         return totals[[uniq[q] for q in queries]]
@@ -1090,10 +1192,12 @@ class CollectiveBackend:
     def _row_totals(self, stacked: Blocks, low, flt) -> torch.Tensor:
         """K2 once per partition over its (R, k / d_local, W) block, each
         masked by the filter's plane there; the (R,) int64 row totals
-        summed on partition 0's device, then brought to the host."""
+        summed on partition 0's device (_launch: kept there for NCCL,
+        else brought to the host)."""
         return self._launch(lambda: _fold_sum([
             kernels.masked_plane_counts(b, m).sum(dim=1, dtype=torch.int64)
-            for b, m in zip(stacked, self._masks(low, flt, len(stacked)))]))
+            for b, m in zip(stacked, self._masks(low, flt, len(stacked)))]),
+            [b.device for b in stacked])
 
     def _run_topn(self, desc, index, call, my_shards, k, mesh, trace=None):
         field = desc["field"]
@@ -1130,8 +1234,10 @@ class CollectiveBackend:
 
         def scan():
             # K3 once per partition; its (count, bits) rows joined on
-            # partition 0's device, brought to the host once, and folded
-            # as the engine folds its blocks (_fold_minmax).
+            # partition 0's device. One partition's row is the rank's
+            # answer (left on the card for NCCL); several are brought to
+            # the host once and folded as the engine folds its blocks
+            # (_fold_minmax).
             def run():
                 rows = []
                 for b, m in zip(planes, self._masks(low, flt, len(planes))):
@@ -1139,7 +1245,12 @@ class CollectiveBackend:
                     rows.append(torch.cat([count.reshape(1), bits.to(torch.int64)]))
                 return torch.stack([r.to(rows[0].device) for r in rows])
 
-            parts = self._launch(run).numpy()
+            parts = self._launch(run, [b.device for b in planes])
+            if len(parts) == 1:
+                return parts[0]
+            if self._reduce_device() is not None:  # _launch left them on the card
+                parts = self._to_host(parts)
+            parts = parts.numpy()
             bits, count = _fold_minmax([(r[1:], int(r[0])) for r in parts], maximize)
             return torch.from_numpy(np.concatenate([[count], bits]).astype(np.int64))
 

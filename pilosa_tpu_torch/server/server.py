@@ -460,25 +460,31 @@ class Server:
     def open(self) -> "Server":
         """Open sequence (reference server.go:311-357)."""
         self._raise_file_limit()
-        # Multi-process job: join the torch.distributed group when
-        # configured (PILOSA_JAX_COORDINATOR/NUM_PROCESSES/PROCESS_ID, the
-        # reference's names). No-op for one-process deployments. The
-        # group's timeout is the collective plane's barrier timeout.
-        from ..parallel import distributed
-        from ..parallel.collective import DEFAULT_TIMEOUT_MS, CollectiveBackend
-
-        timeout_ms = (self.collective_config.timeout_ms
-                      if self.collective_config is not None
-                      else DEFAULT_TIMEOUT_MS)
-        if distributed.initialize(timeout_ms=timeout_ms):
-            self.node.process_idx = distributed.process_index()
-            self.logger.info(
-                "joined torch.distributed job: rank %d of %d",
-                distributed.process_index(), distributed.process_count())
         # Collective query plane (leader + peer sides). Constructed for
         # every server; one-process jobs serve through it only with
         # `[collective] single-process` on a one-node cluster.
+        from ..parallel import distributed
+        from ..parallel.collective import DEFAULT_TIMEOUT_MS, CollectiveBackend
+
         self.collective = CollectiveBackend(self, self.collective_config)
+        # Multi-process job: join the torch.distributed job when
+        # configured (PILOSA_JAX_COORDINATOR/NUM_PROCESSES/PROCESS_ID, the
+        # reference's names). No-op for one-process deployments. The
+        # reduce group's timeout is the collective plane's barrier
+        # timeout; its device is the plane's partition 0 on this rank,
+        # which picks the job's reduce backend (NCCL or gloo).
+        timeout_ms = (self.collective_config.timeout_ms
+                      if self.collective_config is not None
+                      else DEFAULT_TIMEOUT_MS)
+        if distributed.initialize(timeout_ms=timeout_ms,
+                                  reduce_device=self.collective.partitions()[0]):
+            self.node.process_idx = distributed.process_index()
+            self.logger.info(
+                "joined torch.distributed job: rank %d of %d, reduce backend %s%s",
+                distributed.process_index(), distributed.process_count(),
+                distributed.reduce_backend(),
+                f" (no group: {distributed.group_error()})"
+                if distributed.group_error() else "")
         self.executor.collective = self.collective
         self.executor.logger = self.logger
         self.translate_store.open()

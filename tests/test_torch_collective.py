@@ -16,7 +16,14 @@ job, data written through the normal cluster write path, Count / TopN /
 Sum / Min / Max answered through the collective backend; then a peer
 that receives descriptors late (after the leader's barrier timed out)
 never enters them, and a peer that drops descriptors makes the leader
-fall back to the HTTP fan-out instead of hanging.
+fall back to the HTTP fan-out instead of hanging. A second pair of
+ranks stalls one reduce past the group's timeout: both re-form the
+group and the plane serves again.
+
+A failed reduce re-forms the reduce group at the generation the next
+barrier carries (in process, with the job stood in for), a group that
+does not form turns the plane off with the reason, and with the reduce
+on the device the reduced result is copied to the host once per entry.
 
 A rank holds its k slots as Blocks over its own partitions (its
 engine's `[engine] mesh-devices`; one-process jobs take the backend's
@@ -859,6 +866,46 @@ def test_executor_serves_whole_index_queries_through_the_plane(holder):
         ex.close()
 
 
+@pytest.mark.parametrize("mesh_devices,minmax_copies", [(1, 1), (2, 2)])
+def test_a_reduce_on_the_device_copies_the_reduced_result_once(holder, monkeypatch,
+                                                              mesh_devices, minmax_copies):
+    """With the reduce on the device (an NCCL group; its device stood in
+    for by the CPU here), each entry's result stays where its partitions
+    folded it, the payload is built there, and the reduced result is
+    copied to the host once. Min/Max over several partitions folds them
+    on the host first and sends its one row back: one copy more. The
+    answers equal the host path's."""
+    from pilosa_tpu_torch.core.field import FieldOptions
+
+    idx, exp = _plant(holder)
+    idx.create_field_if_not_exists("v", FieldOptions(type="int", min=0, max=255))
+    for col, val in {3: 10, 9: 20, 700: 30}.items():
+        idx.field("v").set_value(col, val)
+    backend, _ = _pod(holder)
+    backend.mesh_devices = mesh_devices
+    monkeypatch.setattr(backend, "_reduce_device", lambda: torch.device("cpu"))
+    try:
+        def copies(fn):
+            before = backend.counters["host_copies"]
+            got = fn()
+            return got, backend.counters["host_copies"] - before
+
+        calls = [_call("Count(Intersect(Row(f=1), Row(f=2)))"),
+                 _call("Count(Intersect(Row(f=2), Row(f=3)))")]
+        got, n = copies(lambda: backend.count_batch("ci", calls))
+        assert got == [len(exp[1] & exp[2]), len(exp[2] & exp[3])] and n == 1
+        got, n = copies(lambda: backend.topn_counts("ci", "f", [1, 2, 3]))
+        assert got.tolist() == [len(exp[r]) for r in (1, 2, 3)] and n == 1
+        got, n = copies(lambda: backend.bsi_val_count("ci", "v", "sum", 8))
+        assert int(got[-1]) == 3 and n == 1
+        (bits, count), n = copies(lambda: backend.bsi_val_count("ci", "v", "max", 8))
+        assert (sum(int(b) << i for i, b in enumerate(bits)), count) == (30, 1)
+        assert n == minmax_copies
+        assert backend.counters["reduces"] == backend.counters["entries"] == 4
+    finally:
+        backend.close()
+
+
 def test_kernel_fault_in_an_entry_raises_out_of_execute(holder, monkeypatch):
     """A real kernel fault inside a collective entry is not a refusal: it
     raises out of Executor.execute, and the fan-out never answers it (no
@@ -924,31 +971,112 @@ def test_a_peer_rank_failure_fails_every_rank_together(holder, monkeypatch):
         backend.close()
 
 
-def test_a_failed_reduce_turns_the_plane_off(holder, monkeypatch):
-    """A reduce that fails (the group's timeout ran out) leaves gloo's
-    pairs unusable: the backend records why, and serves nothing more."""
-    _plant(holder)
-    backend, server = _pod(holder)
+class _Group:
+    """A stand-in for the job's reduce group: its generation, and why it
+    failed (None while it serves)."""
 
-    def timed_out(values):
-        raise RuntimeError("gloo timed out")
+    def __init__(self, generation=0):
+        self.generation, self.failed = generation, None
+        self.backend, self.device = "gloo", torch.device("cpu")
 
-    monkeypatch.setattr(distributed, "all_reduce_sum", timed_out)
+
+def _as_rank_0_of_2(monkeypatch, backend, server, generations):
+    """`backend` as rank 0 of a two-rank job whose barriers read the
+    reduce-group generations `generations` in turn; returns a descriptor
+    maker (rank 0 holds shards 0 and 1) and the job's stand-in state."""
     monkeypatch.setattr(distributed, "process_count", lambda: 2)
     server.cluster.nodes.append(Node(id="n1", process_idx=1))
     server.cluster.node.process_idx = 0
-    try:
-        desc = {"seq": 1, "type": "collective-exec", "kind": "count",
+    monkeypatch.setattr(backend, "_verify_ownership", lambda *a: None)
+    gens = iter(generations)
+    monkeypatch.setattr(backend, "_barrier", lambda *a: next(gens))
+    job = SimpleNamespace(group=_Group(0), reforms=[])
+    monkeypatch.setattr(distributed, "reduce_group", lambda: job.group)
+
+    def desc(seq):
+        return {"seq": seq, "type": "collective-exec", "kind": "count",
                 "index": "ci", "queries": ["Row(f=1)"], "slots": [[0, 1], [2, 3]],
-                "k": 2, "processes": 2, "timeoutMs": 1000, "sig": None,
-                "epoch": 0}
-        monkeypatch.setattr(backend, "_verify_ownership", lambda *a: None)
-        monkeypatch.setattr(backend, "_barrier", lambda *a: None)
-        with pytest.raises(CollectiveUnavailable, match="reduce failed"):
-            backend._enter(desc)
-        assert backend.counters["group_failures"] == 1
-        assert backend.snapshot()["broken"] == "gloo timed out"
+                "k": 2, "timeoutMs": 1000, "sig": None, "epoch": 0}
+
+    return desc, job
+
+
+def test_a_failed_reduce_re_forms_the_group(holder, monkeypatch):
+    """A reduce that fails (the group's timeout ran out) answers the
+    entry `error`, for the breaker, and leaves the plane on: the next
+    entry's barrier reads the generation the failure advanced, the rank
+    re-forms its group at it before the reduce, and the entry is
+    served."""
+    from pilosa_tpu_torch.constants import SHARD_WIDTH
+
+    _, exp = _plant(holder)
+    backend, server = _pod(holder)
+    desc, job = _as_rank_0_of_2(monkeypatch, backend, server, [0, 1])
+    reduced = []
+
+    def reduce(values):
+        reduced.append(job.group.generation)
+        if len(reduced) == 1:
+            job.group.failed = "timed out"
+            raise distributed.ReduceFailed("gloo reduce of generation 0 failed: timed out")
+        return values
+
+    def regroup(generation):
+        job.group = _Group(generation)
+        job.reforms.append(generation)
+        return job.group
+
+    monkeypatch.setattr(distributed, "all_reduce_sum", reduce)
+    monkeypatch.setattr(distributed, "regroup", regroup)
+    try:
+        with pytest.raises(CollectiveUnavailable, match="reduce failed") as ei:
+            backend._enter(desc(1))
+        assert ei.value.reason == "error"
+        snap = backend.snapshot()
+        assert snap["group_failures"] == 1 and snap["broken"] is None
+        assert backend.active()
+        got = backend._enter(desc(2))
+        assert list(got) == [sum(1 for c in exp[1] if c // SHARD_WIDTH in (0, 1))]
+        assert job.reforms == [1] and reduced == [0, 1]
+        snap = backend.snapshot()
+        assert snap["group_reforms"] == 1 and snap["reduces"] == 1
+        assert snap["host_copies"] == 2  # one per entry: the gloo payload
+    finally:
+        backend.close()
+
+
+@pytest.mark.parametrize("case", ["re-formation", "first-group"])
+def test_a_group_that_does_not_form_turns_the_plane_off(holder, monkeypatch, case):
+    """The plane goes off only when a reduce group does not form: a
+    re-formation whose rendezvous times out, or the job's first group
+    (a job the rule sends to NCCL that cannot form its NCCL group is not
+    served on gloo instead). `broken` holds the reason and the leader
+    refuses `inactive`, which the executor answers through the fan-out."""
+    _plant(holder)
+    backend, server = _pod(holder)
+    desc, job = _as_rank_0_of_2(monkeypatch, backend, server, [1])
+    why = f"reduce group of generation {int(case != 'first-group')} did not form"
+    try:
+        assert backend.active()
+        if case == "first-group":
+            monkeypatch.setattr(distributed, "group_error",
+                                lambda: f"nccl {why}: this torch build has no NCCL")
+        else:
+            job.group.failed = "timed out"
+
+            def regroup(generation):
+                raise distributed.ReduceFailed(
+                    f"gloo {why}: not formed within 30000 ms")
+
+            monkeypatch.setattr(distributed, "regroup", regroup)
+            with pytest.raises(CollectiveUnavailable, match="did not re-form") as ei:
+                backend._enter(desc(2))
+            assert ei.value.reason == "error"
         assert not backend.active()
+        assert why in backend.snapshot()["broken"]
+        with pytest.raises(CollectiveUnavailable) as ei:
+            backend.count("ci", _call("Count(Row(f=1))"))
+        assert ei.value.reason == "inactive"
     finally:
         backend.close()
 
@@ -1239,6 +1367,117 @@ def test_two_process_cluster_collective_queries(tmp_path, n_proc):
     outs = run_workers(tmp_path, WORKER, [
         [coord, pid, http_ports[0], http_ports[1], tmp_path] for pid in range(n_proc)],
         timeout=150)
+    for rc, out, err in outs:
+        assert rc == 0, f"worker failed rc={rc}\nstdout:{out}\nstderr:{err[-3000:]}"
+    assert any("WORKER0_OK" in out for _, out, _ in outs)
+    assert any("WORKER1_OK" in out for _, out, _ in outs)
+
+
+# One rank of a two-rank job whose rank 1 stalls one reduce past the
+# group's timeout (a sentinel file arms it): both ranks' reduces fail, the
+# leader answers that Count through the fan-out, and the next entry's
+# barrier re-forms the group on both ranks before its reduce.
+WORKER_STALL = textwrap.dedent("""
+    import json, os, sys, time
+    import urllib.request
+
+    coord, pid, port0, port1, tmp = (
+        sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+        sys.argv[5],
+    )
+    os.environ["PILOSA_JAX_COORDINATOR"] = coord
+    os.environ["PILOSA_JAX_NUM_PROCESSES"] = "2"
+    os.environ["PILOSA_JAX_PROCESS_ID"] = str(pid)
+    os.environ["PILOSA_COLLECTIVE_TIMEOUT_MS"] = "2000"
+
+    from pilosa_tpu_torch.parallel import distributed
+    from pilosa_tpu_torch.server.client import InternalClient
+    from pilosa_tpu_torch.server.server import Server
+
+    hosts = [f"localhost:{port0}", f"localhost:{port1}"]
+    s = Server(data_dir=f"{tmp}/node{pid}", port=[port0, port1][pid],
+               cluster_hosts=hosts, replica_n=1, cache_flush_interval=0,
+               anti_entropy_interval=0, member_monitor_interval=0.2,
+               executor_workers=0, device="cpu")
+    s.open()
+
+    def dvars(host):
+        return json.loads(urllib.request.urlopen(f"http://{host}/debug/vars",
+                                                 timeout=5).read())
+
+    try:
+        if pid == 1:
+            real = distributed.all_reduce_sum
+
+            def stalled(values):
+                if os.path.exists(f"{tmp}/stall"):
+                    os.remove(f"{tmp}/stall")
+                    time.sleep(s.collective.timeout_ms / 1000.0 + 0.5)
+                return real(values)
+
+            distributed.all_reduce_sum = stalled
+            while not os.path.exists(f"{tmp}/done"):
+                time.sleep(0.05)
+            print("WORKER1_OK")
+            sys.exit(0)
+
+        client = InternalClient()
+        h = hosts[0]
+        deadline = time.time() + 30
+        while time.time() < deadline and not s.collective.active():
+            time.sleep(0.1)
+        assert s.collective.active()
+        client.create_index(h, "ci")
+        client.create_field(h, "ci", "f")
+        cols = [5, (1 << 20) + 1, 3 * (1 << 20) + 7, 11]
+        for col in cols:
+            client.query(h, "ci", f"Set({col}, f=1)")
+        q = "Count(Row(f=1))"
+
+        def served():
+            return dvars(h)["counters"].get("CollectiveCount", 0)
+
+        assert client.query(h, "ci", q)["results"][0] == 4
+        assert served() == 1, "collective path not taken"
+        for host in hosts:
+            c = dvars(host)["collective"]
+            assert c["reduce_backend"] == "gloo" and c["group_generation"] == 0, c
+
+        # --- rank 1 stalls its next reduce past the group's timeout
+        open(f"{tmp}/stall", "w").close()
+        assert client.query(h, "ci", q)["results"][0] == 4  # through the fan-out
+        failed_at = time.time()
+        assert served() == 1
+        assert dvars(h)["collective"]["group_failures"] == 1
+        recovered = None
+        while time.time() - failed_at < 10:
+            assert client.query(h, "ci", q)["results"][0] == 4
+            if served() == 2:
+                recovered = time.time() - failed_at
+                break
+            time.sleep(0.1)
+        assert recovered is not None, dvars(h)["collective"]
+        for host in hosts:
+            c = dvars(host)["collective"]
+            assert c["group_failures"] == 1 and c["group_reforms"] == 1, (host, c)
+            assert c["group_generation"] == 1 and c["broken"] is None, (host, c)
+        print(f"WORKER0_OK recovered={recovered:.2f}s")
+    finally:
+        open(f"{tmp}/done", "w").close()
+        s.close()
+""")
+
+
+def test_a_stalled_reduce_re_forms_the_group_across_processes(tmp_path):
+    """Two real ranks on gloo; rank 1 stalls one reduce past the group's
+    timeout. Both ranks' reduces fail, the Count is answered through the
+    fan-out, both re-form at generation 1, and the next Count goes
+    through the plane again with the right answer within 10 s."""
+    coord = f"localhost:{free_port()}"
+    http_ports = [free_port(), free_port()]
+    outs = run_workers(tmp_path, WORKER_STALL, [
+        [coord, pid, http_ports[0], http_ports[1], tmp_path] for pid in range(2)],
+        timeout=120)
     for rc, out, err in outs:
         assert rc == 0, f"worker failed rc={rc}\nstdout:{out}\nstderr:{err[-3000:]}"
     assert any("WORKER0_OK" in out for _, out, _ in outs)

@@ -1224,3 +1224,126 @@ def test_k1_blocks_stage_once_per_device(cuda_device, variant):
         four.close()
         one.close()
         h.close()
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class _NeverDone:
+    """A reduce's work that never completes, as a peer that never comes
+    leaves it."""
+
+    def __init__(self, work):
+        self.work = work
+
+    def is_completed(self):
+        return False
+
+    def wait(self, *a):
+        raise AssertionError("waited on a reduce that never completes")
+
+
+def test_a_one_rank_nccl_reduce_group_fails_and_re_forms(cuda_device):
+    """The port's ReduceGroup on NCCL, world 1, on a store of its own:
+    the payload is reduced and gathered on the card; a reduce that never
+    completes times out, aborts the communicator and raises ReduceFailed
+    (the process lives on); the group of generation 1 forms and reduces."""
+    from pilosa_tpu_torch.parallel import distributed as dist
+
+    store = torch.distributed.TCPStore("localhost", _free_port(), 1, True)
+    dev = torch.device("cuda", 0)
+    group = dist.ReduceGroup(store, "nccl", 0, 1, dev, timeout_ms=500)
+    payload = torch.arange(257, dtype=torch.int64, device=dev)
+    got = group.all_reduce_sum(payload.clone())
+    assert got.device == dev and torch.equal(got, payload)
+    rows = group.all_gather(payload)
+    assert rows.device == dev and torch.equal(rows, payload[None])
+    real = group._complete
+    group._complete = lambda work, timeout_ms=None: real(_NeverDone(work), timeout_ms)
+    with pytest.raises(dist.ReduceFailed, match="did not complete within 500 ms"):
+        group.all_reduce_sum(payload.clone())
+    assert group.failed is not None
+    again = group.reform(1)
+    assert again.generation == 1 and again.backend == "nccl"
+    assert torch.equal(again.all_reduce_sum(payload.clone()), payload)
+    again.abort()
+
+
+NCCL_JOB = r"""
+import sys, time
+import torch
+
+coordinator, rank = sys.argv[1], int(sys.argv[2])
+from pilosa_tpu_torch.parallel import distributed as dist
+
+dev = torch.device("cuda", rank)
+assert dist.initialize(coordinator, 2, rank, timeout_ms=2000, reduce_device=dev)
+assert dist.reduce_backend() == "nccl" and dist.group_error() is None, dist.group_error()
+x = torch.full((257,), rank + 1, dtype=torch.int64, device=dev)
+got = dist.all_reduce_sum(x.clone())
+assert got.device == dev and got.tolist() == [3] * 257
+rows = dist.all_gather(x[:4].clone())
+assert rows.device == dev and rows.tolist() == [[1] * 4, [2] * 4]
+t_arrive = time.monotonic()  # where the plane's barrier would be
+if rank == 1:
+    time.sleep(3.0)  # past the group's timeout: rank 0's reduce fails
+try:
+    dist.all_reduce_sum(x.clone())
+    # The late rank's reduce may complete against rank 0's aborted
+    # communicator; the plane discards it (check_late), as here.
+    dist.check_late(time.monotonic() - t_arrive)
+    raise AssertionError(f"rank {rank} kept a reduce its peer gave up on")
+except dist.ReduceFailed as e:
+    failed_s = time.monotonic() - t_arrive
+store = dist.connect_store()
+deadline = time.monotonic() + 10
+while store.get(dist.GENERATION_KEY) != b"1":  # rank 0 advanced it
+    assert time.monotonic() < deadline
+    time.sleep(0.05)
+dist.regroup(1)
+assert dist.group_generation() == 1
+assert dist.all_reduce_sum(x.clone()).tolist() == [3] * 257
+dist.shutdown()
+print(f"NCCL_OK rank={rank} failed_after={failed_s:.2f}")
+"""
+
+
+def test_a_two_rank_nccl_job_reduces_fails_and_re_forms(cuda_device, tmp_path):
+    """Two ranks, one card each: the rule picks NCCL; the reduce and the
+    gather run on the cards; rank 1 stalls one reduce past the timeout:
+    rank 0's reduce fails without ending the process, rank 1's late one
+    fails or is discarded, and both re-form at generation 1 and reduce
+    again."""
+    import os
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    path = tmp_path / "nccl_job.py"
+    path.write_text(NCCL_JOB)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    coordinator = f"localhost:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, str(path), coordinator, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=180)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    for rc, out, err in outs:
+        assert rc == 0 and "NCCL_OK" in out, f"rc={rc}\n{out}\n{err[-3000:]}"

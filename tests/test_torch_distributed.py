@@ -67,10 +67,12 @@ WORKER = textwrap.dedent("""
     assert inter == want_inter, (inter, want_inter)
     rows = dist.all_gather(torch.tensor([pid, 10 * pid], dtype=torch.int64))
     assert rows.tolist() == [[p, 10 * p] for p in range(n_proc)], rows
-    # Tear the group down before exit: a gloo group left to the
-    # interpreter's exit can abort the process after the work is done.
-    torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
+    assert dist.reduce_backend() == "gloo" and dist.group_error() is None
+    # Leave the job before exit: a group left to the interpreter's exit
+    # can abort the process after the work is done.
+    dist.all_reduce_sum(torch.zeros(1, dtype=torch.int64))
+    dist.shutdown()
+    assert dist.process_count() == 1
     print(f"WORKER_OK pid={pid} total={total} inter={inter}")
 """)
 
@@ -112,6 +114,96 @@ def test_two_process_global_mesh_counts(tmp_path, n_proc):
     totals = {line.split("total=")[1] for _, out, _ in outs
               for line in out.splitlines() if "WORKER_OK" in line}
     assert len(totals) == 1
+
+
+# A job whose ranks each publish a card of their own: the rule picks
+# NCCL, and on a machine where it cannot form, the job stays joined with
+# no group and the error kept (never a gloo group in its place).
+WORKER_NCCL_REFUSED = textwrap.dedent("""
+    import sys
+    import torch
+
+    coordinator, n_proc, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+
+    from pilosa_tpu_torch.parallel import distributed as dist
+
+    dist.device_identity = lambda device: f"cuda/card-{pid}"
+    assert dist.initialize(coordinator, n_proc, pid, timeout_ms=2000)
+    assert dist.reduce_backend() == "nccl", dist.reduce_backend()
+    assert dist.reduce_group() is None
+    assert "nccl reduce group of generation 0 did not form" in dist.group_error()
+    try:
+        dist.all_reduce_sum(torch.ones(1, dtype=torch.int64))
+        raise AssertionError("reduced without a group")
+    except dist.ReduceFailed as e:
+        assert "no reduce group" in str(e), e
+    dist.shutdown()
+    print(f"WORKER_OK pid={pid}")
+""")
+
+
+@pytest.mark.parametrize("meshes,want", [
+    ([["cuda:0"], ["cuda:1"], ["cuda:2"], ["cuda:3"]], "nccl"),
+    ([["cuda:0"], ["cuda:0"]], "gloo"),
+    ([["cuda:0"], ["cpu"]], "gloo"),
+    ([["cuda:0", "cuda:1"], ["cuda:1", "cuda:0"]], "nccl"),
+    ([["cuda:0", "cuda:1"], ["cuda:0", "cuda:1"]], "gloo"),
+], ids=["distinct-cards", "two-ranks-one-card", "a-cpu-rank", "meshes-span-cards",
+        "meshes-start-on-one-card"])
+def test_the_backend_rule(meshes, want):
+    """NCCL when every rank's reduce device (partition 0 of its mesh) is
+    a card no other rank's is; gloo for a CPU rank or a shared card."""
+    def identity(device):  # device_identity, with a card's index for its UUID
+        return "cpu" if device == "cpu" else f"cuda/GPU-{device.split(':')[1]}"
+
+    assert dist.pick_backend([identity(mesh[0]) for mesh in meshes]) == want
+    assert dist.device_identity("cpu") == "cpu"
+
+
+def test_a_job_sent_to_nccl_that_cannot_form_it_has_no_group(tmp_path):
+    coordinator = f"localhost:{free_port()}"
+    outs = run_workers(tmp_path, WORKER_NCCL_REFUSED,
+                       [[coordinator, 2, pid] for pid in range(2)], timeout=120)
+    for rc, out, err in outs:
+        assert rc == 0, f"worker failed rc={rc}\nstdout:{out}\nstderr:{err[-2000:]}"
+        assert "WORKER_OK" in out
+
+
+def test_a_reduce_group_fails_and_re_forms_in_one_process():
+    """A one-rank gloo ReduceGroup on a store of its own: reduce and
+    gather, a reduce whose wait fails advances the generation and aborts
+    the group (it serves nothing more), the group of generation 1 forms
+    in its place under its own store prefix, and a late reduce is
+    discarded once the generation has moved past its group's."""
+    store = torch.distributed.TCPStore("localhost", free_port(), 1, True)
+    store.set(dist.GENERATION_KEY, "0")
+    group = dist.ReduceGroup(store, "gloo", 0, 1, "cpu", 2000)
+    x = torch.arange(4, dtype=torch.int64)
+    assert group.all_reduce_sum(x.clone()).tolist() == [0, 1, 2, 3]
+    assert group.all_gather(x).tolist() == [[0, 1, 2, 3]]
+
+    def timed_out(work, timeout_ms=None):
+        raise TimeoutError("the reduce did not complete within 2000 ms")
+
+    group._complete = timed_out
+    with pytest.raises(dist.ReduceFailed, match="generation 0 failed"):
+        group.all_reduce_sum(x.clone())
+    assert "did not complete" in group.failed
+    assert store.get(dist.GENERATION_KEY) == b"1"  # advanced before the abort
+    with pytest.raises(dist.ReduceFailed):
+        group.all_gather(x)
+    again = group.reform(1)
+    assert again.generation == 1 and again.failed is None
+    assert again.all_reduce_sum(x.clone()).tolist() == [0, 1, 2, 3]
+    # A reduce completed late is kept while the generation is its group's,
+    # and always before the timeout; past it, once a peer moved the
+    # generation on, it is discarded and the group aborted.
+    again.check_late(10.0)
+    store.set(dist.GENERATION_KEY, "2")
+    again.check_late(1.0)
+    with pytest.raises(dist.ReduceFailed, match="after a peer had given up"):
+        again.check_late(10.0)
+    assert again.failed is not None
 
 
 def _post(host, path, body):
