@@ -22,7 +22,8 @@ Phases, each of which fails the run if it fails:
              depth-17 Count(Range(v > x))), at the serving shape
              (U=128, S=256, W=32768, L=2, Q=256) and at path (e)'s
              count_batch shape (64 Count(Intersect(Row, Range(v > x))),
-             82 distinct slots, staged). K2 at R=128 and R=1,
+             82 distinct slots, staged, the shared compare run once per
+             chunk as a hoist program). K2 at R=128 and R=1,
              S=256, with and without a mask, and on an 18-plane BSI Sum
              stack. K3 (bsi_minmax): min and max, with and without a
              filter, at depth 17 over S=256, W=32768, on ragged tails,
@@ -237,12 +238,14 @@ Phases, each of which fails the run if it fails:
              standby Server and the coordinator's autoscaler (interval
              1 s, window 3, cooldown 0, scale-out-qps half its own
              reading of (j1)'s load before the join, scale-in-qps 0.5)
-             joins it under (j)'s 8 clients and removes it once they
-             stop: the seconds from the first sample over (under) the
-             mark to the action, each move's rebalance seconds, every
-             node's answers after each move. (l) one node over 4 shard
-             partitions, run after (f) on the same holder: an
-             in-process Server with `[engine] mesh-devices` 4 (one
+             joins it under (j)'s 8 clients and, its scale-in held
+             until every node's answers after the join are read,
+             removes it once they stop: the seconds from the first
+             sample over (under) the mark to the action, each move's
+             rebalance seconds, every node's answers after each
+             move. (l) one node over 4 shard partitions, run after (f)
+             on the same holder: an in-process Server with
+             `[engine] mesh-devices` 4 (one
              partition per card where there are 4, else 4 on the
              first card) handed the holder; (l1) (a)'s Counts and
              nest, (b)'s count_batch, TopN with and without
@@ -697,6 +700,11 @@ def check_kernels(torch, kernels, engine_mod, rng, brng, report, u, s, q,
                          depth + 1 + torch.arange(n_bq, dtype=torch.int32)[None]]).contiguous()
     ran, chosen = k1_hold("BSI count_batch shape at full width", batch, bq_idxs, bq_tape)
     assert chosen == "staged", chosen
+    # Every query shares the compare: the staged launch runs it as one
+    # hoist program per chunk, each query `hoisted & row`.
+    bq_plan = kernels._K1Staging(bq_idxs, list(bq_tape), None)
+    bq_hoisted = bq_plan.n_hoist
+    assert bq_hoisted == 1 and not bq_plan.bsi, bq_hoisted
     k1bq = {v: kernel_ms(torch, lambda v=v: kernels.gather_expr_count(
         batch, bq_idxs, bq_tape, variant=v), f"k1_{v}_kernel") for v in kernels.K1_VARIANTS}
     k1bq_ms, k1bq_method = k1bq["staged"]
@@ -705,10 +713,12 @@ def check_kernels(torch, kernels, engine_mod, rng, brng, report, u, s, q,
     k1bq_bytes = batch.shape[0] * plane_bytes + bq_idxs.numel() * 4 + n_bq * 8
     k1bq_bound, k1bq_by = bound(k1bq_bytes, n_bq * s * w * (3 * depth + 5))
     log(f"K1 BSI count_batch shape (Q={n_bq}, L={depth + 2}, {batch.shape[0]} distinct slots, "
-        f"S={s} W={w}): exact ({', '.join(ran)}; k1_plan {chosen}); staged {k1bq_ms:.4f} ms "
-        f"({k1bq_method}), streaming {k1bq['streaming'][0]:.4f} ms; bound {k1bq_bound:.4f} ms "
-        f"({k1bq_by}, {k1bq_bytes / 1e9:.3f} GB), staged at {k1bq_bound / k1bq_ms:.3f} of it; "
-        f"twin {k1bq_plain_ms:.2f} ms")
+        f"S={s} W={w}): exact, max_abs_err 0 ({', '.join(ran)}; k1_plan {chosen}); "
+        f"{bq_hoisted} hoisted span ({bq_plan.stages} ring stages of "
+        f"{bq_hoisted + bq_plan.max_distinct} rows); staged {k1bq_ms:.4f} ms ({k1bq_method}), "
+        f"streaming {k1bq['streaming'][0]:.4f} ms; bound {k1bq_bound:.4f} ms ({k1bq_by}, "
+        f"{k1bq_bytes / 1e9:.3f} GB), staged at {k1bq_bound / k1bq_ms:.3f} of it; the serving "
+        f"shape's staged {k1_ms:.4f} ms in this run; twin {k1bq_plain_ms:.2f} ms")
     del batch
     # K2: Sum(Row(f=a), field=v) = per-plane counts of the stack, masked.
     k2s_ms, k2s_method = kernel_ms(
@@ -823,7 +833,7 @@ def check_kernels(torch, kernels, engine_mod, rng, brng, report, u, s, q,
         "k1_bsi_single": dict(ms=k1b_ms, method=k1b_method, plain_ms=k1b_plain_ms,
                               bytes=k1b_bytes, bound_ms=k1b_bound, bound_by=k1b_by),
         "k1_bsi_batch": dict(ms=k1bq_ms, method=k1bq_method, plain_ms=k1bq_plain_ms,
-                             streaming_ms=k1bq["streaming"][0],
+                             streaming_ms=k1bq["streaming"][0], hoisted_spans=bq_hoisted,
                              bytes=k1bq_bytes, bound_ms=k1bq_bound, bound_by=k1bq_by),
         "k2_bsi_sum": dict(ms=k2s_ms, method=k2s_method, bytes=k2s_bytes,
                            bound_ms=k2s_bound, bound_by=k2s_by),
@@ -1149,7 +1159,8 @@ def main_path(torch, pt, kernels, args, rng, report):
         f"share ~{out['batch_idle_share_est']:.3f} (1 - K1 time / batch wall time); "
         f"host stages of one batch: " + ", ".join(
             f"{k} {v:.3f}" for k, v in stages.items()))
-    end(ph, "gather_expr_count", "gather_expr_count_staged")
+    # 256 distinct pairs share no leaf position: nothing to hoist.
+    end(ph, "gather_expr_count", "gather_expr_count_staged", none=("gather_expr_count_hoisted",))
 
     # ---- (a) timed: single Counts on resident leaves (the batch above
     # gathered the leaf planes of nearly every row)
@@ -1764,9 +1775,12 @@ def main_path_bsi(ex, eng, H, rng, n_shards, start, end, out):
         eng.count_batch_async("big", calls, shards)
     torch_sync()
     e["bsi_batch_ms"] = (time.perf_counter() - t0) / 5 * 1e3
-    end(ph, "gather_expr_count_staged", none=("gather_expr_count_streaming",))
+    # The shared compare ran as a hoist program of the staged launch.
+    end(ph, "gather_expr_count_staged", "gather_expr_count_hoisted",
+        none=("gather_expr_count_streaming",))
     log(f"main (e): count_batch of {n_b} Count(Intersect(Row(f=r), Range(v > {x_gt}))) equals "
-        f"numpy; {e['bsi_batch_ms']:.3f} ms per warm batch (host clock)")
+        f"numpy, staged with its compare hoisted; {e['bsi_batch_ms']:.3f} ms per warm batch "
+        f"(host clock)")
 
     # ---- Ranges as Rows (elementwise torch on the device, no count kernel)
     ph = start("e_range_rows")
@@ -4521,6 +4535,7 @@ def autoscale(cmd):
     c.config.scale_out_qps = cmd["scale_out_qps"]
     c.config.standby = cmd["standby"]
     with c._lock:
+        c.config.scale_in_qps = cmd["scale_in_qps"]
         c._samples.clear()
     for name in ("_scale_out", "_scale_in"):
         def timed(act=getattr(c, name), name=name):
@@ -4529,6 +4544,16 @@ def autoscale(cmd):
 
         setattr(c, name, timed)
     return {}
+
+
+def scale_in(cmd):
+    # Sets scale-in-qps and starts the controller's window afresh; returns
+    # the time of the change, on this process's clock.
+    c = srv.autoscaler
+    with c._lock:
+        c.config.scale_in_qps = cmd["qps"]
+        c._samples.clear()
+    return {"t": time.time()}
 
 
 def standby(cmd):
@@ -4541,6 +4566,7 @@ def standby(cmd):
 
 ctl.serve(report, lambda: srv is not None and srv.close(), ready=lambda cmd: ready,
           join=join, status=status, holds=holds, standby=standby, autoscale=autoscale,
+          scale_in=scale_in,
           autoscale_report=lambda cmd: dict(auto, snapshot=srv.autoscaler.snapshot()))
 """
 
@@ -4699,7 +4725,8 @@ def main_path_k3(job, j, work, hosts, ports, joiner, pairs, want_pairs, writes, 
     coordinator's autoscaler (interval 1 s, window 3) gets scale-out-qps
     at half the queries/s it read itself while (j1)'s clients ran before
     the join, and that standby. Under (j)'s 8 clients it joins the standby; with the
-    clients stopped it removes that node again. Every answer equals
+    clients stopped, and every node read after the join (the scale-in is
+    held until then), it removes that node again. Every answer equals
     numpy; the seconds from the first sample over the mark to the job's
     start, and each move's rebalance seconds."""
     k3 = {}
@@ -4712,20 +4739,25 @@ def main_path_k3(job, j, work, hosts, ports, joiner, pairs, want_pairs, writes, 
             if jw["first_t"] + 1.0 <= t <= jw["begin_t"]]
     assert read, jw
     mark = 0.5 * float(np.median(read))
-    job.ask(0, "autoscale", scale_out_qps=mark, standby=hosts[joiner])
+    # No scale-in until every node has been read after the join: a leave
+    # that began under that check would move shards while it reads (no
+    # queries/s is at or under -1).
+    job.ask(0, "autoscale", scale_out_qps=mark, scale_in_qps=-1.0, standby=hosts[joiner])
     k3.update(scale_out_qps=mark, scale_in_qps=K_SCALE_IN_QPS, j1_samples_before=read,
               j1_client_qps_before=jw["counts"]["before"]["qps"])
 
-    def decided(action, over):
+    def decided(action, over, since=0.0):
         """(seconds from the first sample of the run that ended at the
-        action to the action, the action's time). The first call acted;
-        later ones found no standby left, or no node it added, and held
-        (counted as skipped_bounds)."""
+        action to the action, the action's time), counting samples from
+        `since` on. The first call acted; later ones found no standby
+        left, or no node it added, and held (counted as skipped_bounds)."""
         rep = job.ask(0, "autoscale_report")
         acts = [t for name, t in rep["actions"] if name == action]
         assert acts, rep
         first = None
         for t, qps in rep["samples"]:
+            if t < since:
+                continue
             if t > acts[0]:
                 break
             first = (first or t) if over(qps) else None
@@ -4745,6 +4777,7 @@ def main_path_k3(job, j, work, hosts, ports, joiner, pairs, want_pairs, writes, 
     ph = begin("k3_after_scale_out")
     check_every(range(J_NODES + 1), "after the autoscaled join")
     finish(ph, "gather_expr_count", "masked_plane_counts", "bsi_minmax")
+    t_release = job.ask(0, "scale_in", qps=K_SCALE_IN_QPS)["t"]
     log(f"main (k3) [{smi}]: the coordinator's autoscaler (interval 1 s, window 3, "
         f"scale-out-qps {mark:.1f}, half its own reading {read} of (j1)'s load before "
         f"its join, whose clients sent {jw['counts']['before']['qps']:.1f} Counts/s) admitted the "
@@ -4763,7 +4796,8 @@ def main_path_k3(job, j, work, hosts, ports, joiner, pairs, want_pairs, writes, 
     reps = finish(ph)
     rb = rebalance_numbers(reps, before)
     assert rb["jobs_completed"] == 1, rb
-    k3["in_decide_s"], t_in, snap = decided("_scale_in", lambda q: q <= K_SCALE_IN_QPS)
+    k3["in_decide_s"], t_in, snap = decided("_scale_in", lambda q: q <= K_SCALE_IN_QPS,
+                                            since=t_release)
     k3["in_rebalance_s"] = t_left - t_in
     k3["scale_in"] = dict(rebalance=rb)
     k3["autoscaler"] = snap
@@ -4808,6 +4842,7 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
     from pilosa_tpu_torch.server.server import Server
     from pilosa_tpu_torch.storage import FSYNC_NEVER, StorageConfig
 
+    H_ev = H[:, :J_EV_SHARDS]  # (j3)'s index ev
     H = H[:, :J_SHARDS]
     vals, nn = bsi["vals"][:J_SHARDS], bsi["nn"][:J_SHARDS]
     n_rows, n_shards, n_words = H.shape
@@ -4925,7 +4960,9 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
                     for r, b in zip(reps, before)}
 
         def check_every(node_idx, label):
-            """(j2): every node's answers against numpy."""
+            """(j2): every node's answers against numpy, with no move
+            under way from before the first answer to after the last."""
+            assert not status(0)["moving"], label
             nodes, view = members()
             assert sorted(n.id for n in nodes) == sorted(hosts[r] for r in node_idx), nodes
             want_w = len(written)
@@ -4950,7 +4987,11 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
                 for kind in ("min", "max"):
                     got = query(port, "big", f"{kind.title()}(Row(f={fa}), field=v)")[0]
                     want_k = fold_val_count(view[hosts[r]], kind, vals, nn & fbits, n_shards)
-                    assert (got["value"], got["count"]) == want_k, (label, kind, got, want_k)
+                    assert (got["value"], got["count"]) == want_k, (
+                        label, hosts[r], kind, got, want_k)
+            st = status(0)
+            assert not st["moving"] and sorted(st["nodes"]) == sorted(n.id for n in nodes), (
+                label, st)
 
         # ---- (j1) join under load
         for r in range(J_NODES):  # each node's Count leaves resident before the clock
@@ -5070,7 +5111,7 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
     srv = Server(storage_config=StorageConfig(fsync=FSYNC_NEVER), **kw).open()
     try:
         t0 = time.perf_counter()
-        j_fill_ev(srv, H, J_EV_SHARDS)
+        j_fill_ev(srv, H_ev, J_EV_SHARDS)
         j["ev_fill_s"] = time.perf_counter() - t0
     finally:
         srv.close()
@@ -5092,7 +5133,7 @@ def main_path_j(torch, kernels, H, bsi, depth, rng, start, end, out, smi, phases
         j["ev_capture_open_s"] = time.perf_counter() - t0
         assert srv.cdc.log("ev").last_pos == 0
         live = f"Count(Intersect(Row(f={a_ev}), Row(f={b_ev})))"
-        bits = {r: np.unpackbits(H[r, :J_EV_SHARDS].view(np.uint8), axis=1,
+        bits = {r: np.unpackbits(H_ev[r].view(np.uint8), axis=1,
                                  bitorder="little").reshape(-1).astype(bool)
                 for r in (a_ev, b_ev)}
         status, reg = http(ev_port, "POST", "/cdc/standing",

@@ -65,6 +65,35 @@
 //     each block does one warp reduction and one 64-bit atomicAdd per
 //     query. Queries come in tiles of Q_TILE; each tile stages only its
 //     own distinct slots (grid y = tile).
+//     Hoisting. A batch's queries share one tape, and where a span of it
+//     names the same slots for every query (a BSI compare over one
+//     predicate, a shared filter), evaluating it per query repeats the
+//     same work Q times: at the BSI count_batch shape (Q = 64, a depth-17
+//     compare beside one row each) that made the kernel bound by issue
+//     and ring reads at ~5x its bytes bound. The host (ops/kernels.py
+//     k1_split) cuts each such maximal span out as a hoist program and
+//     gives the queries a tape that reads its result as one more leaf.
+//     Each stage of the ring then starts with H synthetic rows. After the
+//     barrier that lands chunk k, the block evaluates each program once
+//     over the chunk, one 32-bit word a thread (RING_WORDS = 128 words a
+//     row: 4 warps a program), writes synthetic row h, and takes a second
+//     barrier; then the per-query tapes run as before (at that shape
+//     `hoisted & row` and a popcount), so the compare's 18 rows are read
+//     from the ring once per chunk, not 64 times. The programs' rows sit
+//     first among the staged rows, in the same place in every tile. A
+//     template parameter (HOIST) compiles this in only for launches that
+//     have programs, so a launch without one runs the code it ran before.
+//     What bounds a hoisted launch is each program's walk over its codes:
+//     a short dependent chain per chunk, on 4 of the block's 16 warps, that
+//     the copies and the queries wait on. Two things shorten it: the
+//     program's codes and operand words are loaded HOIST_BATCH at a time
+//     (eval_word; PERF.md has the times of 1, 2, 4 and 8 at a time), and
+//     when the query tape is set-op only (the usual case: the compare was
+//     hoisted) the kernel is built for two blocks an SM (64 registers) and
+//     the host sizes the ring so that two fit (ops/kernels.py
+//     k1_hoist_stages): one block's chain runs while the other's copies
+//     land (PERF.md has the times of one and two blocks an SM). Programs
+//     always run the evaluator with the BSI codes, whatever they hold.
 // (b) k1_streaming_kernel, Q = 1 (engine.count) and batches whose slots
 //     do not fit the ring. A block evaluates one (query, plane chunk)
 //     item: each thread streams 16-byte (uint4) loads of the query's
@@ -87,7 +116,9 @@
 // leaves. Tapes with such codes run a second instantiation of each
 // variant (template BSI = true). Set-op tapes keep the first: run through
 // the BSI one, the staged variant was 4.5% slower at the serving shape
-// (PERF.md), from the extra op tests on every code.
+// (PERF.md), from the extra op tests on every code. In the staged variant
+// the choice is made for the query tape alone: a hoisted compare leaves a
+// set-op query tape.
 //
 // ---------------------------------------------------------------------
 // K3  bsi_minmax
@@ -144,6 +175,8 @@
 #define LT_CLEAR 1
 #define LT_KEEP 2
 #define RING_CHUNK 32
+#define RING_WORDS (RING_CHUNK * 4)  // 32-bit words of a chunk's row
+#define HOIST_BATCH 4  // hoist program codes whose loads are issued together
 #define Q_TILE 256
 
 #define THREADS 256
@@ -176,6 +209,16 @@ __device__ __forceinline__ uint4 apply_op(int op, uint4 a, uint4 b) {
     r.x = ~a.x & b.x; r.y = ~a.y & b.y; r.z = ~a.z & b.z; r.w = ~a.w & b.w;
   }
   return r;
+}
+
+// One 32-bit word: the hoist programs' unit (a block spreads a program's
+// RING_WORDS words of a chunk over its threads).
+__device__ __forceinline__ unsigned int apply_op(int op, unsigned int a, unsigned int b) {
+  if (op == OP_AND) return a & b;
+  if (op == OP_OR) return a | b;
+  if (op == OP_XOR) return a ^ b;
+  if (op == OP_ANDNOT) return a & ~b;
+  return ~a & b;  // OP_NOTAND
 }
 
 __device__ __forceinline__ unsigned int popc4(uint4 v) {
@@ -267,6 +310,64 @@ __device__ __forceinline__ void eval_tape(const int* __restrict__ tape, int n, F
   }
 }
 
+// One hoist program over one word. The program is the same for every
+// chunk, and its operand reads do not depend on the values: codes come in
+// batches of HOIST_BATCH, each batch's codes and then its operand words
+// are loaded together (independent loads, in flight at once), then the
+// batch is applied in order from registers. eval_tape's code-by-code walk
+// left each step waiting on a chain of two loads (the code, then the
+// ring). Codes without a slot (binary ops, keeps), which the host points
+// at `idle_row`, and the codes past the end load that row and never use
+// it: the block's first staged row, landed and written by no thread while
+// the programs run. It knows the BSI codes whatever the program holds.
+template <class Fetch>
+__device__ __forceinline__ unsigned int eval_word(const int* __restrict__ prog, int n,
+                                                  int idle_row, Fetch fetch,
+                                                  unsigned int* stk) {
+  unsigned int top = 0, keep1 = 0, keep2 = 0;
+  int sp = 0;
+  for (int t0 = 0; t0 < n; t0 += HOIST_BATCH) {
+    int code[HOIST_BATCH];
+    unsigned int row[HOIST_BATCH];
+#pragma unroll
+    for (int i = 0; i < HOIST_BATCH; ++i)
+      code[i] = t0 + i < n ? __ldg(prog + t0 + i) : idle_row << 8;
+#pragma unroll
+    for (int i = 0; i < HOIST_BATCH; ++i) row[i] = fetch(code[i] >> 8);
+#pragma unroll
+    for (int i = 0; i < HOIST_BATCH; ++i) {
+      if (t0 + i >= n) break;
+      const int op = code[i] & 0xff;
+      if (t0 + i == 0) {  // the first code pushes (keeps already 0)
+        top = row[i];
+      } else if (op == OP_PUSH || op == OP_BSI_PUSH) {
+        stk[sp++] = top;
+        top = row[i];
+        if (op == OP_BSI_PUSH) keep1 = keep2 = 0u;
+      } else if (op >= OP_BSI_KEEP1) {
+        top = op == OP_BSI_KEEP1 ? keep1 : keep2;
+      } else if (op > OP_BSI_PUSH) {
+        const int gt = op & 3, lt = (op >> 2) & 3;
+        if (gt == GT_KEEP) {
+          keep1 |= top & row[i];
+        } else if (gt == GT_CLEAR) {
+          top &= row[i] | keep1;
+        }
+        if (lt == LT_CLEAR) {
+          top &= ~row[i] | keep2;
+        } else if (lt == LT_KEEP) {
+          keep2 |= top & ~row[i];
+        }
+      } else if (op & OP_ACC) {
+        top = apply_op(op & ~OP_ACC, top, row[i]);
+      } else {
+        top = apply_op(op, stk[--sp], top);
+      }
+    }
+  }
+  return top;
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned int s = (unsigned int)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
@@ -282,15 +383,18 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // tiles: (n_tiles, 2) = (offset into urows, distinct slots nu) per tile of
-// Q_TILE queries; urows: the tiles' distinct stack rows; qpos: (Q, L) ring
-// position of each query's leaf positions; dynamic shared memory: NS
-// stages of (nu_max, RING_CHUNK) uint4.
-template <int NS, bool BSI>
-__global__ void __launch_bounds__(ST_THREADS)
+// Q_TILE queries; urows: the tiles' distinct stack rows; qpos: (Q, L) stage
+// row of each query's leaf positions; hoists: H + 1 offsets, then the H
+// hoist programs (their slots stage rows); dynamic shared memory: NS
+// stages of (H + nu_max, RING_CHUNK) uint4, the H synthetic rows first.
+// HOIST: the launch has hoist programs (H > 0).
+template <int NS, bool BSI, bool HOIST>
+__global__ void __launch_bounds__(ST_THREADS, HOIST && !BSI ? 2 : 1)
 k1_staged_kernel(const uint4* __restrict__ stacked, long long plane_vec,
                  const int* __restrict__ tape, int tape_len, int n_leaves,
                  const int* __restrict__ tiles, const int* __restrict__ urows,
                  const int* __restrict__ qpos, int q_total,
+                 const int* __restrict__ hoists, int n_hoist,
                  unsigned long long* __restrict__ out) {
   extern __shared__ uint4 ring[];
   const int tile = blockIdx.y;
@@ -298,21 +402,25 @@ k1_staged_kernel(const uint4* __restrict__ stacked, long long plane_vec,
   const int qn = min(Q_TILE, q_total - q0);
   const int* rows = urows + tiles[2 * tile];
   const int nu = tiles[2 * tile + 1];
+  const int nh = HOIST ? n_hoist : 0;
+  const int stage_rows = nh + nu;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long n_chunks = (plane_vec + RING_CHUNK - 1) / RING_CHUNK;
   const long long my_n =
       blockIdx.x < n_chunks ? (n_chunks - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   uint4 stk[MAX_STACK][ST_QB];
+  unsigned int hstk[MAX_STACK];
   unsigned int cnt[ST_QPW];
 #pragma unroll
   for (int j = 0; j < ST_QPW; ++j) cnt[j] = 0;
 
-  // Copy chunk k of this block into stage k % NS: nu * RING_CHUNK uint4,
-  // one warp per slot row of 512 contiguous bytes, the tail skipped.
+  // Copy chunk k of this block into stage k % NS, after its synthetic
+  // rows: nu * RING_CHUNK uint4, one warp per slot row of 512 contiguous
+  // bytes, the tail skipped.
   auto stage = [&](long long k) {
     const long long c0 = (blockIdx.x + k * gridDim.x) * RING_CHUNK;
-    uint4* dst = ring + (k % NS) * nu * RING_CHUNK;
+    uint4* dst = ring + ((k % NS) * stage_rows + nh) * RING_CHUNK;
     for (int e = threadIdx.x; e < nu * RING_CHUNK; e += ST_THREADS) {
       const long long gi = c0 + (e & (RING_CHUNK - 1));
       if (gi < plane_vec) {
@@ -333,7 +441,24 @@ k1_staged_kernel(const uint4* __restrict__ stacked, long long plane_vec,
     cp_async_commit();
     cp_async_wait<NS - 1>();  // this thread's copies of chunk k landed
     __syncthreads();          // and every other thread's
-    const uint4* chunk = ring + (k % NS) * nu * RING_CHUNK + lane;
+    uint4* st = ring + (k % NS) * stage_rows * RING_CHUNK;
+    if (HOIST) {
+      // What every query shares, once per chunk: program h over the
+      // chunk's RING_WORDS words into synthetic row h, one word a thread
+      // (a program takes RING_WORDS / 32 warps). Programs read staged
+      // rows only (row nh, the first, where a code reads none), never a
+      // synthetic one.
+      unsigned int* words = reinterpret_cast<unsigned int*>(st);
+      for (int e = threadIdx.x; e < nh * RING_WORDS; e += ST_THREADS) {
+        const int h = e / RING_WORDS, word = e % RING_WORDS;
+        const int at = __ldg(hoists + h);
+        words[h * RING_WORDS + word] = eval_word(
+            hoists + nh + 1 + at, __ldg(hoists + h + 1) - at, nh,
+            [&](int row) { return words[row * RING_WORDS + word]; }, hstk);
+      }
+      __syncthreads();
+    }
+    const uint4* chunk = st + lane;
     const bool valid = (blockIdx.x + k * gridDim.x) * RING_CHUNK + lane < plane_vec;
     // Warp w owns queries w + j * ST_WARPS of the tile, ST_QB at a time.
 #pragma unroll
@@ -590,13 +715,26 @@ static int launch_bsi_minmax(const void* planes, const void* mask, int depth,
   return (int)cudaGetLastError();
 }
 
-template <int NS, bool BSI>
-static int launch_staged(const void* stacked, long long plane_vec, const void* tape,
-                         int tape_len, int n_leaves, const void* tiles, int n_tiles,
-                         const void* urows, const void* qpos, int q, int nu_max, void* out,
-                         cudaStream_t stream) {
-  const size_t smem = (size_t)NS * nu_max * RING_CHUNK * sizeof(uint4);
-  auto kern = k1_staged_kernel<NS, BSI>;
+// The staged variant's arguments, one launch's worth.
+struct StagedArgs {
+  const void* stacked;
+  long long plane_vec;
+  const void* tape;
+  int tape_len, n_leaves;
+  const void* tiles;
+  int n_tiles;
+  const void* urows;
+  const void* qpos;
+  int q, nu_max;
+  const void* hoists;
+  int n_hoist;
+  void* out;
+};
+
+template <int NS, bool BSI, bool HOIST>
+static int launch_staged(const StagedArgs& a, cudaStream_t stream) {
+  const size_t smem = (size_t)NS * (a.n_hoist + a.nu_max) * RING_CHUNK * sizeof(uint4);
+  auto kern = k1_staged_kernel<NS, BSI, HOIST>;
   int dev = 0, sms = 0, per_sm = 0, optin = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -618,15 +756,26 @@ static int launch_staged(const void* stacked, long long plane_vec, const void* t
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   // Persistent: as many blocks as fit at once, shared among the tiles.
-  const long long n_chunks = (plane_vec + RING_CHUNK - 1) / RING_CHUNK;
-  long long bx = ((long long)sms * per_sm + n_tiles - 1) / n_tiles;
+  const long long n_chunks = (a.plane_vec + RING_CHUNK - 1) / RING_CHUNK;
+  long long bx = ((long long)sms * per_sm + a.n_tiles - 1) / a.n_tiles;
   if (bx > n_chunks) bx = n_chunks;
   if (bx < 1) bx = 1;
-  kern<<<dim3((unsigned int)bx, (unsigned int)n_tiles), ST_THREADS, smem, stream>>>(
-      (const uint4*)stacked, plane_vec, (const int*)tape, tape_len, n_leaves,
-      (const int*)tiles, (const int*)urows, (const int*)qpos, q,
-      (unsigned long long*)out);
+  kern<<<dim3((unsigned int)bx, (unsigned int)a.n_tiles), ST_THREADS, smem, stream>>>(
+      (const uint4*)a.stacked, a.plane_vec, (const int*)a.tape, a.tape_len, a.n_leaves,
+      (const int*)a.tiles, (const int*)a.urows, (const int*)a.qpos, a.q,
+      (const int*)a.hoists, a.n_hoist, (unsigned long long*)a.out);
   return (int)cudaGetLastError();
+}
+
+typedef int (*StagedLaunch)(const StagedArgs&, cudaStream_t);
+
+// One instantiation per (ring stages, BSI query tape, hoist programs).
+template <int NS>
+static StagedLaunch staged_for(int bsi, int hoist) {
+  static const StagedLaunch table[2][2] = {
+      {launch_staged<NS, false, false>, launch_staged<NS, false, true>},
+      {launch_staged<NS, true, false>, launch_staged<NS, true, true>}};
+  return table[bsi ? 1 : 0][hoist ? 1 : 0];
 }
 
 extern "C" {
@@ -651,32 +800,31 @@ int pt_k1_streaming(const void* stacked, long long plane_words, const void* tape
 
 // K1, staged variant. tiles: (n_tiles, 2) int32 (offset into urows,
 // distinct slots); urows: the tiles' distinct stack rows; qpos: (q, L)
-// ring positions; n_stages: ring stages (2..4) of nu_max slots each;
-// bsi: the tape holds BSI compare codes.
+// stage rows; n_stages: ring stages (2..4) of n_hoist + nu_max rows each;
+// bsi: the tape holds BSI compare codes; hoists: n_hoist + 1 offsets and
+// the hoist programs (null when n_hoist is 0), each code's slot a stage
+// row.
 int pt_k1_staged(const void* stacked, long long plane_words, const void* tape, int tape_len,
                  int n_leaves, const void* tiles, int n_tiles, const void* urows,
-                 const void* qpos, int q, int nu_max, int n_stages, int bsi, void* out,
-                 void* stream) {
+                 const void* qpos, int q, int nu_max, int n_stages, int bsi,
+                 const void* hoists, int n_hoist, void* out, void* stream) {
   if (q <= 0 || plane_words <= 0) return (int)cudaSuccess;
   if (tape_len <= 0 || plane_words % 4 != 0 || nu_max <= 0 || n_tiles <= 0 ||
-      n_tiles > 65535 || (long long)n_tiles * Q_TILE < q) {
+      n_tiles > 65535 || (long long)n_tiles * Q_TILE < q || n_hoist < 0 ||
+      (n_hoist > 0) != (hoists != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long plane_vec = plane_words / 4;
+  const StagedArgs a{stacked, plane_words / 4, tape, tape_len, n_leaves, tiles, n_tiles,
+                     urows, qpos, q, nu_max, hoists, n_hoist, out};
+  const int hoist = n_hoist > 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (n_stages) {
     case 2:
-      return (bsi ? launch_staged<2, true> : launch_staged<2, false>)(
-          stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles, urows, qpos, q, nu_max,
-          out, st);
+      return staged_for<2>(bsi, hoist)(a, st);
     case 3:
-      return (bsi ? launch_staged<3, true> : launch_staged<3, false>)(
-          stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles, urows, qpos, q, nu_max,
-          out, st);
+      return staged_for<3>(bsi, hoist)(a, st);
     case 4:
-      return (bsi ? launch_staged<4, true> : launch_staged<4, false>)(
-          stacked, plane_vec, tape, tape_len, n_leaves, tiles, n_tiles, urows, qpos, q, nu_max,
-          out, st);
+      return staged_for<4>(bsi, hoist)(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

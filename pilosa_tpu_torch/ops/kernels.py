@@ -58,6 +58,13 @@ at least two stages in shared memory) reads each distinct slot from HBM
 once per batch; "streaming" (Q = 1, or too many distinct slots) reads
 each query's planes, queries fastest in the grid so queries that share a
 chunk meet it in L2.
+
+The staged variant computes once per staged chunk what every query of
+the launch shares (``k1_split``): a span of the tape whose leaf
+positions name the same slot for every query (a BSI compare over one
+predicate, a shared filter) becomes a hoist program, evaluated by the
+block over the chunk into a synthetic ring row, and each query's tape
+reads that row as one leaf.
 """
 
 from __future__ import annotations
@@ -100,15 +107,22 @@ RING_SLOT_BYTES = RING_CHUNK * 16
 RING_BYTES = 232448
 RING_MAX_STAGES = 4
 Q_TILE = 256
+# An SM's shared memory (H100: 228 KB), of which the runtime keeps 1 KB
+# per resident block: a hoisted launch sizes its ring so that two blocks
+# share an SM (k1_hoist_stages).
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
 
 K1_VARIANTS = ("staged", "streaming")
 # K3's first pass: each block scans K3_BLOCK_WORDS words of every plane
 # (must match csrc/bitplane_kernels.cu: 256 threads x 4 uint4).
 K3_BLOCK_WORDS = 4096
 K3_MAX_DEPTH = 63
+# Launches per kernel; K1's also per variant, and its staged launches that
+# ran hoist programs under gather_expr_count_hoisted.
 LAUNCHES: Dict[str, int] = {"gather_expr_count": 0, "gather_expr_count_staged": 0,
-                            "gather_expr_count_streaming": 0, "masked_plane_counts": 0,
-                            "bsi_minmax": 0}
+                            "gather_expr_count_streaming": 0, "gather_expr_count_hoisted": 0,
+                            "masked_plane_counts": 0, "bsi_minmax": 0}
 PLAIN_CALLS: Dict[str, int] = {"gather_expr_count": 0, "masked_plane_counts": 0,
                                "bsi_minmax": 0}
 # Host-to-device copies of K1's staging buffer: one per distinct device
@@ -206,7 +220,7 @@ def load():
         lib.pt_k1_streaming.argtypes = [vp, i64, vp, i32, vp, i32, i32, vp, vp]
         lib.pt_k1_streaming.restype = i32
         lib.pt_k1_staged.argtypes = [
-            vp, i64, vp, i32, i32, vp, i32, vp, vp, i32, i32, i32, i32, vp, vp]
+            vp, i64, vp, i32, i32, vp, i32, vp, vp, i32, i32, i32, i32, vp, i32, vp, vp]
         lib.pt_k1_staged.restype = i32
         lib.pt_masked_plane_counts.argtypes = [vp, vp, i32, i32, i64, vp, vp]
         lib.pt_masked_plane_counts.restype = i32
@@ -343,12 +357,25 @@ def _eval_tape(tape: Sequence[int], leaf):
 
 
 def k1_ring_stages(distinct: int) -> int:
-    """Stages of the staged variant's ring that `distinct` slots fill
-    (at most RING_MAX_STAGES); below 2 the ring cannot overlap a copy
-    with the compute, and the staged variant is not taken."""
+    """Stages of the staged variant's ring that `distinct` rows fill
+    (at most RING_MAX_STAGES): the distinct slots of a tile, plus one
+    synthetic row per hoist program when the launch has any. Below 2 the
+    ring cannot overlap a copy with the compute, and the staged variant
+    is not taken."""
     if distinct < 1:
         return 0
     return min(RING_MAX_STAGES, RING_BYTES // (distinct * RING_SLOT_BYTES))
+
+
+def k1_hoist_stages(rows: int) -> int:
+    """Ring stages of a hoisted launch whose query tape holds no BSI codes
+    (`rows` = synthetic rows + distinct slots): as many as let two blocks
+    share an SM (at most RING_MAX_STAGES), since a block's hoist programs
+    are one short dependent chain per chunk and a second block's chain and
+    copies fill the SM meanwhile; below two such stages, the one-block
+    ring's."""
+    two = (SM_SHARED_BYTES // 2 - BLOCK_RESERVED_BYTES) // (rows * RING_SLOT_BYTES)
+    return min(RING_MAX_STAGES, two) if two >= 2 else k1_ring_stages(rows)
 
 
 def k1_plan(distinct: int, q: int) -> Tuple[str, int]:
@@ -414,6 +441,151 @@ def k1_tiles(idx_np: np.ndarray) -> Tuple[List[np.ndarray], np.ndarray]:
     return urows, qpos
 
 
+# A value of a tape, parsed: (start code, mods). A mod is a code that acts
+# on the value in place (a fused op, a BSI step or keep) or a pair (nested
+# value, the binary op code that folds it in).
+_Value = Tuple[int, list]
+
+
+def _parse_value(tape: Sequence[int], i: int) -> Tuple[_Value, int]:
+    """The value whose start code is tape[i], up to the binary op that
+    ends its stack level or the tape's end; returns it and that index."""
+    start, mods = tape[i], []
+    i += 1
+    while i < len(tape):
+        kind = _op_kind(tape[i] & 0xFF)
+        if kind == "binary":
+            break
+        if kind in ("push", "bsi_push"):
+            sub, i = _parse_value(tape, i)
+            mods.append((sub, tape[i]))
+        else:
+            mods.append(tape[i])
+        i += 1
+    return (start, mods), i
+
+
+def _emit_value(value: _Value, out: List[int]) -> List[int]:
+    start, mods = value
+    out.append(start)
+    for m in mods:
+        if isinstance(m, tuple):
+            _emit_value(m[0], out)
+            out.append(m[1])
+        else:
+            out.append(m)
+    return out
+
+
+def _value_reads(value: _Value, invariant: Sequence[bool]) -> Tuple[int, bool]:
+    """(codes of the value that read a plane, whether all of them read an
+    invariant leaf position)."""
+    start, mods = value
+    n, inv = 1, bool(invariant[start >> 8])
+    for m in mods:
+        if isinstance(m, tuple):
+            sub_n, sub_inv = _value_reads(m[0], invariant)
+            n, inv = n + sub_n, inv and sub_inv
+        elif reads_slot(m):
+            n, inv = n + 1, inv and bool(invariant[m >> 8])
+    return n, inv
+
+
+def k1_split(tape: Sequence[int],
+             invariant: Sequence[bool]) -> Tuple[List[int], List[List[int]]]:
+    """Split a valid tape into (query tape, hoist programs). `invariant[j]`
+    says leaf position j names the same slot for every query of the
+    launch. Each maximal span that yields one value from invariant
+    positions alone and reads two planes or more becomes a program (its
+    codes as they were, slots still leaf positions): a whole value (a BSI
+    compare with its steps and keep, a nested subtree, the whole tape), or
+    the invariant prefix of a value's fold (``PUSH g1, ACC_AND g2`` before
+    a per-query ``ACC_AND f``). Program h's result is leaf position
+    L + h of the query tape (L = len(invariant)), read there by a PUSH, or
+    by one fused op where the span was a nested value, so neither tape
+    is deeper than the original.
+
+    Left as they were, since hoisting them would reorder operands or save
+    nothing: invariant operands of a fold after its first per-query one;
+    a compare whose steps interleave with a per-query fused op; a lone
+    invariant leaf. Invariance is over the launch, not per tile, so one
+    query tape serves every tile."""
+    n_leaves = len(invariant)
+    programs: List[List[int]] = []
+
+    def hoist(value: _Value) -> int:
+        programs.append(_emit_value(value, []))
+        return n_leaves + len(programs) - 1
+
+    def mod_invariant(m) -> bool:
+        if isinstance(m, tuple):
+            return _value_reads(m[0], invariant)[1]
+        return not reads_slot(m) or bool(invariant[m >> 8])
+
+    def split(value: _Value) -> Tuple[_Value, bool]:
+        start, mods = value
+        n, inv = _value_reads(value, invariant)
+        if inv and n >= 2:
+            return (OP_PUSH | hoist(value) << 8, []), True
+        k = 0
+        if invariant[start >> 8]:
+            while k < len(mods) and mod_invariant(mods[k]):
+                k += 1
+            # A compare's keeps live until its last step or keep: a prefix
+            # that stops before it would lose them.
+            if start & 0xFF == OP_BSI_PUSH and any(
+                    not isinstance(m, tuple) and _op_kind(m & 0xFF) in ("step", "keep")
+                    for m in mods[k:]):
+                k = 0
+            if k and _value_reads((start, mods[:k]), invariant)[0] >= 2:
+                start, mods = OP_PUSH | hoist((start, mods[:k])) << 8, mods[k:]
+        out = []
+        for m in mods:
+            if isinstance(m, tuple):
+                sub, whole = split(m[0])
+                out.append((OP_ACC | m[1]) | (sub[0] & ~0xFF) if whole else (sub, m[1]))
+            else:
+                out.append(m)
+        return (start, out), False
+
+    root, end = _parse_value(list(tape), 0)
+    if end != len(tape):
+        raise ValueError(f"op tape leaves more than one value: {list(tape)}")
+    return _emit_value(split(root)[0], []), programs
+
+
+def k1_hoisted_tiles(idx_np: np.ndarray, programs: Sequence[Sequence[int]]
+                     ) -> Tuple[List[np.ndarray], np.ndarray, List[List[int]]]:
+    """The staged ring's remap for a launch with H hoist programs. A stage
+    holds the H synthetic rows first, then the tile's staged rows: the
+    rows the programs read (the same in every tile, ascending), then the
+    tile's other distinct rows (ascending). Returns (staged rows per tile,
+    qpos (Q, L + H) stage rows, the last H columns the synthetic rows,
+    the programs with each slot rebased onto its stage row). A code that
+    reads no slot (a binary op, a keep) is pointed at row H, the first
+    staged row: the kernel loads its operand word before it decodes the
+    op, and that row is landed and written by no thread while the
+    programs run."""
+    n_leaves, q = idx_np.shape
+    h = len(programs)
+    read = sorted({c >> 8 for p in programs for c in p if reads_slot(c)})
+    shared = np.unique(idx_np[read, 0]).astype(np.int32)
+    row_at = {int(r): h + i for i, r in enumerate(shared)}
+    rebased = [[(c & 0xFF) | ((row_at[int(idx_np[c >> 8, 0])] if reads_slot(c) else h) << 8)
+                for c in p] for p in programs]
+    urows: List[np.ndarray] = []
+    qpos = np.empty((q, n_leaves + h), dtype=np.int32)
+    qpos[:, n_leaves:] = np.arange(h, dtype=np.int32)
+    for t0 in range(0, q, Q_TILE):
+        part = idx_np[:, t0:t0 + Q_TILE]
+        rows = np.concatenate([shared, np.setdiff1d(part, shared)]).astype(np.int32)
+        order = np.argsort(rows)
+        pos = order[np.searchsorted(rows[order], part)]
+        urows.append(rows)
+        qpos[t0:t0 + part.shape[1], :n_leaves] = h + pos.T
+    return urows, qpos, rebased
+
+
 def _to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:
     """One host-to-device copy that does not wait for the stream: staged
     through pinned memory from PyTorch's caching host allocator, which
@@ -424,24 +596,20 @@ def _to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 class _K1Staging:
     """K1's host work for one device call, done once whatever the number
-    of blocks: the variant, the staged ring's tiles, and the one int32
-    buffer every launch reads (streaming: tape | idxs; staged: tape |
-    tiles (offset into urows, distinct slots) | urows | qpos), with the
-    element offset of each part."""
+    of blocks: the variant, the staged ring's tiles and hoist programs,
+    and the one int32 buffer every launch reads (streaming: tape | idxs;
+    staged: tape | hoists | tiles (offset into urows, distinct slots) |
+    urows | qpos, hoists = H + 1 program offsets then the programs,
+    present when H > 0), with the element offset of each part."""
 
     __slots__ = ("variant", "stages", "bsi", "q", "n_leaves", "n_tape", "host",
-                 "tiles_at", "n_tiles", "urows_at", "qpos_at", "max_distinct")
+                 "tiles_at", "n_tiles", "urows_at", "qpos_at", "max_distinct",
+                 "n_hoist", "hoists_at")
 
     def __init__(self, idxs: torch.Tensor, tape: List[int], variant: Optional[str]):
         idx_np = np.ascontiguousarray(idxs.numpy())
-        tape_np = np.asarray(tape, dtype=np.int32)
         self.n_leaves, self.q = idx_np.shape
-        self.n_tape = len(tape_np)
-        # Tapes with BSI codes run the kernels' instantiation that keeps
-        # the two compare masks; set-op tapes keep the registers for the
-        # rest.
-        self.bsi = has_bsi(tape)
-        self.stages = 0
+        self.stages = self.n_hoist = 0
         if variant != "streaming" and (self.q > 1 or variant == "staged"):
             urows, qpos = k1_tiles(idx_np)
             distinct = max(len(r) for r in urows)
@@ -454,11 +622,32 @@ class _K1Staging:
                         f"{distinct} distinct slots do not fit the staged variant's ring "
                         f"({RING_BYTES // (2 * RING_SLOT_BYTES)} at most)")
         self.variant = variant or "streaming"
+        hoists = np.empty(0, dtype=np.int32)
+        if self.variant == "staged":
+            invariant = (idx_np == idx_np[:, :1]).all(axis=1)
+            if invariant.any():
+                q_tape, programs = k1_split(tape, invariant)
+                # The synthetic rows must leave the ring two stages.
+                rows = distinct + len(programs)
+                stages = k1_ring_stages(rows) if has_bsi(q_tape) else k1_hoist_stages(rows)
+                if programs and stages >= 2:
+                    urows, qpos, rebased = k1_hoisted_tiles(idx_np, programs)
+                    tape, self.stages, self.n_hoist = q_tape, stages, len(programs)
+                    self.n_leaves += self.n_hoist
+                    hoists = np.concatenate([np.cumsum([0] + [len(p) for p in rebased]),
+                                             *rebased]).astype(np.int32)
+        # Tapes with BSI codes run the kernels' instantiation that keeps
+        # the two compare masks; set-op tapes keep the registers for the
+        # rest. Hoist programs run the BSI evaluator whatever they hold.
+        self.bsi = has_bsi(tape)
+        tape_np = np.asarray(tape, dtype=np.int32)
+        self.n_tape = len(tape_np)
+        self.hoists_at = self.n_tape
         if self.variant == "staged":
             sizes = [len(r) for r in urows]
             tiles = np.stack([np.cumsum([0] + sizes[:-1]), sizes], axis=1).astype(np.int32)
-            self.host = np.concatenate([tape_np, tiles.ravel(), *urows, qpos.ravel()])
-            self.tiles_at = self.n_tape
+            self.host = np.concatenate([tape_np, hoists, tiles.ravel(), *urows, qpos.ravel()])
+            self.tiles_at = self.hoists_at + hoists.size
             self.n_tiles = len(urows)
             self.urows_at = self.tiles_at + tiles.size
             self.qpos_at = self.urows_at + sum(sizes)
@@ -477,7 +666,8 @@ class _K1Staging:
                 block.data_ptr(), s * w, at, self.n_tape, self.n_leaves,
                 at + 4 * self.tiles_at, self.n_tiles, at + 4 * self.urows_at,
                 at + 4 * self.qpos_at, self.q, self.max_distinct, self.stages,
-                int(self.bsi), out.data_ptr(), _stream(block))
+                int(self.bsi), at + 4 * self.hoists_at if self.n_hoist else None,
+                self.n_hoist, out.data_ptr(), _stream(block))
         return lib.pt_k1_streaming(
             block.data_ptr(), s * w, at, self.n_tape, at + 4 * self.n_tape, self.q,
             int(self.bsi), out.data_ptr(), _stream(block))
@@ -543,7 +733,8 @@ def gather_expr_count_blocks(blocks: Sequence[torch.Tensor], idxs: torch.Tensor,
                 bufs[dev] = _to_device(staging.host, dev)
             err = staging.launch(lib, block, bufs[dev], outs[i])
         _check_launch(f"gather_expr_count ({staging.variant})", err)
-        _count(LAUNCHES, "gather_expr_count", f"gather_expr_count_{staging.variant}")
+        _count(LAUNCHES, "gather_expr_count", f"gather_expr_count_{staging.variant}",
+               *(("gather_expr_count_hoisted",) if staging.n_hoist else ()))
     return outs
 
 

@@ -413,6 +413,18 @@ def initialize(coordinator_address: Optional[str] = None,
                    backend, device)
         job.group_store = _client(host, port, num_processes,
                                   max(timeout_ms, FORM_TIMEOUT_MS))
+        # The store lives in rank 0's process: rank 0 waits until every
+        # rank has its group's client, so that it cannot leave (and take
+        # the store with it) while a slower rank is still joining.
+        store.add("pilosa-ready", 1)
+        deadline = time.monotonic() + join.total_seconds()
+        while process_id == 0 and store.add("pilosa-ready", 0) < num_processes:
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"torch.distributed job at {coordinator_address}: "
+                    f"{store.add('pilosa-ready', 0)} of {num_processes} "
+                    f"ranks reached the store within {join.total_seconds():.0f} s")
+            time.sleep(0.02)  # pilint: allow-blocking(the one join of the job; a second caller waits for it)
         try:
             job.group = ReduceGroup(job.group_store, backend, process_id,
                                     num_processes, device, timeout_ms, 0)

@@ -15,6 +15,7 @@ from datetime import datetime, timedelta
 
 import numpy as np
 import pytest
+import torch
 
 import pilosa_tpu
 import pilosa_tpu_torch
@@ -313,6 +314,68 @@ def test_count_batch_of_range_trees_matches_jax(read_pair):
     assert tex.engine.count_batch("i", tcalls, shards).tolist() == want
     assert kernels.PLAIN_CALLS["gather_expr_count"] == before + 1
     assert want == [tex.execute("i", q.format(r))[0] for r in rows]
+
+
+T_WINDOW = "2018-01-01T00:00, 2018-03-01T00:00"
+
+# count_batch shapes whose queries share spans (what K1's staged variant
+# hoists): (query template over a, b, c, hoist programs K1's host plan
+# makes, the rows a, b, c run over). Q above Q_TILE where the rows allow.
+ROWS_ABC = "Union(Row(f={a}), Row(g={b}), Range(t={c}, %s))" % T_WINDOW
+SHARED_BATCHES = {
+    "one compare": ("Count(Intersect(%s, Range(v > 100)))" % ROWS_ABC, 1, (12, 12, 3)),
+    "two compares": ("Count(Intersect(%s, Union(Range(v > 100), Range(w < 549755813888))))"
+                     % ROWS_ABC, 1, (12, 12, 3)),
+    "between": ("Count(Intersect(%s, Range(v >< [-50, 2000])))" % ROWS_ABC, 1, (12, 12, 3)),
+    "shared Union filter": (
+        "Count(Intersect(%s, Union(Row(f=10), Row(f=11), Range(w > 5))))" % ROWS_ABC,
+        1, (10, 12, 3)),
+    "spans under per-query pushes": (
+        "Count(Xor(Intersect(Row(f={a}), Union(Row(f=10), Row(f=11))), "
+        "Intersect(Union(Row(g={b}), Range(t={c}, %s)), Range(v > 100))))" % T_WINDOW,
+        2, (10, 12, 3)),
+    "nothing shared": ("Count(Intersect(Union(Row(f={a}), Row(g={b})), Range(t={c}, %s)))"
+                       % T_WINDOW, 0, (12, 12, 3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARED_BATCHES))
+def test_count_batch_of_shared_spans_matches_jax(read_pair, monkeypatch, name):
+    """count_batch of queries that share a compare, a filter or a nested
+    span, past one query tile: the port's answers (its twin here) equal
+    the JAX package's count of each query, and K1's staging for the
+    engine's own launch, read as the staged kernel reads it, hoists the
+    shared spans and counts the same."""
+    from tests.test_torch_kernels import emulate_staged
+
+    jex, tex = read_pair
+    shards = list(range(N_SHARDS))
+    template, hoists, (na, nb, nc) = SHARED_BATCHES[name]
+    queries = [template.format(a=a, b=b, c=c)
+               for a in range(na) for b in range(nb) for c in range(nc)]
+    assert len(queries) > kernels.Q_TILE
+    tcalls = [torch_parse(q).calls[0].children[0] for q in queries]
+    want = [jex.engine.count("i", jax_parse(q).calls[0].children[0], shards) for q in queries]
+    # The JAX package's batched program too, on a few queries of each tile.
+    some = list(range(0, len(queries), 61)) + [len(queries) - 1]
+    assert np.asarray(jex.engine.count_batch(
+        "i", [jax_parse(queries[i]).calls[0].children[0] for i in some],
+        shards)).tolist() == [want[i] for i in some]
+    seen = []
+    real = kernels.gather_expr_count_blocks
+
+    def record(blocks, idxs, tape, variant=None):
+        seen.append((torch.cat(list(blocks), dim=1), idxs, tape))
+        return real(blocks, idxs, tape, variant)
+
+    monkeypatch.setattr(kernels, "gather_expr_count_blocks", record)
+    with tex.engine.memos_off():
+        assert tex.engine.count_batch("i", tcalls, shards).tolist() == want
+    (stacked, idxs, tape), = seen
+    assert idxs.shape[1] == len(queries) and any(want)
+    counts, staging = emulate_staged(stacked, idxs, tape)
+    assert staging.n_hoist == hoists
+    assert counts == kernels.gather_expr_count_plain(stacked, idxs, tape).tolist()
 
 
 def test_state_carries_across(read_pair):

@@ -286,8 +286,10 @@ def test_count_async_on_card_equals_count(cuda_device):
 # ------------------------------------------------ K1 BSI codes, K3
 
 
-def bsi_ir(op, depth, *pred):
-    idxs = tuple(range(depth + 1))
+def bsi_ir(op, depth, *pred, lo=0):
+    """A compare over leaf positions lo..lo + depth (the last the not-null
+    row)."""
+    idxs = tuple(range(lo, lo + depth + 1))
     if op == "between":
         return ("between", idxs, depth, *pred)
     return ("cmp", op, idxs, depth, pred[0])
@@ -345,6 +347,159 @@ def test_k3_empty_filter_on_card(cuda_device, maximize):
     bits, count = kernels.bsi_minmax(planes, torch.zeros_like(planes[0]), maximize)
     torch.cuda.synchronize()
     assert bits.tolist() == [int(not maximize)] * 8 and int(count) == 0
+
+
+# ------------------------------------- K1's hoisted spans (staged variant)
+
+
+def random_mixed_ir(rng, n_leaves: int, depth: int, max_kids: int = 3, root: bool = True):
+    """random_ir with BSI compares (every kind, over consecutive leaf
+    positions, the last one the not-null row) among the operands; the
+    root is a set-op."""
+    r = rng.random()
+    if depth == 0 or (r < 0.35 and not root):
+        if r < 0.15 and n_leaves >= 3:
+            d = int(rng.integers(1, min(6, n_leaves)))
+            lo = int(rng.integers(0, n_leaves - d))
+            op = str(rng.choice(["lt", "lte", "gt", "gte", "eq", "neq", "between"]))
+            top = (1 << d) - 1
+            if op == "between":
+                a, b = sorted(int(x) for x in rng.integers(0, top, 2, endpoint=True))
+                return bsi_ir(op, d, a, b, lo=lo)
+            return bsi_ir(op, d, int(rng.integers(0, top, endpoint=True)), lo=lo)
+        return ("leaf", int(rng.integers(n_leaves)))
+    kind = rng.choice(["Intersect", "Union", "Xor", "Difference"])
+    if kind == "Difference":
+        head = random_mixed_ir(rng, n_leaves, depth - 1, max_kids, False)
+        tails = tuple(random_mixed_ir(rng, n_leaves, depth - 1, max_kids, False)
+                      for _ in range(int(rng.integers(0, max_kids))))
+        return ("Difference", head, tails)
+    kids = tuple(random_mixed_ir(rng, n_leaves, depth - 1, max_kids, False)
+                 for _ in range(int(rng.integers(2, max_kids + 1))))
+    return (str(kind), kids)
+
+
+def shared_idxs(rng, n_leaves: int, q: int, u: int, shared) -> torch.Tensor:
+    """(L, q) slot ids below u: the positions in `shared` name one slot
+    for every query (drawn once each), the others a slot per query."""
+    idx = rng.integers(0, u, (n_leaves, q)).astype(np.int32)
+    for j in shared:
+        idx[j] = rng.integers(0, u)
+    return torch.from_numpy(idx)
+
+
+def n_hoisted(idxs, tape, variant=None) -> int:
+    """Hoist programs of K1's host plan for this launch."""
+    return kernels._K1Staging(idxs, list(tape), variant).n_hoist
+
+
+# Count(Intersect(Row, Range(v > x))) as count_batch gives it: a depth-5
+# compare over positions 0..5 shared by every query, position 6 a row each.
+HOIST_IR = ("Intersect", (leaf(6), ("cmp", "gt", tuple(range(6)), 5, 19)))
+
+
+@pytest.mark.parametrize("shape", [(30, 5, 36), (30, 7, 1028), (30, 1, 4), (30, 3, 32768)])
+def test_k1_hoisted_ragged_tails_on_card(cuda_device, shape):
+    """The hoisted launch where S*W/4 is no multiple of the 32-uint4
+    chunk: the programs run over the stale words past the plane's end,
+    which no query counts."""
+    rng = np.random.default_rng(7 + sum(shape))
+    stacked = rand_stack(rng, shape, cuda_device)
+    tape = lower_tape(HOIST_IR)
+    idxs = shared_idxs(rng, 7, 11, shape[0], range(6))
+    assert n_hoisted(idxs, tape) == 1
+    assert k1_on_card(stacked, idxs, tape) == "staged"
+
+
+def test_k1_hoisted_two_tiles_on_card(cuda_device):
+    """Q = 600: three query tiles, each staging its own rows after the
+    shared ones, one query tape for all of them."""
+    rng = np.random.default_rng(600)
+    stacked = rand_stack(rng, (90, 2, 2048), cuda_device)
+    ir = ("Intersect", (leaf(18), ("cmp", "lte", tuple(range(18)), 17, 70000)))
+    tape = lower_tape(ir)
+    idxs = shared_idxs(rng, 19, 600, 90, range(18))
+    assert n_hoisted(idxs, tape) == 1
+    assert k1_on_card(stacked, idxs, tape) == "staged"
+
+
+@pytest.mark.parametrize("case", BSI_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_k1_hoisted_compares_on_card(cuda_device, case):
+    """Every compare kind hoisted whole, strict compares ending on their
+    keep, leading zeros and `between` included, beside a row per query (a
+    compare that lowers to its not-null row alone has nothing to hoist)."""
+    op, depth, *pred = case
+    rng = np.random.default_rng(depth + sum(pred) % 977)
+    n = depth + 1
+    stacked = rand_stack(rng, (n + 12, 3, 1028), cuda_device)
+    tape = lower_tape(("Intersect", (leaf(n), bsi_ir(op, depth, *pred))))
+    idxs = shared_idxs(rng, n + 1, 9, n + 12, range(n))
+    assert n_hoisted(idxs, tape) == (len(tape) > 2)
+    assert k1_on_card(stacked, idxs, tape, "staged") == "staged"
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_k1_hoisted_spans_beside_nested_pushes_on_card(cuda_device, seed):
+    """Random trees of set-ops and compares with some positions shared:
+    spans hoisted whole, as fold prefixes and under per-query pushes."""
+    rng = np.random.default_rng(900 + seed)
+    n_leaves, u = 10, 24
+    stacked = rand_stack(rng, (u, 3, 1028), cuda_device)
+    for _ in range(50):
+        tape = lower_tape(random_mixed_ir(rng, n_leaves, depth=4))
+        shared = [j for j in range(n_leaves) if rng.random() < 0.6]
+        idxs = shared_idxs(rng, n_leaves, 13, u, shared)
+        if n_hoisted(idxs, tape):
+            break
+    assert n_hoisted(idxs, tape)
+    assert k1_on_card(stacked, idxs, tape, "staged") == "staged"
+    # A shared Union under a per-query push, and a shared fold prefix.
+    push = lambda s: kernels.OP_PUSH | s << 8  # noqa: E731
+    acc = lambda op, s: kernels.OP_ACC | op | s << 8  # noqa: E731
+    for tape in ([push(0), push(1), acc(kernels.OP_OR, 2), kernels.OP_AND],
+                 [push(1), acc(kernels.OP_XOR, 2), acc(kernels.OP_AND, 0)]):
+        idxs = shared_idxs(rng, 3, 13, u, (1, 2))
+        assert n_hoisted(idxs, tape) == 1
+        assert k1_on_card(stacked, idxs, tape, "staged") == "staged"
+
+
+def test_k1_hoisted_blocks_on_card(cuda_device):
+    """gather_expr_count_blocks with hoisting: one plan and one staging
+    copy per device for the call, each block's counts equal the twin."""
+    rng = np.random.default_rng(31)
+    devs = [torch.device("cuda", i % torch.cuda.device_count()) for i in range(3)]
+    blocks = [rand_stack(rng, (30, 2, 1024), d) for d in devs]
+    tape = lower_tape(HOIST_IR)
+    idxs = shared_idxs(rng, 7, 40, 30, range(6))
+    assert n_hoisted(idxs, tape) == 1
+    torch.cuda.synchronize()
+    staged, launches = dict(kernels.STAGED), dict(kernels.LAUNCHES)
+    got = kernels.gather_expr_count_blocks(blocks, idxs, tape)
+    torch.cuda.synchronize()
+    assert kernels.STAGED["gather_expr_count"] - staged["gather_expr_count"] == len(set(devs))
+    assert kernels.LAUNCHES["gather_expr_count_staged"] \
+        - launches["gather_expr_count_staged"] == 3
+    for block, part in zip(blocks, got):
+        assert torch.equal(part.cpu(), kernels.gather_expr_count_plain(block.cpu(), idxs, tape))
+
+
+@pytest.mark.parametrize("distinct", [112, 113, 226, 227])
+def test_k1_hoisted_ring_at_its_limit_on_card(cuda_device, distinct):
+    """112 distinct slots and one synthetic row fill two-stage rings of
+    two blocks an SM, 113 take one block's ring; 226 fill a one-block
+    two-stage ring exactly and are hoisted; at 227 the synthetic row does
+    not fit, so the launch is staged without hoisting."""
+    rng = np.random.default_rng(distinct)
+    q, u = 256, distinct + 4
+    stacked = rand_stack(rng, (u, 2, 256), cuda_device)
+    tape = lower_tape(HOIST_IR)
+    idx = np.empty((7, q), dtype=np.int32)
+    idx[:6] = np.arange(6)[:, None]
+    idx[6] = np.resize(np.arange(6, distinct), q)
+    idxs = torch.from_numpy(idx)
+    assert kernels.k1_tiles(idx)[0][0].size == distinct
+    assert n_hoisted(idxs, tape) == (distinct < 227)
+    assert k1_on_card(stacked, idxs, tape) == "staged"
 
 
 BSI_QUERIES = [

@@ -169,6 +169,33 @@ def test_a_job_sent_to_nccl_that_cannot_form_it_has_no_group(tmp_path):
         assert "WORKER_OK" in out
 
 
+def test_a_rank_slow_to_reach_the_store_still_joins(tmp_path):
+    """Rank 1 is held 3 s between the join and its group's store client,
+    as a loaded host may hold it: rank 0, which hosts the store and would
+    otherwise be done with the job by then, waits for it, so both ranks
+    end the job as the test above does."""
+    coordinator = f"localhost:{free_port()}"
+    hold = textwrap.dedent("""
+        import time
+        _client = dist._client
+
+        def slow_client(*args):
+            if pid == 1:
+                time.sleep(3)
+            return _client(*args)
+
+        dist._client = slow_client
+    """)
+    at = "dist.device_identity = "
+    script = WORKER_NCCL_REFUSED.replace(at, hold + at)
+    assert script != WORKER_NCCL_REFUSED
+    outs = run_workers(tmp_path, script, [[coordinator, 2, pid] for pid in range(2)],
+                       timeout=120)
+    for rc, out, err in outs:
+        assert rc == 0, f"worker failed rc={rc}\nstdout:{out}\nstderr:{err[-2000:]}"
+        assert "WORKER_OK" in out
+
+
 def test_a_reduce_group_fails_and_re_forms_in_one_process():
     """A one-rank gloo ReduceGroup on a store of its own: reduce and
     gather, a reduce whose wait fails advances the generation and aborts

@@ -25,7 +25,9 @@ from pilosa_tpu_torch.errors import QueryError
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.parallel.engine import _lower_ir as torch_lower_ir
 from pilosa_tpu_torch.parallel.engine import lower_tape
-from tests.test_torch_cuda import BIG_TREES, balanced, leaf, random_ir
+from pilosa_tpu_torch.ops.bitplane import popcount_words
+from tests.test_torch_cuda import (BIG_TREES, HOIST_IR, balanced, leaf, random_ir,
+                                  random_mixed_ir, shared_idxs)
 
 PUSH, AND, OR, XOR, ANDNOT, NOTAND = (kernels.OP_PUSH, kernels.OP_AND, kernels.OP_OR,
                                       kernels.OP_XOR, kernels.OP_ANDNOT, kernels.OP_NOTAND)
@@ -479,6 +481,235 @@ def test_bsi_steps_name_checked_slots():
                  [kernels.OP_BSI_PUSH, kernels.bsi_step(kernels.GT_CLEAR, 0, 2)]):
         with pytest.raises(ValueError, match="slot 2 of 2"):
             kernels.gather_expr_count(stack, idxs, tape)
+
+
+# ------------------------------------- K1's hoisted spans (host plan)
+
+
+def emulate_staged(stacked, idxs, tape, variant=None):
+    """(counts, staging): the staged kernel's answer as it reads K1's
+    staging buffer, whole planes standing in for a chunk: per tile, a
+    stage of H synthetic rows then the tile's staged rows; each hoist
+    program over the stage into its synthetic row; each query's tape
+    through its qpos row."""
+    st = kernels._K1Staging(idxs, list(tape), variant)
+    assert st.variant == "staged"
+    buf, h = st.host, st.n_hoist
+    q_tape = [int(c) for c in buf[:st.n_tape]]
+    base = st.hoists_at + h + 1
+    offs = buf[st.hoists_at:base]
+    programs = [[int(c) for c in buf[base + offs[i]:base + offs[i + 1]]] for i in range(h)]
+    assert base + (offs[-1] if h else -1) == st.tiles_at
+    tiles = buf[st.tiles_at:st.tiles_at + 2 * st.n_tiles].reshape(-1, 2)
+    qpos = buf[st.qpos_at:].reshape(st.q, st.n_leaves)
+    assert 2 <= st.stages <= kernels.RING_MAX_STAGES
+    assert st.stages * (h + st.max_distinct) * kernels.RING_SLOT_BYTES <= kernels.RING_BYTES
+    out = []
+    for t, (off, nu) in enumerate(tiles):
+        urows = buf[st.urows_at + off:st.urows_at + off + nu]
+        rows = [None] * h + [stacked[int(r)] for r in urows]
+        for i, prog in enumerate(programs):
+            # Programs read staged rows only, never a synthetic one.
+            assert all(h <= c >> 8 < h + nu for c in prog if kernels.reads_slot(c))
+            # A code that reads no slot points at the first staged row,
+            # which no thread writes while the programs run.
+            assert all(c >> 8 == h for c in prog if not kernels.reads_slot(c))
+            rows[i] = kernels._eval_tape(prog, lambda r: rows[r])
+        for q in range(t * kernels.Q_TILE, min(st.q, (t + 1) * kernels.Q_TILE)):
+            assert qpos[q].max() < h + nu
+            plane = kernels._eval_tape(q_tape, lambda j: rows[int(qpos[q, j])])
+            out.append(int(popcount_words(plane).sum()))
+    return out, st
+
+
+def assert_split_holds(stacked, idxs, tape):
+    """k1_split's query tape over the programs' planes equals _eval_tape
+    of the tape, query by query; neither is deeper than the tape; and the
+    staging buffer, read as the kernel reads it, counts what the twin
+    counts. Returns (query tape, programs)."""
+    idx = idxs.numpy()
+    n_leaves = idx.shape[0]
+    invariant = (idx == idx[:, :1]).all(axis=1)
+    q_tape, programs = kernels.k1_split(tape, invariant)
+    depth = kernels.tape_depth(tape)
+    assert kernels.tape_depth(q_tape) <= depth
+    for prog in programs:
+        assert kernels.tape_depth(prog) <= depth
+        assert sum(kernels.reads_slot(c) for c in prog) >= 2
+        assert all(invariant[c >> 8] for c in prog if kernels.reads_slot(c))
+    hoisted = [kernels._eval_tape(p, lambda j: stacked[int(idx[j, 0])]) for p in programs]
+    for q in range(idx.shape[1]):
+        want = kernels._eval_tape(tape, lambda j: stacked[int(idx[j, q])])
+        got = kernels._eval_tape(
+            q_tape, lambda j: stacked[int(idx[j, q])] if j < n_leaves else hoisted[j - n_leaves])
+        assert torch.equal(got, want), q
+    if kernels.k1_ring_stages(max(len(r) for r in kernels.k1_tiles(idx)[0])) >= 2:
+        counts, _ = emulate_staged(stacked, idxs, tape, "staged")
+        assert counts == kernels.gather_expr_count_plain(stacked, idxs, tape).tolist()
+    return q_tape, programs
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_k1_split_equals_the_tape(seed):
+    """Random trees of set-ops, compares (every kind), with a random half
+    of their leaf positions shared by every query, over 1-3 tiles."""
+    rng = np.random.default_rng(seed)
+    n_leaves, u = 10, 24
+    stacked = t32(rng.integers(0, 1 << 32, (u, 2, 64), dtype=np.uint32))
+    tape = list(lower_tape(random_mixed_ir(rng, n_leaves, depth=4)))
+    shared = [j for j in range(n_leaves) if rng.random() < 0.6]
+    q = int(rng.choice([2, 9, 300, 600]))
+    assert_split_holds(stacked, shared_idxs(rng, n_leaves, q, u, shared), tape)
+
+
+P_ = lambda s: PUSH | (s << 8)  # noqa: E731
+A_ = lambda op, s: kernels.OP_ACC | op | (s << 8)  # noqa: E731
+
+# (tape, leaf positions shared by every query, want: query tape and the
+# number of codes of each program). L is the number of leaf positions,
+# so L + h is program h's synthetic row.
+SPLIT_CASES = {
+    "one compare": (
+        lower_tape(("Intersect", (leaf(18), ("cmp", "gt", tuple(range(18)), 17, 61234)))),
+        range(18), lambda L: [P_(L), A_(AND, 18)], [18]),
+    "two compares": (
+        lower_tape(("Intersect", (leaf(6), ("cmp", "gt", tuple(range(6)), 5, 9),
+                                  ("cmp", "lt", tuple(range(6)), 5, 27)))),
+        range(6), lambda L: [P_(L), A_(AND, 6)], None),
+    "between": (
+        lower_tape(("Intersect", (leaf(6), ("between", tuple(range(6)), 5, 3, 20)))),
+        range(6), lambda L: [P_(L), A_(AND, 6)], [6]),
+    "shared Union beside a row": (
+        lower_tape(("Intersect", (leaf(3), ("Union", (leaf(0), leaf(1), leaf(2)))))),
+        range(3), lambda L: [P_(L), A_(AND, 3)], [3]),
+    "shared Union under a per-query push": (
+        [P_(0), P_(1), A_(OR, 2), AND], (1, 2), lambda L: [P_(0), A_(AND, L)], [2]),
+    "spans under per-query pushes": (
+        lower_tape(("Xor", (("Intersect", (leaf(0), ("Union", (leaf(1), leaf(2))))),
+                            ("Intersect", (leaf(3), ("cmp", "gte", tuple(range(4, 10)), 5, 7)))))),
+        (1, 2) + tuple(range(4, 10)),
+        lambda L: [P_(L), A_(AND, 0), P_(L + 1), A_(AND, 3), XOR], [2, 6]),
+    "whole tape shared": (
+        lower_tape(("Difference", ("cmp", "lte", tuple(range(6)), 5, 12), (leaf(6),))),
+        range(7), lambda L: [P_(L)], None),
+    "a lone shared leaf": (
+        lower_tape(("Intersect", (leaf(0), leaf(1)))), (0,), lambda L: None, []),
+    "nothing shared": (
+        lower_tape(("Intersect", (leaf(0), ("cmp", "gt", tuple(range(1, 7)), 5, 9)))),
+        (), lambda L: None, []),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_k1_split_cases(name):
+    tape, shared, want_tape, want_lens = SPLIT_CASES[name]
+    tape = list(tape)
+    n_leaves = 1 + max(c >> 8 for c in tape if kernels.reads_slot(c))
+    rng = np.random.default_rng(len(name))
+    u = n_leaves + 40
+    stacked = t32(rng.integers(0, 1 << 32, (u, 2, 128), dtype=np.uint32))
+    idxs = shared_idxs(rng, n_leaves, 300, u, shared)
+    q_tape, programs = assert_split_holds(stacked, idxs, tape)
+    want = want_tape(n_leaves)
+    assert q_tape == (tape if want is None else want)
+    if want_lens is not None:
+        assert [len(p) for p in programs] == want_lens
+    else:
+        assert len(programs) == 1
+    staging = kernels._K1Staging(idxs, tape, None)
+    assert staging.n_hoist == len(programs)
+    assert staging.bsi == kernels.has_bsi(q_tape)
+
+
+def today_staging_buffer(idxs, tape):
+    """The staged buffer as K1 built it before hoisting: tape | tiles |
+    urows | qpos."""
+    urows, qpos = kernels.k1_tiles(idxs.numpy())
+    sizes = [len(r) for r in urows]
+    tiles = np.stack([np.cumsum([0] + sizes[:-1]), sizes], axis=1).astype(np.int32)
+    return np.concatenate([np.asarray(tape, dtype=np.int32), tiles.ravel(), *urows,
+                           qpos.ravel()])
+
+
+@pytest.mark.parametrize("case", ["serving", "lone shared leaf", "unshared compare",
+                                  "no room for the synthetic row"])
+def test_k1_staging_without_hoists_is_byte_equal(case):
+    """A launch with nothing to hoist builds the buffer, variant, ring
+    and instantiation it built before hoisting existed."""
+    rng = np.random.default_rng(5)
+    if case == "serving":  # 256 distinct 2-leaf Counts over 128 rows
+        a, b = np.divmod(rng.permutation(128 * 127)[:256], 127)
+        idx = np.stack([a, (a + 1 + b) % 128]).astype(np.int32)
+        tape = list(lower_tape(("Intersect", (leaf(0), leaf(1)))))
+    elif case == "lone shared leaf":
+        idx = shared_idxs(rng, 2, 40, 64, (0,)).numpy()
+        tape = list(lower_tape(("Intersect", (leaf(0), leaf(1)))))
+    elif case == "unshared compare":
+        idx = shared_idxs(rng, 7, 40, 64, (0, 1, 2)).numpy()
+        tape = list(lower_tape(HOIST_IR))
+    else:  # 227 distinct slots fill two stages; a synthetic row would not fit
+        idx = np.empty((7, 256), dtype=np.int32)
+        idx[:6] = np.arange(6)[:, None]
+        idx[6] = np.resize(np.arange(6, 227), 256)
+        tape = list(lower_tape(HOIST_IR))
+    idxs = torch.from_numpy(idx)
+    st = kernels._K1Staging(idxs, tape, None)
+    assert (st.variant, st.n_hoist) == ("staged", 0)
+    distinct = max(len(r) for r in kernels.k1_tiles(idx)[0])
+    assert st.stages == kernels.k1_plan(distinct, idx.shape[1])[1]
+    assert st.bsi == kernels.has_bsi(tape)
+    want = today_staging_buffer(idxs, tape)
+    assert st.host.dtype == want.dtype and st.host.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("distinct,hoisted,stages", [(40, 1, 4), (56, 1, 3), (112, 1, 2),
+                                                     (113, 1, 3), (226, 1, 2), (227, 0, 2)])
+def test_k1_ring_counts_the_synthetic_rows(distinct, hoisted, stages):
+    """A stage holds H + nu rows. A hoisted launch with a set-op query tape
+    sizes its ring for two blocks an SM while two stages fit that way (to
+    113 rows), then for one; where the synthetic row would leave fewer
+    than two stages, the launch goes unhoisted."""
+    idx = np.empty((7, 256), dtype=np.int32)
+    idx[:6] = np.arange(6)[:, None]
+    idx[6] = np.resize(np.arange(6, distinct), 256)
+    st = kernels._K1Staging(torch.from_numpy(idx), list(lower_tape(HOIST_IR)), None)
+    assert (st.variant, st.n_hoist, st.stages) == ("staged", hoisted, stages)
+    ring = st.stages * (st.n_hoist + distinct) * kernels.RING_SLOT_BYTES
+    assert ring <= kernels.RING_BYTES
+    if hoisted and distinct <= 112:
+        assert 2 * (ring + kernels.BLOCK_RESERVED_BYTES) <= kernels.SM_SHARED_BYTES
+
+
+def test_k1_hoisted_bsi_query_tape_keeps_one_block_rings():
+    """A query tape that still holds a compare runs the BSI instantiation
+    (one block an SM): its ring takes the one-block stages."""
+    tape = list(lower_tape(("Intersect", (("Union", (leaf(0), leaf(1))),
+                                          ("cmp", "gt", tuple(range(2, 8)), 5, 9)))))
+    idxs = shared_idxs(np.random.default_rng(8), 8, 40, 60, (0, 1))
+    st = kernels._K1Staging(idxs, tape, None)
+    rows = st.n_hoist + st.max_distinct
+    assert (st.n_hoist, st.bsi) == (1, True)
+    assert st.stages == kernels.k1_ring_stages(rows) > kernels.k1_hoist_stages(rows)
+
+
+def test_k1_bsi_batch_shape_is_hoisted():
+    """chip_smoke's count_batch shape: the depth-17 compare becomes one
+    18-code program (BSI codes), each query `PUSH h, ACC_AND row` (set-op
+    codes only), 82 staged rows and one synthetic row in two stages, so
+    two blocks share an SM."""
+    q, d = 64, 17
+    idx = np.concatenate([np.repeat(np.arange(d + 1)[:, None], q, axis=1),
+                          (d + 1 + np.arange(q))[None]]).astype(np.int32)
+    tape = list(lower_tape(("Intersect", (leaf(d + 1), ("cmp", "gt", tuple(range(d + 1)),
+                                                         d, 61234)))))
+    st = kernels._K1Staging(torch.from_numpy(idx), tape, None)
+    assert (st.variant, st.stages, st.n_hoist, st.max_distinct) == ("staged", 2, 1, 82)
+    assert (st.bsi, st.n_tape, st.n_leaves) == (False, 2, d + 3)
+    assert list(st.host[:2]) == [P_(d + 2), A_(AND, d + 1)]
+    program = st.host[st.hoists_at + 2:st.tiles_at]
+    assert len(program) == d + 1 and kernels.has_bsi(program)
+    # Leaves shared by every query of a streaming launch are not hoisted.
+    assert kernels._K1Staging(torch.from_numpy(idx), tape, "streaming").n_hoist == 0
 
 
 # ------------------------------------------------ K3's twin vs pilosa_tpu

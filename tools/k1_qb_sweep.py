@@ -63,9 +63,10 @@ def main() -> int:
             return 1
         report = (proc.stdout + proc.stderr).splitlines()
         regs = []
+        # The instantiations without hoist programs (HOIST = false).
         for inst, name in (("Lb0", "set-op"), ("Lb1", "BSI")):
             at = next(j for j, line in enumerate(report)
-                      if f"k1_staged_kernelILi3E{inst}" in line)
+                      if f"k1_staged_kernelILi3E{inst}ELb0E" in line)
             regs.append(name + " " + next(line.split(":", 1)[1].strip()
                                           for line in report[at:] if "Used" in line))
         kernels.LIBRARY, kernels._lib = lib, None
