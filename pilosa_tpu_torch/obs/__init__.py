@@ -1,12 +1,15 @@
 """Per-query tracing, slow-query log, and Prometheus exposition.
 
 The third observability leg next to /debug/vars (process-wide counters)
-and /debug/profile (whole-process JAX traces): a sampling per-request
-trace recorder threaded through the serving path. A trace starts at
-handler ingress (or is adopted from the X-Pilosa-Trace header a
-coordinator stamped), accumulates named stage spans — parse, sched.wait,
-batch.hold, executor.fanout, gather, device.dispatch, tier.promote,
-remote:<peer>, reduce — and lands in a bounded ring served by
+and /debug/profile (whole-process torch.profiler captures of CPU and
+CUDA activity, every span shown as a range while one runs): a sampling
+per-request trace recorder threaded through the serving path. A trace
+starts at handler ingress (or is adopted from the X-Pilosa-Trace header
+a coordinator stamped), accumulates named stage spans — parse,
+sched.wait, batch.hold, executor.fanout, gather, device.dispatch and
+inside it engine.fingerprint, engine.stack, k1.stage and device.sync,
+tier.promote, remote:<peer>, reduce, and gc.pause for a collection that
+stopped the request's thread — and lands in a bounded ring served by
 GET /debug/traces. Remote hops return the peer's own stage summary in a
 size-bounded X-Pilosa-Trace-Summary response header, spliced as child
 spans so a fan-out query yields ONE tree across nodes.
@@ -16,11 +19,13 @@ once with their full stage breakdown), per-stage log-bucketed latency
 histograms, and GET /metrics — a Prometheus text exposition of the
 /debug/vars counter groups plus the stage histograms.
 
-jax-free by design (config.py imports ObsConfig at CLI startup), and the
-disabled path costs one conditional per stage: obs.span() returns a
-shared no-op singleton when no trace is active on the calling thread.
+Importable without torch (config.py imports ObsConfig at CLI startup;
+the profiler ranges are handed in by the capture), and the disabled
+path costs one conditional per stage: obs.span() returns a shared
+no-op singleton when no trace is active on the calling thread.
 
-See docs/observability.md for the full surface.
+See docs/observability.md for the full surface, and README.md beside
+this file for what only the port records and exposes.
 """
 
 from __future__ import annotations
@@ -29,12 +34,14 @@ from dataclasses import dataclass
 
 from .trace import (
     NOP_SPAN,
+    GcHook,
     Span,
     Trace,
     TraceRecorder,
     activate,
     current,
     deactivate,
+    profile_ranges,
     record,
     span,
 )
@@ -71,6 +78,7 @@ class ObsConfig:
 
 __all__ = [
     "NOP_SPAN",
+    "GcHook",
     "ObsConfig",
     "Span",
     "Trace",
@@ -78,6 +86,7 @@ __all__ = [
     "activate",
     "current",
     "deactivate",
+    "profile_ranges",
     "record",
     "span",
 ]

@@ -8,6 +8,25 @@ Code that hops threads (the executor's hedged remote legs) captures the
 Trace object once and calls trace.span() directly; Trace state is
 lock-protected so spans may complete on any thread.
 
+Clock: spans and a trace's start (`Trace.start_mono`) are read on
+`time.monotonic` unless the recorder is given another clock, so a
+device trace mapped onto that clock lines up with the spans.
+
+Garbage collection: while a `GcHook` is open (the server holds one),
+one `gc.callbacks` callback times each collection, adds it to the
+process's totals by generation, and notes the pause on the trace that
+was active on the collecting thread. The collection may have
+interrupted code that holds that trace's lock, so the note is a list
+append without it; the pause lands as a `gc.pause` span at the trace's
+next span exit (on whichever thread) or at its finish, both under the
+lock. A pause noted while another thread finishes the trace can be lost.
+
+Profiler ranges: while `profile_ranges(fn)` is set (the handler's
+/debug/profile capture sets torch.profiler.record_function), every span
+also opens `fn(name)` for its length, so the capture's Chrome trace
+shows each host stage beside the kernels it launched. Unset, that costs
+one global read per span, and this module never imports torch.
+
 Cross-node: the coordinator stamps X-Pilosa-Trace on forwarded requests;
 the peer adopts the id, records its own spans, and returns a size-bounded
 JSON summary in X-Pilosa-Trace-Summary. The caller splices that summary
@@ -19,6 +38,7 @@ clocks, so peer clock skew cannot corrupt the tree.
 from __future__ import annotations
 
 import contextvars
+import gc
 import json
 import random
 import threading
@@ -39,6 +59,17 @@ SPANS_MAX = 512
 # and as accepted (a peer advertising a bigger one is truncated, not an
 # error — the header must never be the thing that fails a query).
 SUMMARY_MAX_BYTES = 4096
+
+
+# Set while a profiler capture runs: called with a span's name, returns a
+# context manager (torch.profiler.record_function) opened for the span.
+_profile_range = None
+
+
+def profile_ranges(fn) -> None:
+    """Open `fn(span name)` around every span from now on (None: stop)."""
+    global _profile_range
+    _profile_range = fn
 
 
 def current() -> Optional["Trace"]:
@@ -104,7 +135,7 @@ class Span:
     its trace on exit (from whichever thread ran it)."""
 
     __slots__ = ("_trace", "name", "start_ms", "dur_ms", "tags", "children",
-                 "_t0")
+                 "_t0", "_range")
 
     def __init__(self, trace: "Trace", name: str,
                  tags: Optional[Dict[str, Any]] = None):
@@ -115,14 +146,22 @@ class Span:
         self.start_ms = 0.0
         self.dur_ms = 0.0
         self._t0 = None
+        self._range = None
 
     def __enter__(self) -> "Span":
+        rf = _profile_range
+        if rf is not None:
+            self._range = rf(self.name)
+            self._range.__enter__()
         self._t0 = self._trace._clock()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t = self._trace
         now = t._clock()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         t0 = self._t0 if self._t0 is not None else now
         self.start_ms = (t0 - t._start) * 1000.0
         self.dur_ms = (now - t0) * 1000.0
@@ -194,7 +233,7 @@ class Trace:
 
     __slots__ = ("trace_id", "index", "pql", "adopted", "start_wall",
                  "_start", "_clock", "spans", "duration_ms", "status",
-                 "finished", "spans_dropped", "tags", "_lock")
+                 "finished", "spans_dropped", "tags", "_lock", "_gc")
 
     def __init__(self, trace_id: str, index: str = "", pql: str = "",
                  adopted: bool = False, clock=time.monotonic):
@@ -212,6 +251,9 @@ class Trace:
         self.spans_dropped = 0
         self.tags: Optional[Dict[str, Any]] = None
         self._lock = threading.Lock()
+        # Collections noted by _on_gc, (end on the trace's clock, seconds,
+        # generation): appended without the lock, landed under it.
+        self._gc: List[tuple] = []
 
     # ----------------------------------------------------------- recording
 
@@ -245,10 +287,32 @@ class Trace:
                 # header — two scrapes of one trace id must agree.
                 self.spans_dropped += 1
                 return
+            if self._gc:
+                self._land_gc()
+            self.spans.append(sp)
+
+    def _land_gc(self) -> None:
+        """The noted collections as `gc.pause` spans (lock held, trace
+        not finished)."""
+        while self._gc:
+            end, secs, gen = self._gc.pop(0)
+            if len(self.spans) >= SPANS_MAX:
+                self.spans_dropped += 1
+                continue
+            sp = self.span("gc.pause", gen=gen)  # built here, never entered
+            sp.start_ms = (end - secs - self._start) * 1000.0
+            sp.dur_ms = secs * 1000.0
             self.spans.append(sp)
 
     def wire_id(self) -> str:
         return f"{self.trace_id}:1"
+
+    @property
+    def start_mono(self) -> float:
+        """The trace's start on the recorder's clock (`time.monotonic`
+        unless the recorder was given another): a span's absolute start
+        is start_mono + start_ms / 1000."""
+        return self._start
 
     # --------------------------------------------------------- serializing
 
@@ -387,6 +451,8 @@ class TraceRecorder:
             # mutates the published trace.
             if trace.finished:
                 return
+            if trace._gc:
+                trace._land_gc()
             trace.finished = True
             spans = list(trace.spans)
             dropped = trace.spans_dropped
@@ -447,4 +513,80 @@ class TraceRecorder:
             out["ring"] = len(self._ring)
         out["sample_rate"] = self.config.sample_rate
         out["slow_query_ms"] = self.config.slow_query_ms
+        return out
+
+
+# ------------------------------------------------------------ gc pauses
+
+# The process's collections while a GcHook is open, by generation.
+_gc_collections = [0, 0, 0]
+_gc_seconds = [0.0, 0.0, 0.0]
+_gc_t0: Optional[float] = None  # start of the collection in progress
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """The `gc.callbacks` callback. It runs inside whatever code the
+    collection interrupted, possibly holding a trace's lock, so it takes
+    no lock and allocates little more than the noted tuple."""
+    global _gc_t0
+    if phase == "start":
+        _gc_t0 = time.monotonic()
+        return
+    t0, _gc_t0 = _gc_t0, None
+    if t0 is None:
+        return
+    secs = time.monotonic() - t0
+    g = info["generation"]
+    _gc_collections[g] += 1
+    _gc_seconds[g] += secs
+    t = _current.get()
+    if t is not None and not t.finished:
+        t._gc.append((t._clock(), secs, g))
+
+
+class GcHook:
+    """Keeps `_on_gc` installed from `open` to `close` (installed while
+    any hook is open), and reads the process's collections and pause
+    milliseconds by generation since this hook opened (`snapshot()`).
+    Every open hook counts every collection of the process: two servers
+    in one process both count a pause."""
+
+    _open_hooks = 0
+    _install_lock = threading.Lock()
+
+    def __init__(self):
+        self._base: Optional[tuple] = None
+        self._end: Optional[tuple] = None
+
+    @staticmethod
+    def _totals() -> tuple:
+        return tuple(_gc_collections), tuple(_gc_seconds)
+
+    def open(self) -> None:
+        with GcHook._install_lock:
+            if self._base is not None and self._end is None:
+                return
+            if GcHook._open_hooks == 0:
+                gc.callbacks.append(_on_gc)
+            GcHook._open_hooks += 1
+            self._base, self._end = self._totals(), None
+
+    def close(self) -> None:
+        with GcHook._install_lock:
+            if self._base is None or self._end is not None:
+                return
+            self._end = self._totals()
+            GcHook._open_hooks -= 1
+            if GcHook._open_hooks == 0:
+                gc.callbacks.remove(_on_gc)
+
+    def snapshot(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        if self._base is None:
+            return out
+        (n0, s0), (n1, s1) = self._base, self._end or self._totals()
+        for g in range(3):
+            out[f"gcCollectionsGen{g}"] = n1[g] - n0[g]
+            out[f"gcPauseMsGen{g}"] = (s1[g] - s0[g]) * 1000.0
+        out["gcPauseMs"] = sum(out[f"gcPauseMsGen{g}"] for g in range(3))
         return out

@@ -80,6 +80,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs import NOP_SPAN
+from ..obs import span as obs_span
 from .bitplane import bsi_max, bsi_min, popcount_words
 
 OP_PUSH, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_NOTAND = 0, 1, 2, 3, 4, 5
@@ -695,7 +697,21 @@ def gather_expr_count_blocks(blocks: Sequence[torch.Tensor], idxs: torch.Tensor,
     staging buffer, copied once to each distinct device among the blocks
     (STAGED counts the copies). The ring plan depends on `idxs` and Q
     alone, so every block takes the same variant; blocks must agree in U,
-    W and dtype. CPU blocks run the plain twin."""
+    W and dtype. CPU blocks run the plain twin. The call runs in one
+    `k1.stage` span (tags `variant`, "plain" where no block is on a card,
+    `q` and `blocks`): the host work up to the last launch's return, and
+    on the CPU the plain twin's count."""
+    with obs_span("k1.stage") as sp:
+        outs, ran = _k1_call(blocks, idxs, tape, variant)
+        if sp is not NOP_SPAN:
+            sp.tag(variant=ran, q=int(idxs.shape[1]), blocks=len(blocks))
+    return outs
+
+
+def _k1_call(blocks: Sequence[torch.Tensor], idxs: torch.Tensor,
+             tape: Sequence[int], variant: Optional[str]):
+    """gather_expr_count_blocks' work: (the counts of each block, the
+    variant launched or "plain")."""
     tape = [int(c) for c in tape]
     if not blocks:
         raise ValueError("no blocks")
@@ -718,7 +734,7 @@ def gather_expr_count_blocks(blocks: Sequence[torch.Tensor], idxs: torch.Tensor,
         if q and s * w:
             on_card.append(i)
     if not on_card:
-        return outs
+        return outs, "plain"
     staging = _K1Staging(idxs, tape, variant)
     lib = load()
     bufs: Dict[torch.device, torch.Tensor] = {}
@@ -735,7 +751,7 @@ def gather_expr_count_blocks(blocks: Sequence[torch.Tensor], idxs: torch.Tensor,
         _check_launch(f"gather_expr_count ({staging.variant})", err)
         _count(LAUNCHES, "gather_expr_count", f"gather_expr_count_{staging.variant}",
                *(("gather_expr_count_hoisted",) if staging.n_hoist else ()))
-    return outs
+    return outs, staging.variant
 
 
 def _check_k1_like(first: torch.Tensor, block: torch.Tensor) -> None:

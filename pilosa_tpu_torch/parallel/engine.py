@@ -59,6 +59,7 @@ defaults:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import logging
 import os
 import threading
@@ -414,22 +415,26 @@ def _settled(t: torch.Tensor) -> torch.Tensor:
     the sync point, not at the launch, so a guarded call that keeps its
     result on the device synchronizes inside the guard."""
     if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+        with obs_span("device.sync"):
+            torch.cuda.synchronize(t.device)
     return t
 
 
 def _host_shards(parts: Sequence[torch.Tensor], n_shards: int) -> np.ndarray:
     """Per-(row, shard) int32 counts of the partitions, (R, S_padded / N)
     each, joined in shard order on the host and trimmed: (R, S) int64."""
-    return np.concatenate([p.cpu().numpy() for p in parts],
-                          axis=1)[:, :n_shards].astype(np.int64)
+    with obs_span("device.sync"):
+        host = [p.cpu().numpy() for p in parts]
+    return np.concatenate(host, axis=1)[:, :n_shards].astype(np.int64)
 
 
 def _host_total(parts: Sequence[torch.Tensor]) -> np.ndarray:
     """The partitions' int64 partials summed, on the host."""
-    out = parts[0].cpu().numpy()
-    for p in parts[1:]:
-        out = out + p.cpu().numpy()
+    with obs_span("device.sync"):
+        host = [p.cpu().numpy() for p in parts]
+    out = host[0]
+    for h in host[1:]:
+        out = out + h
     return out
 
 
@@ -850,7 +855,9 @@ class ShardedQueryEngine:
             return run()
         from concurrent.futures import TimeoutError as FutTimeout
 
-        fut = pool.submit(run)
+        # The request's context rides along, so the spans of the dispatch
+        # land in its trace from the pool thread.
+        fut = pool.submit(contextvars.copy_context().run, run)
         fut.add_done_callback(self._watchdog_done)
         try:
             return fut.result(timeout=self._watchdog_s)
@@ -1036,12 +1043,13 @@ class ShardedQueryEngine:
         from the fragments."""
         key = (index, leaf, shards)
         s_padded = self._s_padded(len(shards))
-        frags = [self.holder.fragment(index, leaf.field, leaf.view, s)
-                 for s in shards]
-        # Fingerprint BEFORE the read: a write racing the gather leaves
-        # the entry conservatively stale, never stale-but-fresh-looking.
-        fingerprint = tuple(-1 if f is None else (f.incarnation, f.generation)
-                            for f in frags)
+        with obs_span("engine.fingerprint", site="leaf", leaves=1):
+            frags = [self.holder.fragment(index, leaf.field, leaf.view, s)
+                     for s in shards]
+            # Fingerprint BEFORE the read: a write racing the gather leaves
+            # the entry conservatively stale, never stale-but-fresh-looking.
+            fingerprint = tuple(-1 if f is None else (f.incarnation, f.generation)
+                                for f in frags)
 
         def probe():
             with self._lock:
@@ -1293,16 +1301,31 @@ class ShardedQueryEngine:
         """One resident (U, S_padded, W) stack for a leaf list, in the
         partitions' blocks, refreshed by scattered updates when a member
         fragment moved (the journal allowing), else rebuilt from the leaf
-        cache (re-gathering only stale leaves)."""
+        cache (re-gathering only stale leaves). The whole step runs in
+        one `engine.stack` span tagged with its `outcome`."""
         leaves = tuple(leaves)
         if not leaves:
             per = self._s_padded(len(shards)) // len(self.mesh)
             return Blocks(torch.zeros((0, per, WORDS_PER_ROW), dtype=torch.int32,
                                       device=dev) for dev in self.mesh)
-        fp = self._fingerprints(index, leaves, shards)
+        with obs_span("engine.stack") as sp:
+            stacked, outcome = self._stack(index, leaves, shards)
+            if sp is not NOP_SPAN:
+                sp.tag(outcome=outcome)
+        return stacked
+
+    def _stack(self, index: str, leaves: Tuple[Leaf, ...],
+               shards: Tuple[int, ...]) -> Tuple[Blocks, str]:
+        """_stacked_leaf_tensor's stack and how it was had: "hit" (cached
+        and fresh), "waited" (another thread's build, taken after waiting
+        on the build gate), "delta" (refreshed by a scatter) or "build"."""
+        fp = self._fingerprints(index, leaves, shards, "stack")
         key = (index, leaves, shards)
+        probes = 0
 
         def probe():
+            nonlocal probes
+            probes += 1
             with self._lock:
                 cached = self._stack_cache.get(key)
                 if cached is not None and cached[0] == fp:
@@ -1313,7 +1336,7 @@ class ShardedQueryEngine:
 
         stacked = self._gate(("stack", key), probe)
         if stacked is not None:
-            return stacked
+            return stacked, "hit" if probes == 1 else "waited"
         try:
             with self._lock:
                 stale = self._stack_cache.get(key)
@@ -1323,7 +1346,7 @@ class ShardedQueryEngine:
                     if sp is not NOP_SPAN:
                         sp.tag(applied=stacked is not None)
                 if stacked is not None:
-                    return stacked
+                    return stacked, "delta"
             arrs = self._leaf_tensor(index, leaves, shards)
             stacked = self._oom_guard(None, lambda: Blocks(
                 torch.stack([a[p] for a in arrs]) for p in range(len(self.mesh))))
@@ -1334,7 +1357,7 @@ class ShardedQueryEngine:
                     self._stack_bytes, "stack_evictions")
         finally:
             self._release(("stack", key))
-        return stacked
+        return stacked, "build"
 
     # ----------------------------------------------------------- query memo
 
@@ -1370,7 +1393,7 @@ class ShardedQueryEngine:
                 self._memo[key] = self._memo.pop(key)  # LRU touch
                 self.counters["memo_hits"] += 1
                 return ent[2], (key, ent[0], epoch)
-        fp = self._fingerprints(index, plan.leaves, shards)
+        fp = self._fingerprints(index, plan.leaves, shards, "memo")
         token = (key, fp, epoch)
         with self._lock:
             ent = self._memo.get(key)
@@ -1416,8 +1439,12 @@ class ShardedQueryEngine:
                 self.counters["aux_evictions"] += 1
 
     def _fingerprints(self, index: str, leaves: Sequence[Leaf],
-                      shards: Tuple[int, ...]) -> Tuple:
-        return tuple(self._fingerprint(index, leaf, shards) for leaf in leaves)
+                      shards: Tuple[int, ...], site: str) -> Tuple:
+        """Every leaf's fingerprint: one walk of U x S fragment lookups,
+        in one `engine.fingerprint` span tagged with the caller's `site`
+        ("memo": a memo probe, "stack": a stack's freshness check)."""
+        with obs_span("engine.fingerprint", site=site, leaves=len(leaves)):
+            return tuple(self._fingerprint(index, leaf, shards) for leaf in leaves)
 
     # ------------------------------------------------------ host execution
     #
@@ -1622,7 +1649,13 @@ class ShardedQueryEngine:
             self.memo_store(token, result)
             return result
         launch = self._count_launch(index, plan, shards)
-        result = self._device_call(plan.sig_tuple, lambda: int(launch()[0]))
+
+        def run():
+            total = launch()[0]
+            with obs_span("device.sync"):
+                return int(total)
+
+        result = self._device_call(plan.sig_tuple, run)
         self.memo_store(token, result)
         return result
 
@@ -1680,6 +1713,10 @@ class ShardedQueryEngine:
             else:
                 out[i] = hit
         if miss:
+            def read_back(counts):
+                with obs_span("device.sync"):
+                    return counts.cpu().numpy()
+
             def run(sub):
                 counts = self.count_batch_async(
                     index, [calls[i] for i in sub], shards,
@@ -1688,7 +1725,7 @@ class ShardedQueryEngine:
                 # at the sync, not at the launch the guard already wrapped.
                 # fire=False: the launch already paid the failpoint.
                 return self._device_call(
-                    plans[sub[0]].sig_tuple, lambda: counts.cpu().numpy(),
+                    plans[sub[0]].sig_tuple, lambda: read_back(counts),
                     fire=False)
 
             try:
@@ -1875,9 +1912,9 @@ class ShardedQueryEngine:
         plan, src_sig, src_leaves = self._src_parts(index, src_call)
         mkey = ("topn_shard", index, field, canon_rows, shards, src_sig,
                 src_leaves, need_row_counts)
-        fp = self._fingerprints(index, leaves, shards)
+        fp = self._fingerprints(index, leaves, shards, "memo")
         if plan is not None:
-            fp = fp + self._fingerprints(index, plan.leaves, shards)
+            fp = fp + self._fingerprints(index, plan.leaves, shards, "memo")
 
         def answer(value):
             row_counts, inter, src_counts = value
@@ -1940,9 +1977,9 @@ class ShardedQueryEngine:
         plan, src_sig, src_leaves = self._src_parts(index, src_call)
         mkey = ("topn_total", index, field, canon_rows, shards, src_sig,
                 src_leaves)
-        fp = self._fingerprints(index, leaves, shards)
+        fp = self._fingerprints(index, leaves, shards, "memo")
         if plan is not None:
-            fp = fp + self._fingerprints(index, plan.leaves, shards)
+            fp = fp + self._fingerprints(index, plan.leaves, shards, "memo")
         hit = self._aux_probe(mkey, fp)
         if hit is not None:
             return hit[sel]
@@ -1981,9 +2018,9 @@ class ShardedQueryEngine:
         plan, fsig, flt_leaf_ids = self._src_parts(index, filter_call)
         mkey = ("bsi", index, field, kind, bit_depth, shards, fsig or (),
                 flt_leaf_ids)
-        fp = self._fingerprints(index, leaves, shards)
+        fp = self._fingerprints(index, leaves, shards, "memo")
         if plan is not None:
-            fp = fp + self._fingerprints(index, plan.leaves, shards)
+            fp = fp + self._fingerprints(index, plan.leaves, shards, "memo")
         hit = self._aux_probe(mkey, fp)
         if hit is not None:
             return hit
@@ -2000,8 +2037,9 @@ class ShardedQueryEngine:
                     for b, m in zip(planes, flt)])  # (D+1,)
             parts = [kernels.bsi_minmax(b, m, maximize=kind == "max")
                      for b, m in zip(planes, flt)]
-            return _fold_minmax([(bits.cpu().numpy(), int(count))
-                                 for bits, count in parts], kind == "max")
+            with obs_span("device.sync"):
+                host = [(bits.cpu().numpy(), int(count)) for bits, count in parts]
+            return _fold_minmax(host, kind == "max")
 
         value = self._device_call(None, run)
         self._aux_store(mkey, fp, value)

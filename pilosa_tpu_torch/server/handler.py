@@ -896,6 +896,7 @@ class Handler:
         http/handler.go:196): stats counters/gauges/timings as JSON, plus
         the device engine's cache hit/eviction counters."""
         stats = self.api.server.stats
+        self.api.server.publish_gc_pauses()
         out = stats.snapshot() if hasattr(stats, "snapshot") else {}
         # Peek the lazy slot, NOT the .engine property: a stats scrape must
         # never be the thing that first initializes the device backend (a
@@ -1114,13 +1115,18 @@ class Handler:
     def handle_debug_profile(self, query, **kw):
         """Capture a torch.profiler trace of the device hot path (CPU and
         CUDA activity). POST /debug/profile?seconds=2 writes a Chrome trace
-        under <data_dir>/profiles and returns its path. The profiler is
-        process-global: concurrent captures are rejected with 409."""
+        under <data_dir>/profiles and returns its path; while it runs,
+        every recorder span also opens a record_function range of its
+        name, so the host stages sit beside the kernels they launched.
+        The profiler is process-global: concurrent captures are rejected
+        with 409."""
         import os
         import tempfile
         import uuid
 
         import torch
+
+        from .. import obs
 
         seconds = min(max(float(query.get("seconds", ["1"])[0]), 0.0), 30.0)
         if not self._profile_lock.acquire(blocking=False):
@@ -1135,12 +1141,22 @@ class Handler:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
+            # The serving threads, not only this one: without it the
+            # capture records no host work of the queries it overlaps.
+            extra = {}
+            try:
+                extra["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+                    profile_all_threads=True)
+            except (AttributeError, TypeError):
+                pass  # a torch without the option records this thread only
+            prof = torch.profiler.profile(activities=activities, **extra)
             prof.start()
+            obs.profile_ranges(torch.profiler.record_function)
             try:
                 # pilint: allow-blocking(the sleep IS the capture window; _profile_lock is a try-acquire busy flag — contenders 409 instead of waiting, so nothing can queue behind this)
                 time.sleep(seconds)
             finally:
+                obs.profile_ranges(None)
                 prof.stop()
             prof.export_chrome_trace(os.path.join(out, "trace.json"))
         finally:

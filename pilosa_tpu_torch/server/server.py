@@ -356,12 +356,17 @@ class Server:
         # slow-query log, per-stage histograms for /metrics. The handler
         # starts/adopts traces; everything downstream records via the
         # obs contextvar.
-        from ..obs import ObsConfig, TraceRecorder
+        from ..obs import GcHook, ObsConfig, TraceRecorder
 
         self.obs_config = (obs_config or ObsConfig()).validate()
         self.trace_recorder = TraceRecorder(
             self.obs_config, stats=self.stats, logger=self.logger,
         )
+        # Collections' pauses (open to close): gc.pause spans in the
+        # trace a collection stopped, and the runtime gauges
+        # gcCollectionsGen<g> / gcPauseMsGen<g> / gcPauseMs. Every
+        # server of a process counts every pause of the process.
+        self.gc_pauses = GcHook()
         self.api = API(self)
         # Geo replication (geo/, docs/geo-replication.md): follower
         # clusters tail this (or another) cluster's CDC stream. Built
@@ -460,6 +465,7 @@ class Server:
     def open(self) -> "Server":
         """Open sequence (reference server.go:311-357)."""
         self._raise_file_limit()
+        self.gc_pauses.open()
         # Collective query plane (leader + peer sides). Constructed for
         # every server; one-process jobs serve through it only with
         # `[collective] single-process` on a one-node cluster.
@@ -862,6 +868,7 @@ class Server:
             self.cdc.close()
         self.holder.close()
         self.translate_store.close()
+        self.gc_pauses.close()
         self.opened = False
 
     def _spawn(self, fn, interval: float, jitter: float = 0.0) -> None:
@@ -968,6 +975,13 @@ class Server:
             self.stats.gauge("openFiles", len(os.listdir("/proc/self/fd")))
         except OSError:
             pass
+
+    def publish_gc_pauses(self) -> None:
+        """The gc hook's collections and pause milliseconds by generation
+        since this server opened, as runtime gauges: published at each
+        /debug/vars scrape (and so each /metrics scrape)."""
+        for name, value in self.gc_pauses.snapshot().items():
+            self.stats.gauge(name, value)
 
     def _monitor_members(self) -> None:
         """Heartbeat failure detector (the reference's memberlist gossip

@@ -646,3 +646,342 @@ def test_obs_config_toml_env_flag_precedence(tmp_path, monkeypatch):
         ObsConfig(ring_size=-1).validate()
     with pytest.raises(ValueError):
         ObsConfig(slow_query_ms=-1.0).validate()
+
+
+# -------------------------------------- inside device.dispatch (the port)
+
+
+# Spans only the port records. pilint R7b checks every name a test file
+# passes to find_span() against the reference's recording sites
+# (tests/test_pilint.py), where these do not exist, so each assertion on
+# one carries `allow-span`; test_port_span_names_are_recorded_and_documented
+# holds each name to a recording site of the port and a row of the port's
+# span table.
+ENGINE_SPANS = ("engine.fingerprint", "engine.stack", "k1.stage", "device.sync")
+
+
+def test_port_span_names_are_recorded_and_documented():
+    import ast
+    import os
+
+    from tools.pilint.rules import collect_span_names, parse_span_docs
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    recorded = set()
+    for dp, _, names in os.walk(os.path.join(root, "pilosa_tpu_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(dp, n)) as f:
+                    recorded |= collect_span_names(ast.parse(f.read()))
+    with open(os.path.join(root, "pilosa_tpu_torch", "obs", "README.md")) as f:
+        documented = parse_span_docs(f.read())
+    for name in ENGINE_SPANS + ("gc.pause",):
+        assert name in recorded and name in documented, name
+
+
+def _inside(sp, outer, slack=0.002):
+    """`sp` lies within `outer` (to_dict rounds both to microseconds)."""
+    return (outer["start_ms"] - slack <= sp["start_ms"]
+            and sp["start_ms"] + sp["dur_ms"]
+            <= outer["start_ms"] + outer["dur_ms"] + slack)
+
+
+def _engine_node(tmp_path, **kw):
+    s = Server(data_dir=str(tmp_path / "node"), cache_flush_interval=0,
+               member_monitor_interval=0, **kw)
+    s.open()
+    idx = s.holder.create_index("t")
+    for name, step in (("f", 1), ("g", 2)):
+        fld = idx.create_field(name)
+        for row in range(4):
+            fld.import_bits(np.full(64, row, dtype=np.uint64),
+                            np.arange(0, 64 * step, step, dtype=np.uint64))
+    return s
+
+
+def _assert_engine_spans_inside_dispatch(tr):
+    disp = [sp for sp in find_spans(tr, "device.dispatch")
+            if sp["tags"]["rung"] == "device"]
+    assert len(disp) == 1, tr
+    # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/parallel/engine.py)
+    fingerprints = find_spans(tr, "engine.fingerprint")
+    # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/parallel/engine.py)
+    stacks = find_spans(tr, "engine.stack")
+    # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/ops/kernels.py)
+    stages = find_spans(tr, "k1.stage")
+    # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/parallel/engine.py)
+    syncs = find_spans(tr, "device.sync")
+    for spans in (fingerprints, stacks, stages, syncs):
+        assert spans and all(_inside(sp, disp[0]) for sp in spans), tr
+    sites = {sp["tags"]["site"] for sp in fingerprints}
+    assert {"memo", "stack", "leaf"} <= sites, sites
+    assert [sp["tags"]["outcome"] for sp in stacks] == ["build"]
+    assert [sp["tags"] for sp in stages] == [{"variant": "plain", "q": 1, "blocks": 1}]
+
+
+def test_http_count_traces_the_engine_inside_device_dispatch(tmp_path):
+    s = _engine_node(tmp_path)
+    try:
+        h = f"localhost:{s.port}"
+        c = InternalClient()
+        assert c.query(h, "t", "Count(Intersect(Row(f=1), Row(g=1)))")["results"] == [32]
+        tr = _get_json(h, "/debug/traces")["traces"][0]
+        _assert_engine_spans_inside_dispatch(tr)
+        # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/parallel/engine.py)
+        assert find_span(tr, "engine.fingerprint")["tags"]["leaves"] == 2
+        # Another query over the same leaves misses the memo and finds
+        # the stack resident; a write to a member fragment refreshes the
+        # stack by a scatter.
+        assert c.query(h, "t", "Count(Union(Row(f=1), Row(g=1)))")["results"] == [96]
+        tr = _get_json(h, "/debug/traces?limit=1")["traces"][0]
+        # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/parallel/engine.py)
+        assert find_span(tr, "engine.stack")["tags"]["outcome"] == "hit"
+        c.query(h, "t", "Set(5000, g=3)")
+        assert c.query(h, "t", "Count(Intersect(Row(f=1), Row(g=1)))")["results"] == [32]
+        tr = _get_json(h, "/debug/traces?limit=1")["traces"][0]
+        # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/parallel/engine.py)
+        assert find_span(tr, "engine.stack")["tags"]["outcome"] == "delta"
+    finally:
+        s.close()
+
+
+def test_a_stack_built_by_another_thread_is_tagged_waited(one_node, monkeypatch):
+    import threading
+
+    from pilosa_tpu_torch.plan.signature import Leaf
+
+    eng = one_node.executor.engine
+    leaves = [Leaf("f", "standard", 0)]
+    building = threading.Event()
+    slow = eng._leaf_tensor
+
+    def leaf_tensor(*a):
+        building.set()
+        time.sleep(0.3)
+        return slow(*a)
+
+    monkeypatch.setattr(eng, "_leaf_tensor", leaf_tensor)
+    rec = TraceRecorder(ObsConfig(sample_rate=1.0), seed=23)
+    traces = {}
+
+    def stack(who):
+        t = traces[who] = rec.maybe_start("t", who)
+        token = obs.activate(t)
+        try:
+            eng._stacked_leaf_tensor("t", leaves, (0,))
+        finally:
+            obs.deactivate(token)
+            rec.finish(t)
+
+    first = threading.Thread(target=stack, args=("first",))
+    first.start()
+    assert building.wait(10)
+    stack("second")
+    first.join(10)
+    # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/parallel/engine.py)
+    outcomes = {who: find_span(t.to_dict(), "engine.stack")["tags"]["outcome"]
+                for who, t in traces.items()}
+    assert outcomes == {"first": "build", "second": "waited"}
+
+
+def test_watchdog_dispatch_still_records_into_the_request_trace(tmp_path):
+    from pilosa_tpu_torch.parallel import EngineConfig
+
+    s = _engine_node(tmp_path, engine_config=EngineConfig(dispatch_watchdog=30.0))
+    try:
+        h = f"localhost:{s.port}"
+        assert InternalClient().query(h, "t", "Count(Intersect(Row(f=2), Row(g=2)))")[
+            "results"] == [32]
+        # The dispatch ran on the watchdog's pool thread.
+        assert s.executor.engine._watchdog_pool is not None
+        _assert_engine_spans_inside_dispatch(_get_json(h, "/debug/traces")["traces"][0])
+    finally:
+        s.close()
+
+
+def test_sample_rate_zero_records_no_engine_span(tmp_path, monkeypatch):
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import engine as engine_mod
+
+    seen = []
+
+    def spy(name, **tags):
+        sp = obs.span(name, **tags)
+        seen.append((name, sp))
+        return sp
+
+    monkeypatch.setattr(kernels, "obs_span", spy)
+    monkeypatch.setattr(engine_mod, "obs_span", spy)
+    s = _engine_node(tmp_path, obs_config=ObsConfig(sample_rate=0.0))
+    try:
+        h = f"localhost:{s.port}"
+        assert InternalClient().query(h, "t", "Count(Intersect(Row(f=3), Row(g=3)))")[
+            "results"] == [32]
+        assert {n for n, _ in seen} >= set(ENGINE_SPANS)
+        assert all(sp is NOP_SPAN for _, sp in seen)
+        assert _get_json(h, "/debug/traces")["traces"] == []
+        assert _get_json(h, "/debug/vars")["obs"]["traces_started"] == 0
+    finally:
+        s.close()
+
+
+def test_gc_collect_inside_a_trace_records_gc_pause():
+    import gc
+
+    hook = obs.GcHook()
+    hook.open()
+    try:
+        rec = TraceRecorder(ObsConfig(sample_rate=1.0), seed=21)
+        t = rec.maybe_start("i", "q")
+        token = obs.activate(t)
+        try:
+            with obs.span("parse"):
+                gc.collect()
+        finally:
+            obs.deactivate(token)
+        rec.finish(t)
+        # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/obs/trace.py)
+        pause = find_span(t.to_dict(), "gc.pause")
+        assert pause["tags"] == {"gen": 2}
+        assert _inside(pause, find_span(t.to_dict(), "parse"))
+        snap = hook.snapshot()
+        assert snap["gcCollectionsGen2"] >= 1 and snap["gcPauseMsGen2"] > 0
+        assert snap["gcPauseMs"] == pytest.approx(
+            sum(snap[f"gcPauseMsGen{g}"] for g in range(3)))
+    finally:
+        hook.close()
+    before = dict(hook.snapshot())
+    gc.collect()
+    assert hook.snapshot() == before  # closed: counts nothing
+
+
+def test_gc_under_a_held_trace_lock_does_not_deadlock():
+    """A collection can start inside Trace._append with the trace's lock
+    held: the hook notes the pause without taking it, and the pause lands
+    at the trace's finish."""
+    import gc
+    import threading
+
+    hook = obs.GcHook()
+    hook.open()
+    rec = TraceRecorder(ObsConfig(sample_rate=1.0), seed=22)
+    t = rec.maybe_start("i", "q")
+
+    def run():
+        token = obs.activate(t)
+        try:
+            with t._lock:
+                gc.collect()
+        finally:
+            obs.deactivate(token)
+        rec.finish(t)
+
+    th = threading.Thread(target=run, daemon=True)
+    try:
+        th.start()
+        th.join(timeout=30)
+        assert not th.is_alive(), "a collection under the trace lock deadlocked"
+    finally:
+        hook.close()
+    # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/obs/trace.py)
+    assert find_span(t.to_dict(), "gc.pause")["tags"]["gen"] == 2
+
+
+def test_gc_pause_noted_on_one_thread_lands_when_another_finishes():
+    """The pause is noted on the trace itself: a collection on a worker
+    thread with no later span exit there still lands when the request's
+    thread finishes the trace, and is not counted as a dropped span."""
+    import gc
+    import threading
+
+    hook = obs.GcHook()
+    hook.open()
+    rec = TraceRecorder(ObsConfig(sample_rate=1.0), seed=24)
+    t = rec.maybe_start("i", "q")
+
+    def worker():
+        token = obs.activate(t)
+        try:
+            gc.collect()
+        finally:
+            obs.deactivate(token)
+
+    try:
+        th = threading.Thread(target=worker)
+        th.start()
+        th.join(30)
+        rec.finish(t)
+    finally:
+        hook.close()
+    # pilint: allow-span(port-only span, recorded in pilosa_tpu_torch/obs/trace.py)
+    assert find_span(t.to_dict(), "gc.pause")["tags"]["gen"] == 2
+    assert rec.snapshot()["spans_dropped"] == 0
+
+
+def test_every_open_gc_hook_counts_every_collection():
+    import gc
+
+    first, second = obs.GcHook(), obs.GcHook()
+    first.open()
+    second.open()
+    try:
+        gc.collect()
+        assert first.snapshot()["gcCollectionsGen2"] >= 1
+        assert second.snapshot()["gcCollectionsGen2"] >= 1
+        first.close()
+        # The callback stays installed while a hook is open.
+        frozen = dict(first.snapshot())
+        n = second.snapshot()["gcCollectionsGen2"]
+        gc.collect()
+        assert second.snapshot()["gcCollectionsGen2"] >= n + 1
+        assert first.snapshot() == frozen
+    finally:
+        first.close()
+        second.close()
+
+
+def test_server_gc_gauges_and_trace_start_on_the_recorder_clock(one_node):
+    import gc
+
+    t0 = time.monotonic()
+    trace = one_node.trace_recorder.maybe_start("t", "q")
+    assert t0 <= trace.start_mono <= time.monotonic()
+    gc.collect()
+    gauges = _get_json(f"localhost:{one_node.port}", "/debug/vars")["gauges"]
+    assert gauges["gcCollectionsGen2"] >= 1 and gauges["gcPauseMs"] > 0
+
+
+def test_debug_profile_shows_the_spans_as_ranges(tmp_path):
+    import threading
+
+    s = _engine_node(tmp_path)
+    try:
+        h = f"localhost:{s.port}"
+        got = {}
+
+        def capture():
+            req = urllib.request.Request(f"http://{h}/debug/profile?seconds=2",
+                                         data=b"", method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got.update(json.load(r))
+
+        th = threading.Thread(target=capture)
+        th.start()
+        c = InternalClient()
+        deadline = time.monotonic() + 60
+        row = 0
+        while th.is_alive() and time.monotonic() < deadline:
+            c.query(h, "t", f"Count(Intersect(Row(f={row % 4}), Row(g={row // 4 % 4})))")
+            c.query(h, "t", f"Set({10000 + row}, g=3)")  # defeats the memo
+            row += 1
+        th.join(timeout=60)
+        with open(f"{got['path']}/trace.json") as f:
+            names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
+        for name in ("device.dispatch",) + ENGINE_SPANS[:3]:
+            assert name in names, name
+        # Outside a capture no range is opened.
+        from pilosa_tpu_torch.obs import trace as trace_mod
+
+        assert trace_mod._profile_range is None
+    finally:
+        s.close()

@@ -5,9 +5,10 @@ jax-free zones, R8's and R9's judged modules, R11's config surface), so
 pointed at `pilosa_tpu_torch/` as it stands most rules would lint
 nothing. The port's package is therefore staged as `pilosa_tpu/` under a
 temporary root, beside a copy of `docs/` (R6's failpoint table, R7's
-span table) and the port's tests (R6's activation specs), and that root
-is linted. Every rule runs; the tree must have zero unannotated
-violations. A planted violation proves the staged tree is really judged.
+span table, with the port's own span rows from
+`pilosa_tpu_torch/obs/README.md` appended) and the port's tests (R6's
+activation specs), and that root is linted. Every rule runs; the tree
+must have zero unannotated violations. A planted violation proves the staged tree is really judged.
 
 The rule that cannot apply to the port, and why (it runs, and finds
 nothing to judge): R8 (guarded materialization) judges jax's async
@@ -42,6 +43,12 @@ def stage(root):
     shutil.copytree(os.path.join(REPO_ROOT, "pilosa_tpu_torch"),
                     os.path.join(root, "pilosa_tpu"), ignore=ignore)
     shutil.copytree(os.path.join(REPO_ROOT, "docs"), os.path.join(root, "docs"))
+    # The spans only the port records are documented beside it; R7 reads
+    # them from the staged span table.
+    with open(os.path.join(REPO_ROOT, "pilosa_tpu_torch", "obs", "README.md")) as f:
+        port_doc = f.read()
+    with open(os.path.join(root, "docs", "observability.md"), "a") as f:
+        f.write("\n" + port_doc)
     os.makedirs(os.path.join(root, "tests"))
     for name in os.listdir(os.path.join(REPO_ROOT, "tests")):
         if name.startswith("test_torch_") and name.endswith(".py"):
