@@ -716,7 +716,7 @@ def test_concurrent_misses_gather_once_like_jax(holders, engines, what):
 
         def run():
             try:
-                start.wait()
+                start.wait(timeout=60)
                 if what == "leaf":
                     arr = eng._gather_leaf("i", leaves[0], shards)
                 else:
@@ -730,6 +730,7 @@ def test_concurrent_misses_gather_once_like_jax(holders, engines, what):
             t.start()
         for t in threads:
             t.join(timeout=60)
+            assert not t.is_alive(), t.name
         assert not errors, errors
         assert len(out) == 8 and all(np.array_equal(o, out[0]) for o in out)
         snap = eng.snapshot()

@@ -575,7 +575,13 @@ def test_sigkill_mid_background_snapshot(tmp_path):
         cols = np.tile(np.arange(50_000, dtype=np.uint64), 4)
         fld.import_bits(rows, cols)  # 1.6 MB WAL record: policy fires
         print("acked", flush=True)
-        time.sleep(30)  # the snapshotter thread crashes the process
+        # The snapshotter thread crashes the process at the rename; a
+        # snapshot that ends any other way ends the wait at once.
+        done = h.snapshotter.counters
+        deadline = time.monotonic() + 30
+        while (done["snapshots_taken"] + done["snapshot_errors"] == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         print("NEVER", flush=True)
     """, data_dir)
     out, err = child.communicate(timeout=120)

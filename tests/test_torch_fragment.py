@@ -416,7 +416,8 @@ def test_concurrent_writes_lose_nothing(tmp_path):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
+        assert not t.is_alive(), t.name
     assert not errs
     assert f.row_count(1) == n_threads * per_thread
     # WAL/snapshot survived the concurrency: reopen and recount.

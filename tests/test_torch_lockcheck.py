@@ -78,10 +78,12 @@ class TestLockOrder:
 
         t1 = threading.Thread(target=ab)
         t1.start()
-        t1.join()
+        t1.join(timeout=10)
+        assert not t1.is_alive()
         t2 = threading.Thread(target=ba)
         t2.start()
-        t2.join()
+        t2.join(timeout=10)
+        assert not t2.is_alive()
 
         fs = lc.findings()
         assert kinds(fs) == ["lock-order-cycle"]
@@ -105,7 +107,8 @@ class TestLockOrder:
         for _ in range(2):
             t = threading.Thread(target=ab)
             t.start()
-            t.join()
+            t.join(timeout=10)
+            assert not t.is_alive()
         with a:
             with b:
                 pass
@@ -243,7 +246,8 @@ class TestBlockingUnderLock:
         t.start()
         mu = threading.Lock()
         with mu:
-            t.join()
+            t.join(timeout=10)
+        assert not t.is_alive()
         fs = lc.findings()
         assert kinds(fs) == ["join-under-lock"]
         assert fs[0]["thread"] == "lc-join-target"
@@ -404,6 +408,7 @@ def _run_instrumented(test_args, out_path, timeout, allow_test_failures=False,
 
 
 @needs_own_install  # recursion guard: never re-spawn from inside a run
+@pytest.mark.time_limit(600)  # its instrumented run's own bound
 def test_instrumented_smoke_chaos_tier_rebalance(tmp_path):
     """Tier-1 enforcement over the port's server (device cpu): the
     concurrency-heavy port test files run fully instrumented under the
@@ -430,6 +435,7 @@ def test_instrumented_smoke_chaos_tier_rebalance(tmp_path):
 
 @needs_own_install
 @pytest.mark.slow
+@pytest.mark.time_limit(900)  # its instrumented run's own bound
 def test_instrumented_full_suite(tmp_path):
     """The whole tier-1 suite under instrumentation (slow: ~2x the plain
     runtime). Run locally before touching lock topology:

@@ -568,7 +568,9 @@ def test_parity_tier(write_holders, n, monkeypatch):
     """A leaf cache of two planes over a sweep of six rows: evicted planes
     demote into the host tier and promote back, with equal answers and
     equal tier hits in both packages (byte budgets of padded planes, the
-    same in both)."""
+    same in both). Each count's demotions are captured before the next
+    count runs: a re-touch that races the demote worker regathers, and
+    the hits would depend on each package's worker keeping pace."""
     monkeypatch.setenv("PILOSA_MEMO_ENTRIES", "0")
     plane = tmesh.pad_shards(N_SHARDS, n) * 32768 * 4
     got = {}
@@ -586,7 +588,7 @@ def test_parity_tier(write_holders, n, monkeypatch):
                 for r in range(N_ROWS):
                     answers.append(int(e.count_async(
                         "i", pk.parse(f"Row(f={r})").calls[0], SHARDS)))
-                e.tier.drain()
+                    assert e.tier.drain()
             got[pk.name] = (answers, counters(e, base),
                             {k: e.tier.snapshot()[k] for k in ("promotions_host",)})
         finally:

@@ -94,16 +94,29 @@ def tiny_engine(make, pk, holder, n_keep, n_shards, tier=None, **tier_kw):
         tier_config=tier)
 
 
-def sweep(pk, eng, rows, shards, index="i"):
-    return [int(eng.count(index, pk.parse(f"Row(f={r})").calls[0], shards))
-            for r in rows]
+def sweep(pk, eng, rows, shards, index="i", settle=True):
+    """Counts of `rows`. With `settle`, each count's demotions are
+    captured before the next count runs: a re-touch that races the
+    asynchronous demote worker misses the tier and regathers (never
+    wrong), so otherwise a sweep's tier counters would depend on each
+    package's worker keeping pace."""
+    out = []
+    for r in rows:
+        out.append(int(eng.count(index, pk.parse(f"Row(f={r})").calls[0],
+                                 shards)))
+        assert not settle or eng.tier.drain()
+    return out
 
 
-def sweep_async(pk, eng, rows, shards, index="i"):
+def sweep_async(pk, eng, rows, shards, index="i", settle=True):
     """tests/test_tier.py's sweep: count_async's device scalar, read back
-    through numpy."""
-    return [int(np.asarray(eng.count_async(
-        index, pk.parse(f"Row(f={r})").calls[0], shards))) for r in rows]
+    through numpy; `settle` as in sweep()."""
+    out = []
+    for r in rows:
+        out.append(int(np.asarray(eng.count_async(
+            index, pk.parse(f"Row(f={r})").calls[0], shards))))
+        assert not settle or eng.tier.drain()
+    return out
 
 
 def tier_counters(eng):
@@ -439,7 +452,8 @@ def _torn_plane_churn(holders, engines, sweep_fn):
     try:
         deadline = time.monotonic() + 2.0
         while time.monotonic() < deadline and not errors:
-            for r, got in zip(range(n_rows), sweep_fn(TORCH, eng, range(n_rows), shards)):
+            got_rows = sweep_fn(TORCH, eng, range(n_rows), shards, settle=False)
+            for r, got in zip(range(n_rows), got_rows):
                 if (r < 2 and got != len(expected[r])) or got < len(expected[r]):
                     errors.append((r, got, len(expected[r])))
     finally:

@@ -65,7 +65,8 @@ def test_pool_is_per_thread(server):
 
     t = threading.Thread(target=worker)
     t.start()
-    t.join()
+    t.join(timeout=30)
+    assert not t.is_alive()
     assert seen["conn"] is not main_conn
 
 
