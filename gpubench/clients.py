@@ -5,16 +5,20 @@ interpreter lock.
 
     python3 gpubench/clients.py < plan.json > records.json
 
-The plan: {"port", "index", "t0", "t_end", "readers": [[[tag, pql], ...]
-per reader], "rides": [[due, tag, pql], ...]}. Times are CLOCK_MONOTONIC
-seconds, which every process of the machine shares. Each reader waits
-for t0, then sends its list in order, wrapping around, one request after
-the other, until t_end. Each ride due before t_end is sent at its due
-time by a thread of its own, on an idle keep-alive connection or a new
-one, whatever the rides in flight are doing. The records:
+The plan: {"ports", "index", "t0", "t_end", "readers": [[[tag, pql],
+...] per reader], "rides": [[due, tag, pql], ...]}; "ports" are the
+nodes' ports (a plan of one node may give "port" instead). Times are
+CLOCK_MONOTONIC seconds, which every process of the machine shares. Each
+reader waits for t0, then sends its list in order, wrapping around, one
+request after the other, until t_end; reader i sends to node i mod N.
+Each ride due before t_end is sent at its due time by a thread of its
+own, on an idle keep-alive connection to its node or a new one, whatever
+the rides in flight are doing; ride k goes to node k mod N. The records:
 {"reads": [[reader, tag, t_send, t_recv, status, body]], "writes": [[tag,
 due, t_send, t_recv, status, body]]}; a request that raised has status 0
 and the error as its body.
+
+`query_all` is the harness's: it sends the warm-up and the read-back.
 """
 
 import http.client
@@ -22,6 +26,7 @@ import json
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 
 def _send(conn_box, port, path, pql):
@@ -49,17 +54,18 @@ def _sleep_until(t):
 
 
 def run(plan):
-    port = plan["port"]
+    ports = plan.get("ports") or [plan["port"]]
     path = "/index/%s/query" % plan["index"]
     t0, t_end = plan["t0"], plan["t_end"]
     reads = [[] for _ in plan["readers"]]
     writes = []
     rides = plan.get("rides", [])
-    idle = []  # the ingest's keep-alive connections not in use
+    idle = {p: [] for p in ports}  # the ingest's keep-alive connections not in use
     lock = threading.Lock()
 
     def reader(i):
         work = plan["readers"][i]
+        port = ports[i % len(ports)]
         box = [http.client.HTTPConnection("localhost", port, timeout=300)]
         out = reads[i]
         _sleep_until(t0)
@@ -76,15 +82,16 @@ def run(plan):
             box[0].close()
 
     def ride(due, tag, pql):
+        port = ports[tag % len(ports)]
         with lock:
-            box = [idle.pop() if idle else None]
+            box = [idle[port].pop() if idle[port] else None]
         t_send = time.monotonic()
         status, body = _send(box, port, path, pql)
         rec = [tag, due, t_send, time.monotonic(), status, body]
         with lock:
             writes.append(rec)
             if box[0] is not None:
-                idle.append(box[0])
+                idle[port].append(box[0])
 
     def ingest():
         sent = []
@@ -97,8 +104,9 @@ def run(plan):
             sent.append(th)
         for th in sent:
             th.join()
-        for conn in idle:
-            conn.close()
+        for conns in idle.values():
+            for conn in conns:
+                conn.close()
 
     threads = [threading.Thread(target=reader, args=(i,)) for i in range(len(plan["readers"]))]
     if rides:
@@ -108,6 +116,30 @@ def run(plan):
     for th in threads:
         th.join()
     return {"reads": [r for rs in reads for r in rs], "writes": writes}
+
+
+def query_all(ports, index, pqls):
+    """Each query's results (or None) over keep-alive connections, query
+    j to the node of ports[j mod N]: every node in turn."""
+    local = threading.local()
+
+    def one(j, pql):
+        conns = getattr(local, "conns", None)
+        if conns is None:
+            conns = local.conns = {}
+        port = ports[j % len(ports)]
+        conn = conns.get(port)
+        if conn is None:
+            conn = conns[port] = http.client.HTTPConnection("localhost", port, timeout=600)
+        conn.request("POST", "/index/%s/query" % index, body=pql.encode())
+        r = conn.getresponse()
+        body = r.read().decode()
+        if r.status != 200:
+            return None
+        return json.loads(body)["results"]
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(one, range(len(pqls)), pqls))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""One run of one cell: set-up (the port's server on the card, the index
-made from the seed, its planes made resident, a warm-up of the cell's own
-traffic), the measured window, the read-back, the reference's judgement,
-and the result's line.
+"""One run of one cell: set-up (the port's servers on the cards, as the
+configuration's deployment kind starts them, the index made from the
+seed, its planes made resident, a warm-up of the cell's own traffic), the
+measured window, the read-back, the reference's judgement, and the
+result's line.
 
     python3 gpubench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -18,14 +19,12 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from . import spec
+from . import clients, spec
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pilosa_tpu")
 CLIENTS = os.path.join(spec.HERE, "clients.py")
@@ -36,13 +35,18 @@ DRAIN_S = 120.0
 class Hooks:
     """What a test changes in a run: the device (the CPU skips the look
     for a card), the configuration and cell (smaller), and a function
-    called with the server before the traffic (a planted fault)."""
+    called with the server before the traffic (a planted fault). In a
+    deployment of several server processes: each rank's device (all on
+    one card, say) and the name of a fault of gpubench/tests/faults.py
+    that every rank plants on its server before the traffic."""
 
     device: Optional[str] = None
     config: Optional[Callable[[dict], dict]] = None
     cell: Optional[Callable[[dict], dict]] = None
     after_server: Optional[Callable] = None
     shards_per_block: int = 8
+    rank_devices: Optional[List[str]] = None
+    rank_fault: Optional[str] = None
 
 
 def log(msg: str) -> None:
@@ -51,27 +55,6 @@ def log(msg: str) -> None:
 
 def forbidden_modules() -> List[str]:
     return sorted(m for m in sys.modules if m.split(".", 1)[0] in FORBIDDEN)
-
-
-def _http_pool(port: int, index: str, pqls: List[str]) -> List:
-    """Each query's results (or None) over keep-alive connections."""
-    import http.client
-
-    local = threading.local()
-
-    def one(pql):
-        conn = getattr(local, "conn", None)
-        if conn is None:
-            conn = local.conn = http.client.HTTPConnection("localhost", port, timeout=600)
-        conn.request("POST", f"/index/{index}/query", body=pql.encode())
-        r = conn.getresponse()
-        body = r.read().decode()
-        if r.status != 200:
-            return None
-        return json.loads(body)["results"]
-
-    with ThreadPoolExecutor(max_workers=8) as pool:
-        return list(pool.map(one, pqls))
 
 
 def _field_calls(columns, fields: List[str]) -> List[dict]:
@@ -85,11 +68,6 @@ def _field_calls(columns, fields: List[str]) -> List[dict]:
         else:
             calls.append({"agg": "Sum", "field": name, "where": []})
     return calls
-
-
-def _answer(r):
-    """An executor result as the HTTP answer's JSON has it."""
-    return {"value": r.val, "count": r.count} if hasattr(r, "val") else r
 
 
 def _render(traffic, call: dict) -> str:
@@ -154,57 +132,35 @@ def main(argv=None, hooks: Optional[Hooks] = None, t_proc: Optional[float] = Non
 
 
 def _run(args, hooks, bench, entry, cell, cfg, torch, device, on_card, data_dir, t_proc):
-    from pilosa_tpu_torch.ops import kernels
-    from pilosa_tpu_torch.server.server import Server
-
-    from . import check, datagen, devtrace, load, probes, reference
+    from . import check, datagen, reference
 
     phases: Dict[str, float] = {}
     t = time.monotonic()
     phases["start"] = t - t_proc
-    srv = Server(data_dir=data_dir, port=0, device=device)
-    srv.open()
     columns = datagen.Columns(cfg, args.seed, device, hooks.shards_per_block)
     index = cfg["index"]
-    loader = load.Loader(srv.holder, columns)
-    loader.load()
-    if on_card:
-        torch.cuda.synchronize(device)
-    phases["load"] = time.monotonic() - t
-    log(f"loaded {columns.n_columns} columns, {columns.n_shards} shards: "
-        f"{loader.counts} containers in {phases['load']:.1f} s")
+    node = spec.deployment(cfg.get("deployment_kind", spec.DEFAULT_DEPLOYMENT)).Deployment(
+        args, hooks, cfg, columns, torch, device, on_card, data_dir, log)
+    node.start(phases, t)
 
-    # The set-up reads every row the cell's traffic reads into the leaf
-    # cache, as a serving node holds its index, and checks those answers.
+    # The set-up reads every row the cell's traffic reads into the
+    # servers' caches, as serving nodes hold their index, and checks
+    # those answers.
     t = time.monotonic()
     traffic = spec.traffic(cell["traffic_kind"])
     warm_calls = _field_calls(columns, cell["warm_fields"])
-    warm_answers = [_answer(r) for c in warm_calls
-                    for r in srv.executor.execute(index, _render(traffic, c))]
-    if on_card:
-        torch.cuda.synchronize(device)
-    phases["resident"] = time.monotonic() - t
-    if hooks.after_server:
-        hooks.after_server(srv)
+    warm_answers = node.warm(index, [_render(traffic, c) for c in warm_calls], phases, t)
 
     plan = traffic.plan(cell, columns, args.seed, cell["warmup_s"] + args.seconds)
     calls_of = {pql: len(plan["requests"][tag]["calls"])
                 for work in plan["readers"] for tag, pql in work}
-    launches = traces = window = None
-    if args.trace:
-        launches = probes.Launches(kernels)
-        launches.install()
-        traces = probes.Traces(srv.trace_recorder)
-        traces.install()
-        if on_card:
-            window = devtrace.DeviceWindow(torch)
-            window.start()
+    node.arm(args.trace)
     t_start = time.monotonic() + START_MARGIN_S
     t_win0 = t_start + cell["warmup_s"]
     t_win1 = t_win0 + args.seconds
     ing = cell.get("ingest") or {}
     client_plan = {
-        "port": srv.port, "index": index, "t0": t_start, "t_end": t_win1,
+        "ports": node.ports, "index": index, "t0": t_start, "t_end": t_win1,
         "readers": plan["readers"],
         "rides": [[t_start + k / ing["rate_per_s"], k, r["pql"]]
                   for k, r in enumerate(plan["rides"])]}
@@ -219,36 +175,15 @@ def _run(args, hooks, bench, entry, cell, cfg, torch, device, on_card, data_dir,
             _sleep_until(t_win0)
             setup_s = time.monotonic() - t_proc
             phases["warmup"] = time.monotonic() - t_start
-            before = probes.counters(srv, kernels)
-            gc_pauses = probes.GcPauses()
-            sampler = probes.Sampler(srv, gc_pauses, proc.pid)
-            sampler.start()
-            peak_pre = 0
-            if on_card:
-                peak_pre = torch.cuda.max_memory_allocated(device)
-                torch.cuda.reset_peak_memory_stats(device)
-            if args.trace:
-                if window is not None:
-                    window.open()
-                launches.active = traces.active = True
+            node.open(proc.pid)
             _sleep_until(t_win1)
-            if args.trace:
-                launches.active = traces.active = False
-                if window is not None:
-                    window.close()
-                    window.stop()
-            after = probes.counters(srv, kernels)
-            sampler.stop()
-            gc_pauses.close()
-            peak_window = torch.cuda.max_memory_allocated(device) if on_card else 0
+            node.close()
             proc.wait(timeout=args.seconds + cell["warmup_s"] + DRAIN_S)
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    if launches is not None:
-        launches.uninstall()
-        traces.uninstall()
+    node.disarm()
     if proc.returncode != 0:
         with open(err_path) as f:
             raise RuntimeError(f"the client process failed ({proc.returncode}): {f.read()[-2000:]}")
@@ -256,16 +191,11 @@ def _run(args, hooks, bench, entry, cell, cfg, torch, device, on_card, data_dir,
         records = json.load(f)
 
     readback_calls = _field_calls(columns, columns.loaded) if cell.get("readback") else []
-    readback_answers = _http_pool(srv.port, index, [_render(traffic, c) for c in readback_calls])
-    memory_peak = max(peak_pre, peak_window,
-                      torch.cuda.max_memory_allocated(device) if on_card else 0)
-    dev_name = torch.cuda.get_device_name(device) if on_card else str(device)
-    containers = dict(loader.counts)
-    srv.close()
-    del srv, loader
+    readback_answers = clients.query_all(node.ports, index,
+                                        [_render(traffic, c) for c in readback_calls])
+    served = node.finish()
+    del node
     gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
 
     # ---- the reference, once the program's state is freed
     t = time.monotonic()
@@ -303,31 +233,22 @@ def _run(args, hooks, bench, entry, cell, cfg, torch, device, on_card, data_dir,
     rec = {
         "seconds": args.seconds, "reads": in_window, "good_calls": good_calls,
         "writes": [w for w in records["writes"] if t_win0 <= w[1] < t_win1],
-        "setup_s": setup_s, "counters": probes.delta(after, before),
-        "peak_window_bytes": peak_window, "calls_of": lambda pql: calls_of.get(pql, 0),
+        "setup_s": setup_s, "counters": served["counters"],
+        "peak_window_bytes": served["peak_window"],
+        "calls_of": lambda pql: calls_of.get(pql, 0),
         "read_traces": [], "launch_bytes": {}, "device": None,
     }
-    device_info = {"platform": "gpu" if on_card else device.type, "kind": dev_name,
-                   "count": 1, "memory_peak_bytes": int(memory_peak)}
+    device_info = {"platform": "gpu" if on_card else device.type, "kind": served["kind"],
+                   "count": served["count"], "memory_peak_bytes": int(served["memory_peak"])}
     breakdown = None
     if args.trace:
-        rec["read_traces"] = [tr for tr in traces.kept
+        rec["read_traces"] = [tr for tr in served["traces"]
                               if tr[0] in calls_of and t_win0 <= tr[1] + tr[2] < t_win1]
-        rec["launch_bytes"] = launches.bytes_by_family()
-        if window is not None:
-            intervals, offset = window.intervals()
-            lo, hi = window.t0, window.t1
-            busy = devtrace.busy_s(intervals, lo, hi)
-            rec["device"] = {"intervals": intervals, "t0": lo, "t1": hi,
-                             "busy_s": busy, "window_s": hi - lo}
-            device_info["busy_s"] = busy
-            device_info["window_s"] = hi - lo
-            spans = [(sp[0], sp[1], sp[2]) for tr in traces.kept for sp in tr[3]]
-            breakdown = {"device_ops": devtrace.top_ops(intervals, lo, hi),
-                         "idle_gaps": devtrace.label_gaps(devtrace.gaps(intervals, lo, hi),
-                                                          spans)}
-            log(f"device window {hi - lo:.3f} s, busy {busy:.4f} s, clock {offset}, "
-                f"launches {launches.count_by_family()}")
+        rec["launch_bytes"] = served["launch_bytes"]
+        if served["device"] is not None:
+            rec["device"] = served["device"]
+            device_info.update(served["device_line"])
+            breakdown = served["breakdown"]
     section = "per_layer" if args.trace else "end_to_end"
     metrics = {}
     for m in spec.metrics_for(bench, args.workload, section):
@@ -346,12 +267,13 @@ def _run(args, hooks, bench, entry, cell, cfg, torch, device, on_card, data_dir,
         "writes": len(records["writes"]), "writes_in_window": len(win_writes),
         "write_send_late_max_s": max((w[2] - w[1] for w in records["writes"]), default=None),
         "counters": {k: v for k, v in rec["counters"].items()},
-        "gc": gc_pauses.snapshot(),
-        "containers": containers,
+        "gc": served["gc"],
+        "containers": served["containers"],
+        **served["run"],
     }
     line["checks"] = {k: {"value": v, "sense": sense, "limit": lim}
                       for k, (v, sense, lim) in checks.items()}
-    by_second = sampler.by_second()
+    by_second = served["by_second"]
     by_second["calls"] = _per_second(in_window, t_win0, args.seconds)
     by_second["writes_acked"] = _per_second([[0, 0, 0, w[3]] for w in win_writes], t_win0,
                                             args.seconds)

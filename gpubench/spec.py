@@ -1,7 +1,7 @@
 """What a run reads: BENCHMARK.json, the cell's file, its configuration's
 file, and the modules named by them. Everything is found by name, so a
-new configuration, cell, traffic kind, column kind or per-layer metric is
-a new file and no edit."""
+new configuration, cell, traffic kind, column kind, deployment kind or
+per-layer metric is a new file and no edit."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Dict, List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+DEFAULT_DEPLOYMENT = "one_node"
 
 
 def _load_json(path: str) -> dict:
@@ -61,6 +62,13 @@ def traffic(kind: str):
 def column_kind(kind: str):
     """A column generator: gpubench/columns/<kind>.py."""
     return _module("columns", kind)
+
+
+def deployment(kind: str):
+    """A deployment kind, how a run starts the system and reads it:
+    gpubench/deployments/<kind>.py. A configuration names its kind under
+    `deployment_kind`; without one it is DEFAULT_DEPLOYMENT."""
+    return _module("deployments", kind)
 
 
 def metric(name: str):

@@ -32,6 +32,26 @@ def drop_writes(srv):
     ex._execute_set_value = lambda index, c, opt: None
 
 
+def drop_forwarded_writes(srv):
+    """Writes forwarded from the node that received them to the shard's
+    owner acknowledged there and never applied: the guarantee of a
+    cluster's configuration (an acknowledged write is visible to every
+    later read at every node) broken on the owner's side."""
+    ex = srv.executor
+    set_bit, set_value = ex._execute_set_bit, ex._execute_set_value
+    ex._execute_set_bit = lambda index, c, opt: True if opt.remote else set_bit(index, c, opt)
+    ex._execute_set_value = (lambda index, c, opt:
+                             None if opt.remote else set_value(index, c, opt))
+
+
+def skip_reduce(srv):
+    """The exchange between the ranks left out: each rank's part of a
+    collective entry stands for the whole job's (in this process)."""
+    from pilosa_tpu_torch.parallel import distributed
+
+    distributed.all_reduce_sum = lambda values: values
+
+
 def _shards_cut(srv, keep):
     ex = srv.executor
     orig = ex._execute_call
@@ -51,4 +71,5 @@ def half_shards(srv):
 
 
 ALL = {"alter_answers": alter_answers, "drop_writes": drop_writes,
-       "half_shards": half_shards}
+       "half_shards": half_shards, "drop_forwarded_writes": drop_forwarded_writes,
+       "skip_reduce": skip_reduce}

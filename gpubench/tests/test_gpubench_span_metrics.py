@@ -70,5 +70,7 @@ def test_the_new_metrics_are_declared_beside_the_old():
                  "dispatch_self_ms"):
         m = bench["per_layer"][names.index(name)]
         assert m["source"] == "program_span" and m["moves"] == "peak_mem_gib"
-        assert "workloads" not in m
+        # Every cell whose requests pass through `device.dispatch` reads
+        # them: the one-node cell (the collective plane's cell does not).
+        assert "taxi-1b.groupby-live" in m.get("workloads", ["taxi-1b.groupby-live"])
         assert names.index(name) > names.index("device_idle_pct")
